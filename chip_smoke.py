@@ -1,0 +1,509 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port on one NVIDIA H100 and check it end to end.
+
+    python3 chip_smoke.py          # from the repository root, no arguments
+
+1. Device: the card's name and power limit (``nvidia-smi``).
+2. Build: every CUDA kernel of ``src/repro_torch/csrc`` with ``nvcc``
+   (``-Xptxas -v`` output printed).
+3. Kernels: each hand-written kernel against its plain PyTorch version on
+   the card at the serve path's shapes (and the paper's Table V GEMMs),
+   with the error against a stated tolerance, and timed with CUDA events
+   beside its roofline bound, its plain version and one PyTorch library
+   call computing the same function (a yardstick the port never calls).
+4. Serve: SmolLM-360M FULL (32 layers, d_model 960, bf16, seeded random
+   weights) replays ``benchmarks/traces/smoke6.jsonl`` through the port's
+   continuous-batching ``ServeEngine`` with every GEMM, prefill attention
+   and decode attention on the kernels — launch counts are reset just
+   before and read just after — then ``--verify``'s check (bit-identical
+   to a one-slot one-shot engine) and a kernel-vs-plain-GEMM logit check.
+5. A ``{"kernels": [...]}`` JSON line, the card line, and last the
+   ``{"ok": true, "device": ...}`` line.
+
+Any failure raises and exits non-zero before the last line is printed.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+
+from repro_torch import configs as C  # noqa: E402
+from repro_torch import kernels as K  # noqa: E402
+from repro_torch.configs.gama_paper import ARRAY_GEMMS  # noqa: E402
+from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels.decode_attention import flash_decode  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.gemm import gama_gemm  # noqa: E402
+from repro_torch.launch import serve as S  # noqa: E402
+from repro_torch.models import decode_step, forward, init_cache, init_params  # noqa: E402
+from repro_torch.models.layers import set_gemm_mode  # noqa: E402
+from repro_torch.serving.engine import ServeConfig, ServeEngine  # noqa: E402
+
+# Published H100 SXM peaks (NVIDIA data sheet; dense, 700 W): device
+# memory bytes/s, and operations/s by input type.
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {torch.bfloat16: 989e12, torch.float32: 67e12,
+              torch.int8: 1979e12}
+L2_BYTES = 50 * 2 ** 20
+DEV = "cuda"
+
+SOURCES = {"gama_gemm": "src/repro_torch/csrc/gemm.cu",
+           "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+           "flash_decode": "src/repro_torch/csrc/decode_attention.cu"}
+REPLACES = {"gama_gemm": "src/repro/kernels/gemm.py:113",
+            "flash_attention": "src/repro/kernels/flash_attention.py:145",
+            "flash_decode": "src/repro/kernels/decode_attention.py:127"}
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# Timing and bounds
+# ---------------------------------------------------------------------------
+
+
+def device_ms(make_call, input_bytes: int, reps: int = 24) -> float:
+    """Device time of one call: ``reps`` calls captured in a CUDA graph
+    (so host dispatch does not count), replayed 5 times between CUDA
+    events.  The calls rotate over copies of the inputs until they cover
+    twice the L2 (at most 64 copies), so weights come from device memory
+    as on the serve path, where 32 layers of weights pass through L2."""
+    copies = max(1, min(64, math.ceil(2 * L2_BYTES / max(1, input_bytes))))
+    calls = [make_call() for _ in range(copies)]
+    reps = max(reps, copies)
+    for c in calls[:2]:
+        c()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            calls[i % copies]()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (5 * reps)
+
+
+def bound(nbytes: float, ops_: float, dtype: torch.dtype):
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops_ / PEAK_OPS_S[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def max_err(got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
+    """Max |got - want|; fails unless |got - want| <= tol * (1 + |want|)
+    elementwise (tol = 0: exact)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"shape/dtype {tuple(got.shape)} {got.dtype} vs "
+                             f"{tuple(want.shape)} {want.dtype}")
+    g, w = got.double(), want.double()
+    if not torch.isfinite(g).all():
+        raise AssertionError("kernel output has non-finite values")
+    err = (g - w).abs()
+    if (err > tol * (1 + w.abs())).any():
+        raise AssertionError(f"max abs err {err.max().item():.3e} over "
+                             f"tolerance {tol:g} * (1 + |plain|)")
+    return err.max().item()
+
+
+# ---------------------------------------------------------------------------
+# 3. Kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+RESULTS = {name: {"max_abs_err": 0.0} for name in SOURCES}
+
+
+def _gen(seed):
+    return torch.Generator(device=DEV).manual_seed(seed)
+
+
+def _rand(shape, dtype, gen, scale=1.0):
+    if dtype == torch.int8:
+        return torch.randint(-128, 128, shape, generator=gen, device=DEV,
+                             dtype=torch.int8)
+    return (torch.randn(shape, generator=gen, device=DEV) * scale).to(dtype)
+
+
+def check_gemm(label, m, k, n, dtype, out_dtype, scale, tol, seed, main=False):
+    gen = _gen(seed)
+    a = _rand((m, k), dtype, gen)
+    b = _rand((k, n), dtype, gen, scale=k ** -0.5)
+    got = gama_gemm(a, b, out_dtype=out_dtype, scale=scale)
+    want = ops.matmul(a, b, out_dtype=out_dtype, scale=scale, mode="ref")
+    torch.cuda.synchronize()
+    err = max_err(got, want, tol)
+    RESULTS["gama_gemm"]["max_abs_err"] = max(
+        RESULTS["gama_gemm"]["max_abs_err"], err)
+    elt = a.element_size()
+    nbytes = (m * k + k * n) * elt + m * n * got.element_size()
+
+    def mk(fn):
+        def make():
+            bb = _rand((k, n), dtype, gen, scale=k ** -0.5)
+            return lambda: fn(a, bb)
+        return make
+
+    kern = device_ms(mk(lambda x, y: gama_gemm(x, y, out_dtype=out_dtype,
+                                              scale=scale)), nbytes)
+    plain = device_ms(mk(lambda x, y: ops.matmul(
+        x, y, out_dtype=out_dtype, scale=scale, mode="ref")), nbytes)
+    lib = None
+    if dtype != torch.int8 or (out_dtype == torch.int32 and m > 16
+                               and k % 8 == 0 and n % 8 == 0):
+        lib_fn = (torch.matmul if dtype != torch.int8 else torch._int_mm)
+        lib = device_ms(mk(lib_fn), nbytes)
+    bms, by = bound(nbytes, 2.0 * m * k * n, dtype)
+    print(f"[kernel] gama_gemm {label} M={m} K={k} N={n} "
+          f"{str(dtype)[6:]}->{str(out_dtype)[6:]} max_abs_err={err:.3e} "
+          f"tol={tol:g}*(1+|plain|) kernel_ms={kern:.5f} "
+          f"plain_ms={plain:.5f} "
+          f"library_ms={'null' if lib is None else f'{lib:.5f}'} "
+          f"bound_ms={bms:.5f} ({by})")
+    if main:
+        RESULTS["gama_gemm"].update(ms=kern, plain_ms=plain, library_ms=lib,
+                                    bound_ms=bms, bound_by=by,
+                                    shape=f"M={m} K={k} N={n} {label}")
+
+
+def _attn_bound(b, hq, hkv, sq, d, elt, keys_per_row, kv_rows):
+    """Bytes: q and out once, K and V rows [0, kv_rows) once per KV head;
+    operations: 4 * D per (query row, key it attends to)."""
+    nbytes = (2 * b * hq * sq * d + 2 * b * hkv * kv_rows * d) * elt
+    return nbytes, 4.0 * d * hq * b * keys_per_row
+
+
+def check_attention(label, b, hq, hkv, sq, sk, d, q_offset, dtype, tol, seed,
+                    main=False):
+    gen = _gen(seed)
+    q = _rand((b, hq, sq, d), dtype, gen)
+    k = _rand((b, hkv, sk, d), dtype, gen)
+    v = _rand((b, hkv, sk, d), dtype, gen)
+    got = flash_attention(q, k, v, causal=True, q_offset=q_offset)
+    want = ops.attention(q, k, v, causal=True, q_offset=q_offset, mode="ref")
+    torch.cuda.synchronize()
+    err = max_err(got, want, tol)
+    r = RESULTS["flash_attention"]
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    per_row = [min(sk, q_offset + i + 1) for i in range(sq)]
+    nbytes, flops = _attn_bound(b, hq, hkv, sq, d, q.element_size(),
+                                sum(per_row), max(per_row))
+    kern = device_ms(lambda: (lambda: flash_attention(
+        q, k, v, causal=True, q_offset=q_offset)), nbytes)
+    plain = device_ms(lambda: (lambda: ops.attention(
+        q, k, v, causal=True, q_offset=q_offset, mode="ref")), nbytes)
+    lib = None
+    if q_offset == 0:
+        # SDPA's causal mask is top-left aligned: query i sees keys <= i,
+        # the same function as q_offset = 0.  KV expanded to Hq up front.
+        kq = k.repeat_interleave(hq // hkv, 1)
+        vq = v.repeat_interleave(hq // hkv, 1)
+        lib = device_ms(lambda: (lambda: F.scaled_dot_product_attention(
+            q, kq, vq, is_causal=True)), nbytes)
+    bms, by = bound(nbytes, flops, dtype)
+    print(f"[kernel] flash_attention {label} B={b} Hq={hq} Hkv={hkv} Sq={sq} "
+          f"Sk={sk} D={d} q_offset={q_offset} {str(dtype)[6:]} "
+          f"max_abs_err={err:.3e} tol={tol:g}*(1+|plain|) "
+          f"kernel_ms={kern:.5f} "
+          f"plain_ms={plain:.5f} library_ms="
+          f"{'null' if lib is None else f'{lib:.5f}'} bound_ms={bms:.6f} "
+          f"({by})")
+    if main:
+        r.update(ms=kern, plain_ms=plain, library_ms=lib, bound_ms=bms,
+                 bound_by=by, shape=f"B={b} Hq={hq} Hkv={hkv} Sq={sq} "
+                                    f"Sk={sk} D={d}")
+
+
+def check_decode(label, hq, hkv, sk, d, lengths, dtype, tol, seed,
+                 main=False):
+    gen = _gen(seed)
+    b = len(lengths)
+    q = _rand((b, hq, d), dtype, gen)
+    k = _rand((b, hkv, sk, d), dtype, gen)
+    v = _rand((b, hkv, sk, d), dtype, gen)
+    length = torch.tensor(lengths, dtype=torch.int32, device=DEV)
+    got = flash_decode(q, k, v, length=length)
+    want = ops.decode(q, k, v, length=length, mode="ref")
+    torch.cuda.synchronize()
+    err = max_err(got, want, tol)
+    r = RESULTS["flash_decode"]
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    elt = q.element_size()
+    nbytes = (2 * b * hq * d + 2 * hkv * d * sum(lengths)) * elt + 4 * b
+    flops = 4.0 * d * hq * sum(lengths)
+    kern = device_ms(lambda: (lambda: flash_decode(q, k, v, length=length)),
+                     nbytes)
+    plain = device_ms(lambda: (lambda: ops.decode(q, k, v, length=length,
+                                                  mode="ref")), nbytes)
+    kq = k.repeat_interleave(hq // hkv, 1)
+    vq = v.repeat_interleave(hq // hkv, 1)
+    mask = (torch.arange(sk, device=DEV)[None, :] < length[:, None])
+    mask = mask[:, None, None, :]
+    lib = device_ms(lambda: (lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kq, vq, attn_mask=mask)), nbytes)
+    bms, by = bound(nbytes, flops, dtype)
+    print(f"[kernel] flash_decode {label} B={b} Hq={hq} Hkv={hkv} Sk={sk} "
+          f"D={d} lengths={lengths} {str(dtype)[6:]} max_abs_err={err:.3e} "
+          f"tol={tol:g}*(1+|plain|) kernel_ms={kern:.5f} "
+          f"plain_ms={plain:.5f} "
+          f"library_ms={lib:.5f} bound_ms={bms:.6f} ({by})")
+    if main:
+        r.update(ms=kern, plain_ms=plain, library_ms=lib, bound_ms=bms,
+                 bound_by=by, shape=f"B={b} Hq={hq} Hkv={hkv} Sk={sk} D={d} "
+                                    f"lengths={lengths}")
+
+
+def kernel_phase(cfg, max_len):
+    # bf16 GEMMs: both sides sum in f32 in another order and round once to
+    # bf16, so they may differ by one bf16 ulp (< 2**-7 relative).
+    bf16_tol, f32_tol = 1e-2, 1e-4
+    for name, (m, k, n) in ARRAY_GEMMS.items():
+        out = {"int8-int32": torch.int32, "int8-int16": torch.int16,
+               "int8-int8": torch.int8, "bf16-bf16": torch.bfloat16}[name]
+        dtype = torch.bfloat16 if name.startswith("bf16") else torch.int8
+        # Scales that put part of each int16/int8 output in saturation.
+        scale = {"int8-int16": 0.05, "int8-int8": 0.0005}.get(name, 1.0)
+        check_gemm(f"tableV:{name}", m, k, n, dtype, out, scale,
+                   0 if dtype == torch.int8 else bf16_tol, seed=len(name))
+    check_gemm("ragged-f32", 257, 129, 127, torch.float32, torch.float32,
+               1.0, f32_tol, seed=3)
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    qn, kvn = cfg.n_heads * cfg.d_head, cfg.n_kv_heads * cfg.d_head
+    shapes = [("wq", d, qn), ("wk/wv", d, kvn), ("wo", qn, d),
+              ("gate/up", d, f), ("down", f, d), ("lm_head", d, v)]
+    for m in (1, 3, 16):
+        for label, k, n in shapes:
+            check_gemm(f"smollm:{label}", m, k, n, torch.bfloat16,
+                       torch.bfloat16, 1.0, bf16_tol, seed=m + k + n,
+                       main=(m == 3 and label == "lm_head"))
+    # Attention: bf16 outputs round once from f32 math (<= 1 ulp apart),
+    # f32 at the JAX suite's 2e-5.
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    check_attention("prefill", 1, hq, hkv, 16, max_len, dh, 0,
+                    torch.bfloat16, 2e-2, seed=11, main=True)
+    check_attention("q_offset", 1, hq, hkv, 16, 80, dh, 64, torch.bfloat16,
+                    2e-2, seed=12)
+    check_attention("d128", 1, 32, 8, 16, 48, 128, 0, torch.bfloat16, 2e-2,
+                    seed=13)
+    check_attention("f32-ragged", 2, 8, 2, 33, 77, 64, 44, torch.float32,
+                    2e-5, seed=14)
+    check_decode("serve", hq, hkv, max_len, dh, [28, 20, 13], torch.bfloat16,
+                 2e-2, seed=21, main=True)
+    check_decode("zero-length", hq, hkv, max_len, dh, [max_len, 0, 7],
+                 torch.bfloat16, 2e-2, seed=22)
+    check_decode("d128", 32, 8, 100, 128, [100, 13, 0], torch.bfloat16, 2e-2,
+                 seed=23)
+    check_decode("f32", hq, hkv, 70, dh, [70, 33, 1], torch.float32, 2e-5,
+                 seed=24)
+
+
+# ---------------------------------------------------------------------------
+# 4. Serve
+# ---------------------------------------------------------------------------
+
+
+def logits_kernel_vs_ref(cfg, params, prompt, max_len, steps=4):
+    """One prefill plus ``steps`` greedy decode steps on a one-slot cache,
+    in gemm mode ``mode``; returns the stacked logits and the launch
+    counts of the prefill and of the first decode step."""
+    def run(mode):
+        set_gemm_mode(mode)
+        caches = init_cache(cfg, 1, max_len, DEV)
+        bucket = 16
+        toks = torch.zeros((1, bucket), dtype=torch.long, device=DEV)
+        toks[0, :len(prompt)] = torch.as_tensor(prompt, device=DEV)
+        c0 = K.launch_counts()
+        lg, caches = forward(params, {"tokens": toks}, cfg, caches=caches,
+                             cache_pos=0)
+        c1 = K.launch_counts()
+        out = [lg[0, len(prompt) - 1]]
+        tok = torch.argmax(out[-1])[None]
+        for i in range(steps):
+            pos = torch.tensor([len(prompt) + i], dtype=torch.int32,
+                               device=DEV)
+            lg, caches = decode_step(params, tok, pos, cfg, caches)
+            if i == 0:
+                c2 = K.launch_counts()
+            out.append(lg[0])
+            tok = torch.argmax(lg, -1)
+        torch.cuda.synchronize()
+        per_prefill = {n: c1[n] - c0[n] for n in c0}
+        per_decode = {n: c2[n] - c1[n] for n in c0}
+        return torch.stack(out), per_prefill, per_decode
+    kern, per_prefill, per_decode = run("kernel")
+    ref, _, _ = run("ref")
+    set_gemm_mode("kernel")
+    return kern, ref, per_prefill, per_decode
+
+
+def profile_decode(cfg, params, max_len, steps=5):
+    """Where a decode step's time goes: wall time per batched 3-slot
+    decode step (host clock, synchronised) beside the device time of the
+    kernels it ran (``torch.profiler`` CUDA events), by kernel name."""
+    caches = init_cache(cfg, 3, max_len, DEV)
+    tok = torch.zeros(3, dtype=torch.long, device=DEV)
+    pos = torch.tensor([20, 14, 7], dtype=torch.int32, device=DEV)
+    for _ in range(3):
+        decode_step(params, tok, pos, cfg, caches)
+    torch.cuda.synchronize()
+
+    def run():
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            decode_step(params, tok, pos, cfg, caches)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / steps
+
+    wall_ms = run()                        # the profiler off
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        traced_ms = run()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.replace("void ", "").replace(
+                "(anonymous namespace)::", "").split("<")[0].split("(")[0]
+            n, us = by_name.get(name[:60], (0, 0.0))
+            by_name[name[:60]] = (n + 1, us + e.time_range.elapsed_us())
+    if not by_name:
+        print(f"[profile] decode step wall_ms={wall_ms:.3f}; device time not "
+              f"measured (the profiler saw no CUDA events)")
+        return
+    device_ms = sum(us for _, us in by_name.values()) / 1e3 / steps
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    print(f"[profile] decode step (3 slots, smollm-360m FULL): wall_ms="
+          f"{wall_ms:.3f} (profiler off) traced_wall_ms={traced_ms:.3f} "
+          f"device_ms={device_ms:.3f} device_idle_share="
+          f"{1 - device_ms / wall_ms:.3f} kernels_per_step="
+          f"{sum(n for n, _ in by_name.values()) // steps}")
+    for name, (n, us) in top:
+        print(f"[profile]   {name}: {n // steps} per step, "
+              f"{us / 1e3 / steps:.3f} ms per step")
+
+
+def serve_phase(cfg, max_len):
+    set_gemm_mode("kernel")
+    params = init_params(cfg, seed=1, device=DEV)
+    trace = S.load_trace(S.resolve_trace_path("smoke6"), cfg.vocab_size,
+                         seed=0)
+    scfg = ServeConfig(batch_slots=3, max_len=max_len)
+    engine = ServeEngine(cfg, params, scfg)
+    try:
+        S.run_trace(engine, trace, log=None)     # warm-up replay
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        rep = S.run_trace(engine, trace)
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+    finally:
+        engine.close()
+    peak = torch.cuda.max_memory_allocated()
+    if len(rep["results"]) != len(trace):
+        raise AssertionError(f"{len(rep['results'])}/{len(trace)} requests "
+                             f"completed")
+    for tid, toks in rep["results"].items():
+        t = next(x for x in trace if x["id"] == tid)
+        if toks.shape != (t["max_new"],) or not (
+                (toks >= 0) & (toks < cfg.vocab_size)).all():
+            raise AssertionError(f"request {tid}: bad tokens {toks}")
+    print(f"[serve] arch={cfg.name} layers={cfg.n_layers} d_model="
+          f"{cfg.d_model} dtype={cfg.compute_dtype} slots=3 max_len={max_len}"
+          f" requests={len(rep['results'])} tokens={rep['tokens']} "
+          f"wall_s={rep['wall_s']:.4f} tok_s={rep['tok_s']:.2f} "
+          f"itl_p50_ms={rep['p50_ms']:.3f} itl_p99_ms={rep['p99_ms']:.3f} "
+          f"ttft_p50_ms={rep['ttft_p50_ms']:.3f} "
+          f"ttft_p99_ms={rep['ttft_p99_ms']:.3f} "
+          f"decode_steps={rep['decode_steps']} "
+          f"shared_steps={rep['shared_steps']} "
+          f"max_memory_allocated={peak}")
+    print(f"[serve] launches on the main path: {json.dumps(counts)}")
+    missing = [n for n, c in counts.items() if c == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: "
+                             f"{missing}")
+    S._verify(cfg, params, trace, rep["results"], scfg)
+
+    kern, ref, per_prefill, per_decode = logits_kernel_vs_ref(
+        cfg, params, trace[0]["prompt"], max_len)
+    if not torch.isfinite(kern).all():
+        raise AssertionError("non-finite logits")
+    diff = (kern - ref).abs().max().item()
+    same = (kern.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    # Each GEMM path rounds its f32 sum to bf16 (<= 1 ulp apart); the
+    # differences compound over 32 layers of random weights.
+    tol = 0.1
+    print(f"[serve] gemm kernel vs ref: 1 prefill + 4 decode steps, max "
+          f"|logit diff|={diff:.4e} (tol {tol}, logit std "
+          f"{ref.std().item():.3f}), argmax agreement={same:.2f}; launches "
+          f"per prefill {json.dumps(per_prefill)}, per decode step "
+          f"{json.dumps(per_decode)}")
+    if diff > tol:
+        raise AssertionError(f"kernel vs ref logits differ by {diff}")
+    profile_decode(cfg, params, max_len)
+    return counts
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; the port's "
+              "smoke run needs an NVIDIA card", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain f32 stays f32
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    print(f"[device] {card} | torch {torch.__version__} cuda "
+          f"{torch.version.cuda} | {kind} x{torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    logs = _build.build(force=True)
+    for name, log in logs.items():
+        print(f"[build] {name}:\n{log.strip()}")
+    print(f"[build] {len(logs)} libraries in {time.perf_counter() - t0:.1f}s")
+
+    cfg = C.get("smollm_360m")
+    trace = S.load_trace(S.resolve_trace_path("smoke6"), cfg.vocab_size)
+    max_len = max(len(t["prompt"]) + t["max_new"] for t in trace) + 8
+    kernel_phase(cfg, max_len)
+    counts = serve_phase(cfg, max_len)
+
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    line = {"kernels": [dict(
+        name=name, route="cuda", source=SOURCES[name],
+        replaces=REPLACES[name], launches=counts[name],
+        max_abs_err=RESULTS[name]["max_abs_err"],
+        **{k: RESULTS[name][k] for k in keys}) for name in SOURCES]}
+    print("[shapes] " + json.dumps({n: RESULTS[n]["shape"] for n in SOURCES}))
+    print(json.dumps(line))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

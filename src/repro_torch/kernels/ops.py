@@ -1,0 +1,101 @@
+"""Dispatch wrappers around the port's kernels (counterpart of
+``repro/kernels/ops.py``).
+
+``mode`` picks the path for every op:
+
+* ``"auto"``: the hand-written kernel for CUDA tensors, the plain version
+  for CPU tensors;
+* ``"kernel"``: the kernel; CPU tensors raise (a CUDA kernel has no CPU
+  build and no interpret mode);
+* ``"ref"``: the plain PyTorch version, on whatever device the tensors are.
+
+The TPU padding of the reference (tiles, and the GQA group padded to 8
+sublanes) is gone: the CUDA kernels mask their ragged edges themselves.
+The reference's pack-context branch of ``matmul`` (the multi-device pack
+GEMM, ``repro/kernels/ops.py:99-109``) is left out until the multi-device
+slice (ROADMAP Queue A item 12).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.decode_attention import flash_decode
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.gemm import gama_gemm
+
+MODES = ("auto", "kernel", "ref")
+
+
+def _use_kernel(mode: str, *tensors: torch.Tensor) -> bool:
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    if mode == "ref":
+        return False
+    on_cuda = all(t.is_cuda for t in tensors)
+    if mode == "kernel" and not on_cuda:
+        raise ValueError(
+            "mode='kernel' needs CUDA tensors: the port's kernels are CUDA "
+            "C++ for sm_90a and have no CPU build (use 'auto' or 'ref')")
+    return on_cuda
+
+
+def _check_gqa(hq: int, hkv: int) -> None:
+    """GQA maps each KV head to hq/hkv query heads; a non-divisible head
+    count would silently truncate the group — reject it on every path."""
+    if hkv <= 0 or hq % hkv:
+        raise ValueError(
+            f"GQA needs query heads divisible by KV heads, got "
+            f"hq={hq}, hkv={hkv} (hq % hkv = {hq % hkv if hkv else hq})")
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, *,
+           out_dtype: Optional[torch.dtype] = None, scale: float = 1.0,
+           mode: str = "auto") -> torch.Tensor:
+    """GAMA GEMM.  a: (M, K); b: (K, N)."""
+    if not _use_kernel(mode, a, b):
+        return ref.ref_gemm(a, b, out_dtype=out_dtype, scale=scale)
+    return gama_gemm(a, b, out_dtype=out_dtype, scale=scale)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, scale: Optional[float] = None,
+              q_offset: int = 0, kv_len: Optional[int] = None,
+              mode: str = "auto") -> torch.Tensor:
+    """Flash attention.  q: (B, Hq, Sq, D); k/v: (B, Hkv, Sk, D)."""
+    _check_gqa(q.shape[1], k.shape[1])
+    if not _use_kernel(mode, q, k, v):
+        return ref.ref_attention(q, k, v, causal=causal, scale=scale,
+                                 q_offset=q_offset, kv_len=kv_len)
+    return flash_attention(q, k, v, causal=causal, scale=scale,
+                           q_offset=q_offset, kv_len=kv_len)
+
+
+def decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           length: Optional[torch.Tensor] = None,
+           scale: Optional[float] = None, mode: str = "auto") -> torch.Tensor:
+    """Single-token decode attention.  q: (B, Hq, D); k/v: (B, Hkv, Sk, D).
+
+    ``length`` is a (B,) vector of *per-slot* valid-prefix lengths (a
+    ragged continuous batch: each slot attends only to its own prefix).
+    """
+    _check_gqa(q.shape[1], k.shape[1])
+    b, sk = q.shape[0], k.shape[2]
+    if length is None:
+        length = torch.full((b,), sk, dtype=torch.int32, device=q.device)
+    else:
+        length = torch.as_tensor(length, dtype=torch.int32, device=q.device)
+        if length.shape != (b,):
+            raise ValueError(
+                f"decode length must be per-slot with shape ({b},), got "
+                f"{tuple(length.shape)} — a scalar would silently mask every "
+                f"slot to one shared prefix")
+        # An over-long slot (stale host bookkeeping) must not read past
+        # the cache as valid history.
+        length = torch.clamp(length, max=sk)
+    if not _use_kernel(mode, q, k, v):
+        return ref.ref_decode_attention(q, k, v, length=length, scale=scale)
+    return flash_decode(q, k, v, length=length.contiguous(), scale=scale)

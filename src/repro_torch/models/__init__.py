@@ -1,0 +1,10 @@
+"""Model zoo of the port: the dense GQA decoder of this slice."""
+
+from repro_torch.models.config import BlockSpec, ModelConfig
+from repro_torch.models.model import (decode_step, forward, init_cache,
+                                      init_params, param_count, prefill,
+                                      prepare_params)
+
+__all__ = ["BlockSpec", "ModelConfig", "decode_step", "forward",
+           "init_cache", "init_params", "param_count", "prefill",
+           "prepare_params"]

@@ -1,0 +1,110 @@
+"""Model configuration: a JAX-free copy of ``repro/models/config.py``.
+
+A model is a stack of ``n_layers`` blocks cycling through ``pattern`` (a
+tuple of BlockSpec).  Dtype names map to ``torch`` dtypes.  The sub-config
+fields of other architectures (``moe``, ``mamba``, ``rwkv``) are kept so
+the dataclass has the reference's shape; their models wait for the
+other-architectures slice (ROADMAP Queue A item 10).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Tuple
+
+import torch
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    try:
+        return DTYPES[name]
+    except KeyError:
+        raise ValueError(f"unknown dtype name {name!r} "
+                         f"(have {sorted(DTYPES)})") from None
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockSpec:
+    mixer: str = "attn"      # "attn" | "mamba" | "rwkv"
+    ffn: str = "dense"       # "dense" | "moe" | "rwkv_cm" | "none"
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_head: int
+    d_ff: int
+    vocab_size: int
+    pattern: Tuple[BlockSpec, ...] = (BlockSpec(),)
+
+    # Sub-configs of the architectures that wait for a later slice.
+    moe: Optional[Any] = None
+    mamba: Optional[Any] = None
+    rwkv: Optional[Any] = None
+
+    # Attention details.
+    qk_norm: bool = False
+    rope_theta: float = 10000.0
+    mrope_sections: Optional[Tuple[int, int, int]] = None
+    causal: bool = True
+
+    # Encoder-decoder (seamless-m4t).
+    encoder_decoder: bool = False
+    n_encoder_layers: int = 0
+
+    frontend: str = "none"
+
+    norm: str = "rmsnorm"            # "rmsnorm" | "layernorm" (rwkv)
+    ffn_kind: str = "swiglu"         # dense-FFN activation
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-6
+
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    cache_dtype: str = "bfloat16"
+
+    sub_quadratic: bool = False
+
+    @property
+    def n_groups(self) -> int:
+        if self.n_layers % len(self.pattern):
+            raise ValueError(f"{self.name}: n_layers {self.n_layers} not "
+                             f"divisible by pattern period {len(self.pattern)}")
+        return self.n_layers // len(self.pattern)
+
+    @property
+    def pdtype(self) -> torch.dtype:
+        return torch_dtype(self.param_dtype)
+
+    @property
+    def cdtype(self) -> torch.dtype:
+        return torch_dtype(self.compute_dtype)
+
+    @property
+    def kvdtype(self) -> torch.dtype:
+        return torch_dtype(self.cache_dtype)
+
+    def n_params(self) -> int:
+        """Total parameter count of the attention/dense-FFN blocks this
+        slice serves (other mixers and FFNs wait for their slice)."""
+        d, f, v = self.d_model, self.d_ff, self.vocab_size
+        total = v * d
+        if not self.tie_embeddings:
+            total += v * d
+        for spec in self.pattern:
+            if spec.mixer != "attn" or spec.ffn != "dense" \
+                    or self.encoder_decoder:
+                raise NotImplementedError(
+                    f"{self.name}: only ('attn', 'dense') decoder blocks are "
+                    f"ported (ROADMAP Queue A item 10)")
+            n = d * (self.n_heads + 2 * self.n_kv_heads) * self.d_head
+            n += self.n_heads * self.d_head * d
+            n += (3 if self.ffn_kind == "swiglu" else 2) * d * f
+            total += n * self.n_groups
+        return total

@@ -1,0 +1,136 @@
+"""Top-level model API: init / forward / prefill / decode (counterpart of
+``repro/models/model.py``) for the dense decoders of this slice.
+
+Parameters are a dict of tensors::
+
+    {"embed": {"table": (V, d), "table_t": (d, V)},   # table_t: tied head
+     "final_norm": {"scale": (d,)},
+     "blocks": [per-layer dicts],
+     "head": {"w": (d, V)}}                            # untied models only
+
+Batch dict: ``tokens`` (B, S) integer ids; optional ``positions`` (B, S).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple, Union
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+from repro_torch.models.config import ModelConfig
+
+Params = Dict[str, Any]
+Batch = Dict[str, torch.Tensor]
+
+
+def prepare_params(params: Params, cfg: ModelConfig,
+                   dtype: Optional[torch.dtype] = None) -> Params:
+    """Make parameters ready to serve, once: every dense weight and the
+    embedding table cast to the compute dtype (the reference casts them
+    per GEMM, ``layers.py:93``; the rounding is the same), norm scales
+    kept as they are, and the tied lm-head operand ``table.T`` stored
+    contiguously beside the table.  Returns a new dict."""
+    dtype = cfg.cdtype if dtype is None else dtype
+
+    def cast(tree):
+        if isinstance(tree, dict):
+            return {k: (v.to(dtype) if k in ("w", "table")
+                        and v.is_floating_point() else cast(v))
+                    for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [cast(v) for v in tree]
+        return tree
+
+    out = cast(params)
+    if cfg.tie_embeddings:
+        out["embed"]["table_t"] = out["embed"]["table"].t().contiguous()
+    return out
+
+
+def init_params(cfg: ModelConfig, seed: int = 0,
+                device: Union[str, torch.device] = "cuda",
+                dtype: Optional[torch.dtype] = None) -> Params:
+    """Random parameters with the reference initialisers' distributions
+    (``dense_init``: N(0, 1/d_in); ``embedding_init``: N(0, 0.02^2); norms:
+    ones), drawn from a ``torch.Generator`` seeded with ``seed`` on
+    ``device``, then :func:`prepare_params`."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    p: Params = {
+        "embed": L.embedding_init(gen, cfg.vocab_size, cfg.d_model,
+                                  cfg.pdtype, dev),
+        "final_norm": L.norm_init(cfg.d_model, cfg.pdtype, dev),
+        "blocks": T.init_stack(gen, cfg, dev),
+    }
+    if not cfg.tie_embeddings:
+        p["head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size,
+                                 cfg.pdtype, dev)
+    return prepare_params(p, cfg, dtype)
+
+
+def param_count(params: Params) -> int:
+    """Parameters as the reference counts them (``table_t`` is a second
+    layout of the embedding table, not a parameter)."""
+    def count(tree, key=None):
+        if isinstance(tree, dict):
+            return sum(count(v, k) for k, v in tree.items())
+        if isinstance(tree, list):
+            return sum(count(v) for v in tree)
+        return 0 if key == "table_t" else tree.numel()
+    return count(params)
+
+
+def _positions(b: int, s: int, offset: Union[int, torch.Tensor],
+               device: torch.device) -> torch.Tensor:
+    pos = torch.arange(s, dtype=torch.int32, device=device)[None, :]
+    if isinstance(offset, torch.Tensor) and offset.dim() == 1:
+        # Per-slot decode offsets (continuous batching): each sequence
+        # sits at its own position in its KV cache.
+        return pos + offset.to(device=device, dtype=torch.int32)[:, None]
+    return (pos + int(offset)).expand(b, s)
+
+
+def forward(params: Params, batch: Batch, cfg: ModelConfig, *,
+            caches: Optional[List] = None,
+            cache_pos: Union[int, torch.Tensor, None] = None
+            ) -> Tuple[torch.Tensor, Optional[List]]:
+    """Returns (logits (B, S, V) f32, caches updated in place)."""
+    tokens = batch["tokens"]
+    x = L.embed(params["embed"], tokens, cfg.cdtype)
+    b, s = tokens.shape
+    pos = batch.get("positions")
+    if pos is None:
+        pos = _positions(b, s, 0 if cache_pos is None else cache_pos,
+                         x.device)
+    x, caches = T.apply_stack(params["blocks"], x, cfg, positions=pos,
+                              caches=caches, cache_pos=cache_pos)
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return L.logits(params["embed"], x, params.get("head")), caches
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device: Union[str, torch.device] = "cpu") -> List:
+    return T.init_stack_cache(cfg, batch, max_len, device)
+
+
+def prefill(params: Params, batch: Batch, cfg: ModelConfig,
+            caches: List) -> Tuple[torch.Tensor, List]:
+    """Run the prompt, fill caches; returns (last-token logits, caches)."""
+    lg, caches = forward(params, batch, cfg, caches=caches, cache_pos=0)
+    return lg[:, -1], caches
+
+
+def decode_step(params: Params, token: torch.Tensor,
+                pos: Union[int, torch.Tensor], cfg: ModelConfig,
+                caches: List) -> Tuple[torch.Tensor, List]:
+    """One token (B,) at position ``pos`` — a scalar (uniform batch) or a
+    (B,) vector of per-slot positions (ragged continuous batching: each
+    slot writes its KV at its own offset and attends only to its own valid
+    prefix).  Returns (logits (B, V), caches)."""
+    lg, caches = forward(params, {"tokens": token[:, None]}, cfg,
+                         caches=caches, cache_pos=pos)
+    return lg[:, 0], caches

@@ -1,0 +1,321 @@
+"""The port's kernels (repro_torch.kernels) against the JAX package's.
+
+On the CPU each wrapper runs its plain PyTorch version, which is held
+against the JAX Pallas kernel run in interpret mode (``ops.*(mode=
+"kernel")``, as tests/test_kernels.py runs it) on the same numpy inputs.
+The ``cuda``-marked tests hold each hand-written CUDA kernel against its
+plain version; they decide inside the test whether a card is present and
+skip without one.  On the GPU host:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+try:
+    import jax.numpy as jnp
+    from repro.kernels import ops as jops
+except ImportError:
+    # The GPU host has no JAX; it runs only this file's cuda-marked tests
+    # (python -m pytest -m cuda tests/test_torch_kernels.py).
+    jnp = jops = None
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels.decode_attention import flash_decode
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.gemm import gama_gemm
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The shapes here are tiny: torch's default pool of one thread per
+    core only oversubscribes the cores the other test workers share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _rng(seed):
+    return np.random.default_rng(seed)
+
+
+def _normal(rng, shape):
+    return rng.normal(size=shape).astype(np.float32)
+
+
+def _both(x, jdtype=None, tdtype=torch.float32):
+    return (jnp.asarray(x, jdtype or jnp.float32),
+            torch.from_numpy(x).to(tdtype))
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _require_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels have no "
+                    "CPU build")
+
+
+# ---------------------------------------------------------------------------
+# GEMM
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("m,k,n", [(100, 300, 50), (257, 129, 127)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matmul_matches_jax_gama_gemm(m, k, n, dtype):
+    """f32 at the JAX suite's rtol 1e-5 (test_kernels.py:44); bf16 at 2e-2:
+    both round one f32 sum to bf16, in another summation order."""
+    rng = _rng(m * 7 + n)
+    jd, td = (jnp.float32, torch.float32) if dtype == "float32" else \
+        (jnp.bfloat16, torch.bfloat16)
+    ja, ta = _both(_normal(rng, (m, k)), jd, td)
+    jb, tb = _both(_normal(rng, (k, n)), jd, td)
+    want = jops.matmul(ja, jb, mode="kernel")
+    got = tops.matmul(ta, tb)
+    assert got.dtype == td
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol * 8)
+
+
+@pytest.mark.parametrize("out_dtype,scale", [
+    ("int32", 1.0), ("int16", 0.05), ("int8", 0.002)])
+@pytest.mark.parametrize("m,k,n", [(64, 256, 64), (33, 100, 65)])
+def test_matmul_int8_epilogue_exact(m, k, n, out_dtype, scale):
+    rng = _rng(k + n)
+    a = rng.integers(-128, 128, size=(m, k)).astype(np.int8)
+    b = rng.integers(-128, 128, size=(k, n)).astype(np.int8)
+    want = jops.matmul(jnp.asarray(a), jnp.asarray(b),
+                       out_dtype=jnp.dtype(out_dtype), scale=scale,
+                       mode="kernel")
+    got = tops.matmul(torch.from_numpy(a), torch.from_numpy(b),
+                      out_dtype=getattr(torch, out_dtype), scale=scale)
+    assert got.dtype == getattr(torch, out_dtype)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("out_dtype", ["int16", "int8"])
+def test_requant_rounds_half_to_even(out_dtype):
+    """Accumulators that land exactly on .5 after scaling pin the
+    rounding rule: half to even (2.5 -> 2, 3.5 -> 4, -2.5 -> -2), as
+    jnp.round and the CUDA epilogue's rintf, not half away from zero."""
+    acc = [5, 7, -5, -7, 1, -1, 9, 300, -300]
+    # A row of ones times columns that sum to each accumulator value.
+    a = np.ones((1, 3), np.int8)
+    b = np.asarray([[v // 3, v // 3, v - 2 * (v // 3)] for v in acc],
+                   np.int8).T.copy()
+    want = jops.matmul(jnp.asarray(a), jnp.asarray(b),
+                       out_dtype=jnp.dtype(out_dtype), scale=0.5,
+                       mode="kernel")
+    got = tops.matmul(torch.from_numpy(a), torch.from_numpy(b),
+                      out_dtype=getattr(torch, out_dtype), scale=0.5)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert got[0, :7].tolist() == [2, 4, -2, -4, 0, 0, 4]
+
+
+# ---------------------------------------------------------------------------
+# Flash attention
+# ---------------------------------------------------------------------------
+
+
+def _attn_inputs(rng, b, hq, hkv, sq, sk, d):
+    return (_both(_normal(rng, (b, hq, sq, d))),
+            _both(_normal(rng, (b, hkv, sk, d))),
+            _both(_normal(rng, (b, hkv, sk, d))))
+
+
+@pytest.mark.parametrize("hq,hkv", [(4, 2), (8, 1), (15, 5)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_gqa_matches_jax_flash_attention(hq, hkv, causal):
+    (jq, tq), (jk, tk), (jv, tv) = _attn_inputs(_rng(hq), 1, hq, hkv, 64,
+                                                64, 32)
+    want = jops.attention(jq, jk, jv, causal=causal, bq=32, bk=32,
+                          mode="kernel")
+    got = tops.attention(tq, tk, tv, causal=causal)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("sq,sk,q_offset", [(16, 80, 64), (33, 77, 44)])
+def test_attention_q_offset_matches_jax(sq, sk, q_offset):
+    (jq, tq), (jk, tk), (jv, tv) = _attn_inputs(_rng(sq), 1, 4, 2, sq, sk, 64)
+    want = jops.attention(jq, jk, jv, causal=True, q_offset=q_offset,
+                          bq=32, bk=32, mode="kernel")
+    got = tops.attention(tq, tk, tv, causal=True, q_offset=q_offset)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=2e-5, atol=2e-5)
+
+
+def test_attention_kv_len_matches_jax_on_unmasked_rows():
+    """kv_len < Sk: the JAX kernel takes kv_len as its padded-cache mask
+    (its ops wrapper sets it to the unpadded Sk), so the reference is the
+    JAX kernel on the cache cut to kv_len.  Every row keeps a valid key
+    (q_offset >= 0, causal), so no row is fully masked: there the port's
+    plain version gives 0 like the kernel, while JAX's oracle gives NaN."""
+    (_, tq), (_, tk), (_, tv) = _attn_inputs(_rng(5), 1, 6, 2, 16, 64, 32)
+    kv_len = 40
+    jq, jk, jv = (jnp.asarray(x.numpy()) for x in
+                  (tq, tk[:, :, :kv_len], tv[:, :, :kv_len]))
+    want = jops.attention(jq, jk, jv, causal=True, q_offset=20, bq=16,
+                          bk=32, mode="kernel")
+    got = tops.attention(tq, tk, tv, causal=True, q_offset=20,
+                         kv_len=kv_len)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=2e-5, atol=2e-5)
+    # Keys past kv_len never matter: garbage there changes nothing.
+    tk2, tv2 = tk.clone(), tv.clone()
+    tk2[:, :, kv_len:] = 1e4
+    tv2[:, :, kv_len:] = -1e4
+    same = tops.attention(tq, tk2, tv2, causal=True, q_offset=20,
+                          kv_len=kv_len)
+    assert torch.equal(same, got)
+
+
+def test_attention_fully_masked_row_is_zero():
+    (_, tq), (_, tk), (_, tv) = _attn_inputs(_rng(6), 1, 2, 1, 4, 8, 32)
+    out = tops.attention(tq, tk, tv, causal=False, kv_len=0)
+    assert torch.equal(out, torch.zeros_like(out))
+
+
+# ---------------------------------------------------------------------------
+# Decode attention
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("hq,hkv,sk", [(8, 2, 256), (15, 5, 100)])
+def test_decode_matches_jax_flash_decode(hq, hkv, sk):
+    rng = _rng(sk)
+    jq, tq = _both(_normal(rng, (3, hq, 64)))
+    jk, tk = _both(_normal(rng, (3, hkv, sk, 64)))
+    jv, tv = _both(_normal(rng, (3, hkv, sk, 64)))
+    lengths = np.asarray([sk, sk // 2, 7], np.int32)
+    want = jops.decode(jq, jk, jv, length=jnp.asarray(lengths), bk=128,
+                       mode="kernel")
+    got = tops.decode(tq, tk, tv, length=torch.from_numpy(lengths))
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=2e-5, atol=2e-5)
+
+
+def test_decode_length_zero_is_zero_and_over_long_is_clamped():
+    rng = _rng(9)
+    tq = torch.from_numpy(_normal(rng, (2, 4, 32)))
+    tk = torch.from_numpy(_normal(rng, (2, 2, 24, 32)))
+    tv = torch.from_numpy(_normal(rng, (2, 2, 24, 32)))
+    out = tops.decode(tq, tk, tv, length=torch.tensor([0, 99]))
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    full = tops.decode(tq, tk, tv, length=torch.tensor([24, 24]))
+    assert torch.equal(out[1], full[1])
+
+
+# ---------------------------------------------------------------------------
+# Rejections
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("mode", ["ref", "kernel"])
+def test_rejects_non_divisible_gqa(mode):
+    """hq % hkv != 0 raises on every path, before any kernel is reached
+    (so the kernel mode raises the GQA error here, not the CPU one)."""
+    rng = _rng(3)
+    q4 = torch.from_numpy(_normal(rng, (1, 5, 32, 16)))
+    kv4 = torch.from_numpy(_normal(rng, (1, 3, 32, 16)))
+    with pytest.raises(ValueError, match="divisible"):
+        tops.attention(q4, kv4, kv4, mode=mode)
+    q3 = torch.from_numpy(_normal(rng, (2, 6, 16)))
+    kv3 = torch.from_numpy(_normal(rng, (2, 4, 64, 16)))
+    with pytest.raises(ValueError, match="divisible"):
+        tops.decode(q3, kv3, kv3, mode=mode)
+
+
+@pytest.mark.parametrize("mode", ["auto", "ref"])
+def test_decode_rejects_bad_length_shape(mode):
+    rng = _rng(4)
+    q = torch.from_numpy(_normal(rng, (3, 4, 16)))
+    kv = torch.from_numpy(_normal(rng, (3, 2, 32, 16)))
+    with pytest.raises(ValueError, match="per-slot"):
+        tops.decode(q, kv, kv, length=torch.tensor(5), mode=mode)
+
+
+def test_kernel_mode_on_cpu_tensors_raises():
+    rng = _rng(2)
+    a = torch.from_numpy(_normal(rng, (8, 16)))
+    with pytest.raises(ValueError, match="CUDA"):
+        tops.matmul(a, a.t().contiguous(), mode="kernel")
+    q = torch.from_numpy(_normal(rng, (1, 2, 8, 32)))
+    with pytest.raises(ValueError, match="CUDA"):
+        tops.attention(q, q, q, mode="kernel")
+    with pytest.raises(ValueError, match="CUDA"):
+        tops.decode(q[:, :, 0], q, q, mode="kernel")
+    with pytest.raises(ValueError, match="CUDA"):
+        tops.decode(q[:, :, 0], q, q, length=torch.tensor([3]),
+                    mode="kernel")
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernels against their plain versions (card only)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,out_dtype,tol", [
+    (torch.bfloat16, torch.bfloat16, 1e-2), (torch.float32, torch.float32,
+                                             1e-4),
+    (torch.int8, torch.int32, 0), (torch.int8, torch.int16, 0),
+    (torch.int8, torch.int8, 0)])
+def test_cuda_gemm_matches_plain(dtype, out_dtype, tol):
+    _require_cuda()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for m, k, n in [(3, 960, 320), (16, 2560, 960), (257, 129, 127)]:
+        if dtype == torch.int8:
+            a = torch.randint(-128, 128, (m, k), generator=g, device="cuda",
+                              dtype=torch.int8)
+            b = torch.randint(-128, 128, (k, n), generator=g, device="cuda",
+                              dtype=torch.int8)
+        else:
+            a = torch.randn((m, k), generator=g, device="cuda").to(dtype)
+            b = (torch.randn((k, n), generator=g, device="cuda")
+                 / k ** 0.5).to(dtype)
+        got = gama_gemm(a, b, out_dtype=out_dtype, scale=0.01)
+        want = tops.matmul(a, b, out_dtype=out_dtype, scale=0.01, mode="ref")
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 2e-5)])
+def test_cuda_flash_attention_matches_plain(dtype, tol):
+    _require_cuda()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for (b, hq, hkv, sq, sk, d, off) in [(1, 15, 5, 16, 36, 64, 0),
+                                          (2, 8, 2, 33, 77, 64, 44),
+                                          (1, 32, 8, 16, 40, 128, 0)]:
+        q = torch.randn((b, hq, sq, d), generator=g, device="cuda").to(dtype)
+        k = torch.randn((b, hkv, sk, d), generator=g, device="cuda").to(dtype)
+        v = torch.randn((b, hkv, sk, d), generator=g, device="cuda").to(dtype)
+        got = flash_attention(q, k, v, causal=True, q_offset=off)
+        want = tops.attention(q, k, v, causal=True, q_offset=off, mode="ref")
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 2e-5)])
+def test_cuda_flash_decode_matches_plain(dtype, tol):
+    _require_cuda()
+    g = torch.Generator(device="cuda").manual_seed(2)
+    for (hq, hkv, sk, d) in [(15, 5, 36, 64), (32, 8, 100, 128)]:
+        q = torch.randn((3, hq, d), generator=g, device="cuda").to(dtype)
+        k = torch.randn((3, hkv, sk, d), generator=g, device="cuda").to(dtype)
+        v = torch.randn((3, hkv, sk, d), generator=g, device="cuda").to(dtype)
+        length = torch.tensor([sk, 0, 7], dtype=torch.int32, device="cuda")
+        got = flash_decode(q, k, v, length=length)
+        want = tops.decode(q, k, v, length=length, mode="ref")
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
