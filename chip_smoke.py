@@ -7,16 +7,22 @@
 2. Build: every CUDA kernel of ``src/repro_torch/csrc`` with ``nvcc``
    (``-Xptxas -v`` output printed).
 3. Kernels: each hand-written kernel against its plain PyTorch version on
-   the card at the serve path's shapes (and the paper's Table V GEMMs),
-   with the error against a stated tolerance, and timed with CUDA events
-   beside its roofline bound, its plain version and one PyTorch library
-   call computing the same function (a yardstick the port never calls).
+   the card at the serve path's shapes (and the paper's Table V GEMMs; for
+   the paged decode also a long-context Qwen3-8B shape, bf16 and int8
+   pools in shuffled page order), with the error against a stated
+   tolerance, and timed with CUDA events beside its roofline bound, its
+   plain version and one PyTorch library call computing the same function
+   where there is one (a yardstick the port never calls).
 4. Serve: SmolLM-360M FULL (32 layers, d_model 960, bf16, seeded random
-   weights) replays ``benchmarks/traces/smoke6.jsonl`` through the port's
-   continuous-batching ``ServeEngine`` with every GEMM, prefill attention
-   and decode attention on the kernels — launch counts are reset just
-   before and read just after — then ``--verify``'s check (bit-identical
-   to a one-slot one-shot engine) and a kernel-vs-plain-GEMM logit check.
+   weights) replays traces through the port's continuous-batching
+   ``ServeEngine`` with every GEMM, prefill attention and decode attention
+   on the kernels: ``benchmarks/traces/smoke6.jsonl`` on the dense KV
+   cache, then four paged-KV replays (bf16 pages, int8 pages, a 4-page
+   pool that forces preemption, and 8 requests of 448-token prompts).
+   Launch counts are reset just before and read just after each measured
+   replay and checked per path; each replay ends with ``--verify``'s check
+   (bit-identical to a one-slot one-shot engine).  Then a
+   kernel-vs-plain-GEMM logit check and a profile of a decode step.
 5. A ``{"kernels": [...]}`` JSON line, the card line, and last the
    ``{"ok": true, "device": ...}`` line.
 
@@ -41,14 +47,18 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch import configs as C  # noqa: E402
 from repro_torch import kernels as K  # noqa: E402
 from repro_torch.configs.gama_paper import ARRAY_GEMMS  # noqa: E402
-from repro_torch.kernels import _build, ops  # noqa: E402
-from repro_torch.kernels.decode_attention import flash_decode  # noqa: E402
+from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    flash_decode, flash_paged_decode)
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.gemm import gama_gemm  # noqa: E402
 from repro_torch.launch import serve as S  # noqa: E402
-from repro_torch.models import decode_step, forward, init_cache, init_params  # noqa: E402
+from repro_torch.models import (  # noqa: E402
+    decode_step, forward, init_cache, init_paged_cache, init_params)
 from repro_torch.models.layers import set_gemm_mode  # noqa: E402
 from repro_torch.serving.engine import ServeConfig, ServeEngine  # noqa: E402
+from repro_torch.serving.kvpool import pages_for  # noqa: E402
+from repro_torch.serving.quant import quantize_kv_pages  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet; dense, 700 W): device
 # memory bytes/s, and operations/s by input type.
@@ -60,10 +70,13 @@ DEV = "cuda"
 
 SOURCES = {"gama_gemm": "src/repro_torch/csrc/gemm.cu",
            "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
-           "flash_decode": "src/repro_torch/csrc/decode_attention.cu"}
+           "flash_decode": "src/repro_torch/csrc/decode_attention.cu",
+           "flash_paged_decode":
+               "src/repro_torch/csrc/paged_decode_attention.cu"}
 REPLACES = {"gama_gemm": "src/repro/kernels/gemm.py:113",
             "flash_attention": "src/repro/kernels/flash_attention.py:145",
-            "flash_decode": "src/repro/kernels/decode_attention.py:127"}
+            "flash_decode": "src/repro/kernels/decode_attention.py:127",
+            "flash_paged_decode": "src/repro/kernels/decode_attention.py:415"}
 
 
 def card_line() -> str:
@@ -275,6 +288,113 @@ def check_decode(label, hq, hkv, sk, d, lengths, dtype, tol, seed,
                                     f"lengths={lengths}")
 
 
+def check_paged_decode(label, hq, hkv, d, ps, lengths, pool, tol, seed,
+                       main=False):
+    """flash_paged_decode (both buffering variants) against its plain
+    version, on bf16 q with bf16 or int8 pools whose pages sit in a
+    shuffled order; checks buffers=1 == buffers=2 bit for bit, bf16 pools
+    against flash_decode on the gathered cache bit for bit, and that a NaN
+    null sink page changes nothing."""
+    gen = _gen(seed)
+    b, dtype = len(lengths), torch.bfloat16
+    slot_pages = [pages_for(n, ps) for n in lengths]
+    max_pages, n_pool = max(slot_pages) + 1, sum(slot_pages) + 8
+    perm = torch.randperm(n_pool, generator=gen, device=DEV).tolist()
+    table = torch.full((b, max_pages), n_pool, dtype=torch.int32)
+    for i, n in enumerate(slot_pages):
+        table[i, :n] = torch.tensor(perm[:n])
+        perm = perm[n:]
+    table = table.to(DEV)
+    length = torch.tensor(lengths, dtype=torch.int32, device=DEV)
+    q = _rand((b, hq, d), dtype, gen)
+
+    def pools():
+        kv = [_rand((n_pool + 1, hkv, ps, d), dtype, gen) for _ in range(2)]
+        if pool == "int8":
+            (kq, ks), (vq, vs) = map(quantize_kv_pages, kv)
+            return kq, vq, {"k_scale": ks, "v_scale": vs}
+        return kv[0], kv[1], {}
+
+    kp, vp, sc = pools()
+    got = {n: flash_paged_decode(q, kp, vp, table, length=length, buffers=n,
+                                 **sc) for n in (1, 2)}
+    want = ops.decode_paged(q, kp, vp, block_tables=table, length=length,
+                            mode="ref", **sc)
+    torch.cuda.synchronize()
+    err = max_err(got[2], want, tol)
+    same_buffers = torch.equal(got[1], got[2])
+    # The null sink (page n_pool) full of NaN: never read, so no change.
+    kn, vn = kp.clone(), vp.clone()
+    scn = {k: v.clone() for k, v in sc.items()}
+    if pool == "int8":
+        for v in scn.values():
+            v[n_pool] = float("nan")
+    else:
+        kn[n_pool], vn[n_pool] = float("nan"), float("nan")
+    nan_safe = all(torch.equal(flash_paged_decode(
+        q, kn, vn, table, length=length, buffers=n, **scn), got[n])
+        for n in (1, 2))
+    same_dense = "n/a (int8 pool)"
+    if pool == "bf16":
+        dense = flash_decode(q, ref.gather_pages(kp, table).contiguous(),
+                             ref.gather_pages(vp, table).contiguous(),
+                             length=length)
+        same_dense = torch.equal(dense, got[2])
+    torch.cuda.synchronize()
+    if not (same_buffers and nan_safe and same_dense is not False):
+        raise AssertionError(
+            f"flash_paged_decode {label} {pool}: buffers1==buffers2 "
+            f"{same_buffers}, NaN sink unreachable {nan_safe}, equal to "
+            f"flash_decode on the gathered cache {same_dense}")
+    r = RESULTS["flash_paged_decode"]
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    # Bytes: q and out once; each valid K and V row (and int8 scale) once
+    # per KV head; the table entries the lengths need; the lengths.
+    kv_elt = kp.element_size() + (4 / d if pool == "int8" else 0)
+    rows = sum(lengths)
+    nbytes = (2 * b * hq * d * q.element_size() + 2 * hkv * d * rows * kv_elt
+              + 4 * sum(slot_pages) + 4 * b)
+    flops = 4.0 * d * hq * rows
+    pool_bytes = 2 * kp.numel() * kp.element_size()
+
+    def mk(**kw):
+        def make():
+            k2, v2, s2 = pools()
+            return lambda: flash_paged_decode(q, k2, v2, table, length=length,
+                                              **s2, **kw)
+        return make
+
+    kern = device_ms(mk(buffers=2), pool_bytes)
+    kern1 = device_ms(mk(buffers=1), pool_bytes)
+    plain = device_ms(lambda: (lambda: ops.decode_paged(
+        q, kp, vp, block_tables=table, length=length, mode="ref", **sc)),
+        pool_bytes)
+    aside = ""
+    if pool == "bf16":
+        kq = ref.gather_pages(kp, table).repeat_interleave(hq // hkv, 1)
+        vq = ref.gather_pages(vp, table).repeat_interleave(hq // hkv, 1)
+        mask = (torch.arange(kq.shape[2], device=DEV)[None, :]
+                < length[:, None])[:, None, None, :]
+        sdpa = device_ms(lambda: (lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kq, vq, attn_mask=mask)), pool_bytes)
+        aside = f" aside_sdpa_on_pregathered_cache_ms={sdpa:.5f}"
+    bms, by = bound(nbytes, flops, dtype)
+    print(f"[kernel] flash_paged_decode {label} B={b} Hq={hq} Hkv={hkv} D={d} "
+          f"ps={ps} lengths={lengths} pool={pool} q=bf16 "
+          f"max_abs_err={err:.3e} tol={tol:g}*(1+|plain|) "
+          f"buffers1_equal_buffers2={same_buffers} "
+          f"equal_flash_decode_on_gathered_cache={same_dense} "
+          f"nan_null_sink_unreachable={nan_safe} kernel_ms={kern:.5f} "
+          f"kernel_buffers1_ms={kern1:.5f} plain_ms={plain:.5f} "
+          f"bound_ms={bms:.6f} ({by} at {HBM_BYTES_S / 1e12:g} TB/s) "
+          f"library_ms=null (no single PyTorch call gathers pages through a "
+          f"block table and attends){aside}")
+    if main:
+        r.update(ms=kern, plain_ms=plain, library_ms=None, bound_ms=bms,
+                 bound_by=by, shape=f"B={b} Hq={hq} Hkv={hkv} D={d} ps={ps} "
+                                    f"lengths={lengths} pool={pool}")
+
+
 def kernel_phase(cfg, max_len):
     # bf16 GEMMs: both sides sum in f32 in another order and round once to
     # bf16, so they may differ by one bf16 ulp (< 2**-7 relative).
@@ -317,6 +437,14 @@ def kernel_phase(cfg, max_len):
                  seed=23)
     check_decode("f32", hq, hkv, 70, dh, [70, 33, 1], torch.float32, 2e-5,
                  seed=24)
+    # Paged decode: bf16 outputs round once from f32 math, as for
+    # flash_decode; int8 pools are dequantized in f32 on both sides.
+    long_ctx = [4096, 3584, 3072, 2560, 2048, 1536, 1024, 517]
+    for pool in ("bf16", "int8"):
+        check_paged_decode("serve", hq, hkv, dh, 16, [28, 20, 13], pool,
+                           2e-2, seed=31, main=(pool == "bf16"))
+        check_paged_decode("long-context-qwen3-8b-heads", 32, 8, 128, 16,
+                           long_ctx, pool, 2e-2, seed=32)
 
 
 # ---------------------------------------------------------------------------
@@ -353,118 +481,180 @@ def logits_kernel_vs_ref(cfg, params, prompt, max_len, steps=4):
         per_decode = {n: c2[n] - c1[n] for n in c0}
         return torch.stack(out), per_prefill, per_decode
     kern, per_prefill, per_decode = run("kernel")
-    ref, _, _ = run("ref")
+    plain, _, _ = run("ref")
     set_gemm_mode("kernel")
-    return kern, ref, per_prefill, per_decode
+    return kern, plain, per_prefill, per_decode
 
 
 def profile_decode(cfg, params, max_len, steps=5):
-    """Where a decode step's time goes: wall time per batched 3-slot
-    decode step (host clock, synchronised) beside the device time of the
-    kernels it ran (``torch.profiler`` CUDA events), by kernel name."""
-    caches = init_cache(cfg, 3, max_len, DEV)
+    """Where a decode step's time goes, on the dense cache and on bf16
+    pages of 16 rows (3 pages a slot): wall time per batched 3-slot decode
+    step (host clock, synchronised, the profiler off; the two layouts
+    timed in turns dense, paged, paged, dense) beside the device time of
+    the kernels each ran (``torch.profiler`` CUDA events), by kernel
+    name."""
     tok = torch.zeros(3, dtype=torch.long, device=DEV)
     pos = torch.tensor([20, 14, 7], dtype=torch.int32, device=DEV)
-    for _ in range(3):
-        decode_step(params, tok, pos, cfg, caches)
-    torch.cuda.synchronize()
+    layouts = {
+        "dense": (init_cache(cfg, 3, max_len, DEV), None),
+        "paged": (init_paged_cache(cfg, 9, 16, device=DEV),
+                  torch.arange(9, dtype=torch.int32, device=DEV).view(3, 3)),
+    }
 
-    def run():
+    def run(kind):
+        caches, tables = layouts[kind]
         t0 = time.perf_counter()
         for _ in range(steps):
-            decode_step(params, tok, pos, cfg, caches)
+            decode_step(params, tok, pos, cfg, caches, block_tables=tables)
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3 / steps
 
-    wall_ms = run()                        # the profiler off
+    for kind in layouts:
+        run(kind)                          # warm-up
+    walls = {kind: [] for kind in layouts}
+    for kind in ("dense", "paged", "paged", "dense"):
+        walls[kind].append(run(kind))
+    print(f"[profile] decode step wall_ms in turns (profiler off): "
+          f"{json.dumps(walls)}")
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        traced_ms = run()
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = e.name.replace("void ", "").replace(
-                "(anonymous namespace)::", "").split("<")[0].split("(")[0]
-            n, us = by_name.get(name[:60], (0, 0.0))
-            by_name[name[:60]] = (n + 1, us + e.time_range.elapsed_us())
-    if not by_name:
-        print(f"[profile] decode step wall_ms={wall_ms:.3f}; device time not "
-              f"measured (the profiler saw no CUDA events)")
-        return
-    device_ms = sum(us for _, us in by_name.values()) / 1e3 / steps
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
-    print(f"[profile] decode step (3 slots, smollm-360m FULL): wall_ms="
-          f"{wall_ms:.3f} (profiler off) traced_wall_ms={traced_ms:.3f} "
-          f"device_ms={device_ms:.3f} device_idle_share="
-          f"{1 - device_ms / wall_ms:.3f} kernels_per_step="
-          f"{sum(n for n, _ in by_name.values()) // steps}")
-    for name, (n, us) in top:
-        print(f"[profile]   {name}: {n // steps} per step, "
-              f"{us / 1e3 / steps:.3f} ms per step")
+    for kind in layouts:
+        wall_ms = sum(walls[kind]) / len(walls[kind])
+        with torch.profiler.profile(activities=acts) as prof:
+            traced_ms = run(kind)
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                name = e.name.replace("void ", "").replace(
+                    "(anonymous namespace)::", "").split("<")[0].split("(")[0]
+                n, us = by_name.get(name[:60], (0, 0.0))
+                by_name[name[:60]] = (n + 1, us + e.time_range.elapsed_us())
+        if not by_name:
+            print(f"[profile] decode step ({kind} KV) wall_ms={wall_ms:.3f}; "
+                  f"device time not measured (the profiler saw no CUDA "
+                  f"events)")
+            continue
+        device_ms = sum(us for _, us in by_name.values()) / 1e3 / steps
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+        print(f"[profile] decode step (3 slots, {kind} KV, smollm-360m FULL): "
+              f"wall_ms={wall_ms:.3f} (profiler off, mean of 2) "
+              f"traced_wall_ms={traced_ms:.3f} device_ms={device_ms:.3f} "
+              f"device_idle_share={1 - device_ms / wall_ms:.3f} "
+              f"kernels_per_step="
+              f"{sum(n for n, _ in by_name.values()) // steps}")
+        for name, (n, us) in top:
+            print(f"[profile]   {name}: {n // steps} per step, "
+                  f"{us / 1e3 / steps:.3f} ms per step")
 
 
-def serve_phase(cfg, max_len):
-    set_gemm_mode("kernel")
-    params = init_params(cfg, seed=1, device=DEV)
-    trace = S.load_trace(S.resolve_trace_path("smoke6"), cfg.vocab_size,
-                         seed=0)
-    scfg = ServeConfig(batch_slots=3, max_len=max_len)
+def replay(cfg, params, trace, scfg, label):
+    """One path of the main run: a warm-up replay, then the measured replay
+    with every launch count set to 0 just before and read just after, its
+    outputs checked, and ``--verify``'s bit-identity check.  Returns the
+    measured replay's launch counts."""
     engine = ServeEngine(cfg, params, scfg)
     try:
         S.run_trace(engine, trace, log=None)     # warm-up replay
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         K.reset_launch_counts()
-        rep = S.run_trace(engine, trace)
+        rep = S.run_trace(engine, trace, log=None)
         torch.cuda.synchronize()
         counts = K.launch_counts()
     finally:
         engine.close()
     peak = torch.cuda.max_memory_allocated()
     if len(rep["results"]) != len(trace):
-        raise AssertionError(f"{len(rep['results'])}/{len(trace)} requests "
-                             f"completed")
+        raise AssertionError(f"{label}: {len(rep['results'])}/{len(trace)} "
+                             f"requests completed")
     for tid, toks in rep["results"].items():
         t = next(x for x in trace if x["id"] == tid)
         if toks.shape != (t["max_new"],) or not (
                 (toks >= 0) & (toks < cfg.vocab_size)).all():
-            raise AssertionError(f"request {tid}: bad tokens {toks}")
-    print(f"[serve] arch={cfg.name} layers={cfg.n_layers} d_model="
-          f"{cfg.d_model} dtype={cfg.compute_dtype} slots=3 max_len={max_len}"
-          f" requests={len(rep['results'])} tokens={rep['tokens']} "
+            raise AssertionError(f"{label} request {tid}: bad tokens {toks}")
+    paged = ""
+    if scfg.kv == "paged":
+        paged = (f" page_size={scfg.page_size} kv_dtype="
+                 f"{scfg.kv_dtype or cfg.cache_dtype} "
+                 f"pool_pages={engine.pool.num_pages}"
+                 f" preemptions={rep['preemptions']} pages_hwm="
+                 f"{rep['pages_hwm']} "
+                 f"pages_reclaimed={rep['pages_reclaimed']}")
+    print(f"[serve] {label}: arch={cfg.name} layers={cfg.n_layers} d_model="
+          f"{cfg.d_model} dtype={cfg.compute_dtype} kv={scfg.kv} slots="
+          f"{scfg.batch_slots} max_len={scfg.max_len}{paged} "
+          f"requests={len(rep['results'])} tokens={rep['tokens']} "
           f"wall_s={rep['wall_s']:.4f} tok_s={rep['tok_s']:.2f} "
           f"itl_p50_ms={rep['p50_ms']:.3f} itl_p99_ms={rep['p99_ms']:.3f} "
           f"ttft_p50_ms={rep['ttft_p50_ms']:.3f} "
           f"ttft_p99_ms={rep['ttft_p99_ms']:.3f} "
           f"decode_steps={rep['decode_steps']} "
           f"shared_steps={rep['shared_steps']} "
+          f"kv_bytes_high_water={rep['kv_bytes_hwm']} "
+          f"kv_bytes_reserved={rep['kv_bytes_reserved']} "
           f"max_memory_allocated={peak}")
-    print(f"[serve] launches on the main path: {json.dumps(counts)}")
-    missing = [n for n, c in counts.items() if c == 0]
+    print(f"[serve] {label}: launches {json.dumps(counts)}")
+    # Every path runs the GEMM and prefill attention; decode goes through
+    # the dense kernel on the dense cache and the paged one on the pool.
+    must = ["gama_gemm", "flash_attention",
+            "flash_paged_decode" if scfg.kv == "paged" else "flash_decode"]
+    missing = [n for n in must if counts[n] == 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{missing}")
+        raise AssertionError(f"{label}: kernels never launched on this "
+                             f"path: {missing}")
+    if scfg.kv == "paged" and counts["flash_decode"]:
+        raise AssertionError(f"{label}: the paged path launched the dense "
+                             f"flash_decode {counts['flash_decode']} times")
     S._verify(cfg, params, trace, rep["results"], scfg)
+    return counts, rep
 
-    kern, ref, per_prefill, per_decode = logits_kernel_vs_ref(
-        cfg, params, trace[0]["prompt"], max_len)
+
+def serve_phase(cfg, max_len):
+    set_gemm_mode("kernel")
+    params = init_params(cfg, seed=1, device=DEV)
+    smoke6 = S.load_trace(S.resolve_trace_path("smoke6"), cfg.vocab_size,
+                          seed=0)
+    long8 = S.synth_trace(8, 448, 32, 3, cfg.vocab_size, seed=0)
+    long_len = 448 + 32 + 8
+    paged = dict(kv="paged", page_size=16)
+    paths = [
+        ("dense smoke6", smoke6, ServeConfig(batch_slots=3, max_len=max_len)),
+        ("paged-bf16 smoke6", smoke6,
+         ServeConfig(batch_slots=3, max_len=max_len, **paged)),
+        ("paged-int8 smoke6", smoke6,
+         ServeConfig(batch_slots=3, max_len=max_len, kv_dtype="int8",
+                     **paged)),
+        ("paged-bf16 smoke6 pool_pages=4", smoke6,
+         ServeConfig(batch_slots=3, max_len=max_len, pool_pages=4, **paged)),
+        ("paged-bf16 synth 8x448+32", long8,
+         ServeConfig(batch_slots=8, max_len=long_len, **paged)),
+    ]
+    total = {n: 0 for n in SOURCES}
+    for label, trace, scfg in paths:
+        counts, rep = replay(cfg, params, trace, scfg, label)
+        if "pool_pages=4" in label and rep["preemptions"] < 1:
+            raise AssertionError(f"{label}: no preemption in a 4-page pool")
+        for n in total:
+            total[n] += counts[n]
+
+    kern, ref_lg, per_prefill, per_decode = logits_kernel_vs_ref(
+        cfg, params, smoke6[0]["prompt"], max_len)
     if not torch.isfinite(kern).all():
         raise AssertionError("non-finite logits")
-    diff = (kern - ref).abs().max().item()
-    same = (kern.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    diff = (kern - ref_lg).abs().max().item()
+    same = (kern.argmax(-1) == ref_lg.argmax(-1)).float().mean().item()
     # Each GEMM path rounds its f32 sum to bf16 (<= 1 ulp apart); the
     # differences compound over 32 layers of random weights.
     tol = 0.1
     print(f"[serve] gemm kernel vs ref: 1 prefill + 4 decode steps, max "
           f"|logit diff|={diff:.4e} (tol {tol}, logit std "
-          f"{ref.std().item():.3f}), argmax agreement={same:.2f}; launches "
+          f"{ref_lg.std().item():.3f}), argmax agreement={same:.2f}; launches "
           f"per prefill {json.dumps(per_prefill)}, per decode step "
           f"{json.dumps(per_decode)}")
     if diff > tol:
         raise AssertionError(f"kernel vs ref logits differ by {diff}")
     profile_decode(cfg, params, max_len)
-    return counts
+    return total
 
 
 def main() -> int:

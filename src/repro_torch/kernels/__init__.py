@@ -3,18 +3,22 @@ PyTorch versions, and the ``ops`` dispatch wrappers over them."""
 
 from repro_torch.kernels import decode_attention, flash_attention, gemm
 
-# Every ported kernel's wrapper module, each with a ``launches`` counter.
-KERNEL_MODULES = {
-    "gama_gemm": gemm,
-    "flash_attention": flash_attention,
-    "flash_decode": decode_attention,
+# Every ported kernel: its wrapper's module and the name of the launch
+# counter there (flash_decode and flash_paged_decode share a module and
+# count apart).
+KERNEL_COUNTERS = {
+    "gama_gemm": (gemm, "launches"),
+    "flash_attention": (flash_attention, "launches"),
+    "flash_decode": (decode_attention, "launches"),
+    "flash_paged_decode": (decode_attention, "paged_launches"),
 }
 
 
 def launch_counts() -> dict:
-    return {name: mod.launches for name, mod in KERNEL_MODULES.items()}
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in KERNEL_COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in KERNEL_MODULES.values():
-        mod.launches = 0
+    for mod, attr in KERNEL_COUNTERS.values():
+        setattr(mod, attr, 0)

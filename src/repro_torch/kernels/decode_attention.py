@@ -1,19 +1,26 @@
-"""Flash decode, hand-written for Hopper (``csrc/decode_attention.cu``).
+"""Flash decode over a dense cache and over a page pool, hand-written for
+Hopper (``csrc/decode_attention.cu``, ``csrc/paged_decode_attention.cu``).
 
-Replaces the Pallas kernel ``repro/kernels/decode_attention.py:
-flash_decode``: one query token per slot against a dense (B, Hkv, Sk, D)
-KV cache with a per-slot valid length (a ragged continuous batch); keys
-at or past ``length[b]`` are never read and a zero length gives zeros.
-(``flash_paged_decode`` over the page pool is not ported yet.)
+:func:`flash_decode` replaces the Pallas kernel ``repro/kernels/
+decode_attention.py:flash_decode``: one query token per slot against a
+dense (B, Hkv, Sk, D) KV cache with a per-slot valid length (a ragged
+continuous batch); keys at or past ``length[b]`` are never read and a zero
+length gives zeros.
+
+:func:`flash_paged_decode` replaces ``flash_paged_decode`` of the same
+file (both buffering variants): the same decode over a (P, Hkv, ps, D)
+page pool gathered through a (B, max_pages) block table, with int8 pools
+dequantized by their per-row scales inside the kernel.
 
 Bound on the card: decode reads each slot's valid KV prefix once, so
-device-memory bytes bound it.  The design gives one block to each
-(slot, KV head) and runs the ``group`` query heads that share that KV
-head together, so every KV tile is read once per group, not per head.
+device-memory bytes bound it.  Both kernels give one block to each
+(slot, KV head) and run the ``group`` query heads that share that KV head
+together, so every KV tile is read once per group, not per head.
 
-:func:`flash_decode` runs the plain version (``ref.ref_decode_attention``,
-:data:`plain`) for CPU tensors only; for CUDA tensors it launches the
-kernel or raises.  :data:`launches` counts kernel launches.
+Each wrapper runs its plain version (:data:`plain`, :data:`plain_paged`)
+for CPU tensors only; for CUDA tensors it launches its kernel or raises.
+:data:`launches` counts ``flash_decode`` launches, :data:`paged_launches`
+``flash_paged_decode`` launches.
 """
 
 from __future__ import annotations
@@ -27,10 +34,15 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import (_DTYPES, HEAD_DIMS,
                                                  check_cuda_operands)
 from repro_torch.kernels.ref import ref_decode_attention as plain
+from repro_torch.kernels.ref import ref_paged_decode_attention as plain_paged
 
 launches = 0
+paged_launches = 0
 
 MAX_GROUP = 16   # query heads per KV head: 4 warps x 4 heads
+
+
+_KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
 def _lib() -> ctypes.CDLL:
@@ -38,6 +50,16 @@ def _lib() -> ctypes.CDLL:
     fn = lib.flash_decode_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _paged_lib() -> ctypes.CDLL:
+    lib = _build.load("paged_decode_attention")
+    fn = lib.flash_paged_decode_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
@@ -76,4 +98,87 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, "flash_decode", err)
     launches += 1
+    return out
+
+
+def flash_paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
+                       v_pages: torch.Tensor, block_tables: torch.Tensor, *,
+                       length: torch.Tensor, scale: Optional[float] = None,
+                       k_scale: Optional[torch.Tensor] = None,
+                       v_scale: Optional[torch.Tensor] = None,
+                       buffers: int = 2) -> torch.Tensor:
+    """q: (B, Hq, D); k_pages/v_pages: (P, Hkv, ps, D) pools (P includes
+    the null sink page) in q's dtype, or int8 with f32 scale rows
+    ``k_scale``/``v_scale`` (P, Hkv, ps); block_tables: (B, max_pages)
+    int32; length: (B,) int32 -> (B, Hq, D).
+
+    ``buffers`` picks the kernel's tile pipeline: 1 = synchronous loads,
+    2 = a two-stage ``cp.async`` ring; both give bit-identical outputs.
+    Keys at or past ``length[b]`` (clamped to max_pages * ps) and their
+    table entries are never read."""
+    if buffers not in (1, 2):
+        raise ValueError(f"buffers must be 1 or 2, got {buffers}")
+    quantized = k_pages.dtype == torch.int8
+    if quantized and (k_scale is None or v_scale is None):
+        raise ValueError("int8 k_pages/v_pages need k_scale and v_scale rows "
+                         "(P, Hkv, page_size)")
+    if not quantized and (k_scale is not None or v_scale is not None):
+        raise ValueError("k_scale/v_scale are only valid for int8 pools")
+    b, hq, d = q.shape
+    n_pool, hkv, ps = k_pages.shape[:3]
+    scale = d ** -0.5 if scale is None else float(scale)
+    tensors = [q, k_pages, v_pages, block_tables, length]
+    scales = [k_scale, v_scale] if quantized else []
+    if all(t.device.type == "cpu" for t in tensors + scales):
+        return plain_paged(q, k_pages, v_pages, block_tables, length=length,
+                           scale=scale, k_scale=k_scale, v_scale=v_scale)
+    check_cuda_operands("flash_paged_decode", q)
+    dev = q.device
+    if not all(t.device == dev and t.is_contiguous()
+               for t in tensors + scales):
+        raise ValueError("flash_paged_decode needs contiguous operands on "
+                         f"{dev}, got {[str(t.device) for t in tensors]}")
+    if k_pages.dtype not in (q.dtype, torch.int8) or \
+            v_pages.dtype != k_pages.dtype:
+        raise ValueError(f"flash_paged_decode pools must be {q.dtype} or "
+                         f"int8, got {k_pages.dtype}/{v_pages.dtype}")
+    if (k_pages.shape != v_pages.shape or k_pages.dim() != 4
+            or k_pages.shape[3] != d):
+        raise ValueError(f"flash_paged_decode shapes: q {tuple(q.shape)}, "
+                         f"k_pages {tuple(k_pages.shape)}, v_pages "
+                         f"{tuple(v_pages.shape)}")
+    if any(s.dtype != torch.float32 or s.shape != (n_pool, hkv, ps)
+           for s in scales):
+        raise ValueError(f"flash_paged_decode scale rows must be f32 "
+                         f"({n_pool}, {hkv}, {ps})")
+    if hkv <= 0 or hq % hkv or hq // hkv > MAX_GROUP:
+        raise ValueError(f"flash_paged_decode needs hq % hkv == 0 and a group "
+                         f"of at most {MAX_GROUP}, got hq={hq}, hkv={hkv}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_paged_decode takes head dims {HEAD_DIMS}, "
+                         f"got {d}")
+    if (block_tables.dtype != torch.int32 or block_tables.dim() != 2
+            or block_tables.shape[0] != b or block_tables.shape[1] < 1):
+        raise ValueError(f"flash_paged_decode needs ({b}, max_pages) int32 "
+                         f"block_tables, got {block_tables.dtype} "
+                         f"{tuple(block_tables.shape)}")
+    if length.dtype != torch.int32 or length.shape != (b,):
+        raise ValueError(f"flash_paged_decode needs length as a ({b},) int32 "
+                         f"tensor, got {length.dtype} {tuple(length.shape)}")
+    if any(t.data_ptr() % 16 for t in (k_pages, v_pages)):
+        raise ValueError("flash_paged_decode pools must be 16-byte aligned "
+                         "(the kernel copies 16-byte chunks)")
+    global paged_launches
+    out = torch.empty_like(q)
+    lib = _paged_lib()
+    err = lib.flash_paged_decode_launch(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        k_scale.data_ptr() if quantized else None,
+        v_scale.data_ptr() if quantized else None,
+        block_tables.data_ptr(), length.data_ptr(), out.data_ptr(), b, hq,
+        hkv, ps, d, block_tables.shape[1], _DTYPES[q.dtype],
+        _KV_DTYPES[k_pages.dtype], buffers, scale,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, "flash_paged_decode", err)
+    paged_launches += 1
     return out

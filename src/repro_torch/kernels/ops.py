@@ -23,7 +23,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.decode_attention import flash_decode
+from repro_torch.kernels.decode_attention import (flash_decode,
+                                                  flash_paged_decode)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gemm import gama_gemm
 
@@ -99,3 +100,49 @@ def decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not _use_kernel(mode, q, k, v):
         return ref.ref_decode_attention(q, k, v, length=length, scale=scale)
     return flash_decode(q, k, v, length=length.contiguous(), scale=scale)
+
+
+def decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
+                 v_pages: torch.Tensor, *, block_tables: torch.Tensor,
+                 length: torch.Tensor, scale: Optional[float] = None,
+                 k_scale: Optional[torch.Tensor] = None,
+                 v_scale: Optional[torch.Tensor] = None, buffers: int = 2,
+                 mode: str = "auto") -> torch.Tensor:
+    """Single-token decode attention over a **paged** KV cache
+    (``repro_torch.serving.kvpool``).  q: (B, Hq, D); k_pages/v_pages:
+    (P, Hkv, page_size, D) pools; block_tables: (B, max_pages) page ids;
+    length: (B,) per-slot valid rows.  int8 pools pass per-row
+    ``k_scale``/``v_scale`` rows (P, Hkv, page_size) f32.  ``buffers``
+    picks the kernel's tile pipeline (1 or 2, bit-identical)."""
+    _check_gqa(q.shape[1], k_pages.shape[1])
+    b = q.shape[0]
+    page_size = k_pages.shape[2]
+    if block_tables.dim() != 2 or block_tables.shape[0] != b:
+        raise ValueError(f"block_tables must be (B={b}, max_pages), got "
+                         f"{tuple(block_tables.shape)}")
+    length = torch.as_tensor(length, dtype=torch.int32, device=q.device)
+    if length.shape != (b,):
+        raise ValueError(
+            f"paged decode length must be per-slot with shape ({b},), got "
+            f"{tuple(length.shape)}")
+    quantized = k_pages.dtype == torch.int8
+    if quantized and (k_scale is None or v_scale is None):
+        raise ValueError(
+            "int8 k_pages/v_pages need per-row k_scale/v_scale rows "
+            "(P, Hkv, page_size) — decoding raw int8 codes as values would "
+            "be silently wrong")
+    if not quantized and (k_scale is not None or v_scale is not None):
+        raise ValueError("k_scale/v_scale are only valid for int8 pools")
+    if buffers not in (1, 2):
+        raise ValueError(f"buffers must be 1 or 2, got {buffers}")
+    # Stale host bookkeeping must not read past the table's coverage.
+    length = torch.clamp(length, max=block_tables.shape[1] * page_size)
+    block_tables = block_tables.to(device=q.device, dtype=torch.int32)
+    if not _use_kernel(mode, q, k_pages, v_pages):
+        return ref.ref_paged_decode_attention(
+            q, k_pages, v_pages, block_tables, length=length, scale=scale,
+            k_scale=k_scale, v_scale=v_scale)
+    return flash_paged_decode(q, k_pages, v_pages, block_tables.contiguous(),
+                              length=length.contiguous(), scale=scale,
+                              k_scale=k_scale, v_scale=v_scale,
+                              buffers=buffers)

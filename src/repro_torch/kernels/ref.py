@@ -98,3 +98,46 @@ def ref_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         valid = (k_pos[None, :] < length.to(q.device)[:, None])[:, None, None]
     return _softmax_av(s, valid, vf)[:, :, 0].to(q.dtype)
+
+
+def gather_pages(pool: torch.Tensor, block_tables: torch.Tensor
+                 ) -> torch.Tensor:
+    """A contiguous per-slot cache from a page pool: pool (P, Hkv, ps, D),
+    block_tables (B, max_pages) -> (B, Hkv, max_pages * ps, D), position
+    ``t`` of slot ``b`` being row ``t % ps`` of page
+    ``block_tables[b, t // ps]``.  (The kernel never builds this.)"""
+    _, hkv, ps, d = pool.shape
+    b, n_pages = block_tables.shape
+    gathered = pool[block_tables.long()]         # (B, max_pages, Hkv, ps, D)
+    return gathered.permute(0, 2, 1, 3, 4).reshape(b, hkv, n_pages * ps, d)
+
+
+def dequantize_pool(pages: torch.Tensor,
+                    page_scale: Optional[torch.Tensor]) -> torch.Tensor:
+    """Apply per-row scale rows to an int8 pool: (P, Hkv, ps, D) int8 x
+    (P, Hkv, ps) f32 -> f32 values (``serving.quant.dequantize_kv``'s
+    product).  With ``page_scale=None`` the pool passes through."""
+    if page_scale is None:
+        return pages
+    return pages.float() * page_scale[..., None]
+
+
+def ref_paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                               v_pages: torch.Tensor,
+                               block_tables: torch.Tensor, *,
+                               length: torch.Tensor,
+                               scale: Optional[float] = None,
+                               k_scale: Optional[torch.Tensor] = None,
+                               v_scale: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+    """Plain flash_paged_decode: dequantize the pools, gather each slot's
+    pages, then the dense decode.  Rows at or past ``length`` (the partial
+    last page, and the null sink page that unallocated table entries
+    point at) are zeroed before they meet a zero softmax weight, as the
+    kernel never reads them: whatever the sink holds stays unreachable."""
+    kc = gather_pages(dequantize_pool(k_pages, k_scale), block_tables)
+    vc = gather_pages(dequantize_pool(v_pages, v_scale), block_tables)
+    rows = torch.arange(kc.shape[2], device=kc.device)
+    live = (rows[None, :] < length.to(kc.device)[:, None])[:, None, :, None]
+    kc, vc = kc.masked_fill(~live, 0), vc.masked_fill(~live, 0)
+    return ref_decode_attention(q, kc, vc, length=length, scale=scale)

@@ -15,8 +15,12 @@ Trace file (``--trace``, JSON lines; a bare name resolves to
     {"id": 0, "arrival": 0, "prompt_len": 12, "max_new": 16}
     {"id": 1, "arrival": 3, "prompt": [17, 3, 99], "max_new": 8}
 
-``--verify`` re-runs every completed request through a one-slot one-shot
-engine and checks the continuous outputs are bit-identical.
+``--kv paged --page_size N`` serves from the page pool (``--pool_pages``
+caps it; ``--kv-dtype int8`` stores quantized pages).  ``--verify`` re-runs
+every completed request through a one-slot one-shot engine and checks the
+continuous outputs are bit-identical: a dense one for full-precision runs
+(for a paged run, the paged-vs-dense check), a paged one of the same
+``kv_dtype`` for int8 pages.
 """
 
 from __future__ import annotations
@@ -97,7 +101,9 @@ def run_trace(engine, trace: List[dict],
               log: Optional[Callable[[str], None]] = print) -> dict:
     """Replay ``trace`` (step-indexed).  Returns {results: {trace_id:
     tokens}, wall_s, tokens, tok_s, p50_ms, p99_ms, ttft_p50_ms,
-    ttft_p99_ms, shared_steps, decode_steps}.
+    ttft_p99_ms, shared_steps, decode_steps, kv_bytes_hwm,
+    kv_bytes_reserved}, and for a paged engine pages_hwm, pages_reclaimed
+    and preemptions (the last two counted over this replay).
 
     ``p50/p99_ms`` are per-stream inter-token gaps (the engine's
     ``itl_ms`` events); ``ttft_*`` cover runnable -> first token.  Arrivals
@@ -111,6 +117,8 @@ def run_trace(engine, trace: List[dict],
                             arrival=base + t["arrival"])
         rid_to_tid[rid] = t["id"]
     stats0 = dict(engine.stats)
+    pool = engine.pool
+    reclaimed0 = pool.total_reclaimed if pool is not None else 0
     itl: List[float] = []
     ttft: List[float] = []
     t0 = time.perf_counter()
@@ -123,13 +131,16 @@ def run_trace(engine, trace: List[dict],
             log(f"[serve] step={engine.step_count - 1} "
                 f"admitted={[rid_to_tid[r] for r in ev['admitted']]} "
                 f"sharing decode with {[rid_to_tid[r] for r in older]}")
+        for rid in ev["preempted"]:
+            log(f"[serve] preempted id={rid_to_tid[rid]} (pool exhausted) "
+                f"— requeued at the head")
         for rid in ev["finished"]:
             log(f"[serve] done id={rid_to_tid[rid]} "
                 f"tokens={len(engine.result(rid))}")
     wall = time.perf_counter() - t0
     results = {rid_to_tid[rid]: toks for rid, toks in engine.drain().items()}
     tokens = sum(len(v) for v in results.values())
-    return {
+    rep = {
         "results": results,
         "wall_s": wall,
         "tokens": tokens,
@@ -138,15 +149,33 @@ def run_trace(engine, trace: List[dict],
         "ttft_p50_ms": _pct(ttft, 50), "ttft_p99_ms": _pct(ttft, 99),
         "shared_steps": engine.stats["shared_steps"] - stats0["shared_steps"],
         "decode_steps": engine.stats["decode_steps"] - stats0["decode_steps"],
+        "kv_bytes_hwm": engine.kv_bytes_high_water(),
+        "kv_bytes_reserved": engine.kv_bytes_reserved(),
     }
+    if pool is not None:
+        rep["pages_hwm"] = pool.high_water
+        rep["pages_reclaimed"] = pool.total_reclaimed - reclaimed0
+        rep["preemptions"] = (engine.stats["preemptions"]
+                              - stats0["preemptions"])
+    return rep
 
 
 def _verify(cfg, params, trace, results, scfg) -> None:
     """Re-run every request one-shot (a one-slot engine on the same
     kernels) and require the continuous-batching outputs to be
-    bit-identical."""
+    bit-identical.  For a full-precision run the one-shot engine is
+    *dense*, so for a paged run this is also the paged-vs-dense check.
+    With ``kv_dtype`` set it keeps the same paged layout and page dtype
+    (the dense layout has no page pool to retype, and quantization would
+    differ from it by more than the batching machinery under test)."""
     from repro_torch.serving.engine import ServeEngine
-    one = ServeEngine(cfg, params, dataclasses.replace(scfg, batch_slots=1))
+    if scfg.kv_dtype is None:
+        one_scfg = dataclasses.replace(scfg, batch_slots=1, kv="dense")
+        ref_name = "one-shot dense generate()"
+    else:
+        one_scfg = dataclasses.replace(scfg, batch_slots=1)
+        ref_name = f"one-shot paged/{scfg.kv_dtype} generate()"
+    one = ServeEngine(cfg, params, one_scfg)
     try:
         bad = []
         for t in trace:
@@ -156,7 +185,7 @@ def _verify(cfg, params, trace, results, scfg) -> None:
         if bad:
             raise SystemExit(f"[serve] VERIFY FAILED for ids {bad}")
         print(f"[serve] verify OK: {len(trace)} requests bit-identical to "
-              f"one-shot single-slot generate()")
+              f"{ref_name}")
     finally:
         one.close()
 
@@ -176,6 +205,20 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--verify", action="store_true",
                     help="check each completed request against a one-shot "
                          "single-slot generate()")
+    ap.add_argument("--kv", choices=("dense", "paged"), default="dense",
+                    help="KV layout: dense per-slot max_len rows, or the "
+                         "kvpool page pool + block tables")
+    ap.add_argument("--page_size", type=int, default=None,
+                    help="paged: tokens per page (required: the tuner that "
+                         "would pick it is not ported)")
+    ap.add_argument("--pool_pages", type=int, default=0,
+                    help="paged: pool capacity in pages (0 = the "
+                         "dense-equivalent slots * ceil(max_len/page))")
+    ap.add_argument("--kv-dtype", dest="kv_dtype", default=None,
+                    choices=("bfloat16", "float32", "int8"),
+                    help="paged: page dtype (default: the model's cache "
+                         "dtype; int8 stores quantized pages with per-row "
+                         "scales, dequantized inside the decode kernel)")
     ap.add_argument("--gemm-mode", dest="gemm_mode", default="auto",
                     choices=("auto", "kernel", "ref"))
     ap.add_argument("--device", default="cuda")
@@ -195,7 +238,9 @@ def main(argv: Optional[List[str]] = None) -> None:
         trace = synth_trace(8, 16, args.max_new, 3, cfg.vocab_size)
     max_len = max(len(t["prompt"]) + t["max_new"] for t in trace) + 8
     engine = ServeEngine(cfg, params, ServeConfig(
-        batch_slots=args.batch_slots, max_len=max_len))
+        batch_slots=args.batch_slots, max_len=max_len, kv=args.kv,
+        page_size=args.page_size, pool_pages=args.pool_pages,
+        kv_dtype=args.kv_dtype))
     try:
         rep = run_trace(engine, trace)
         if len(rep["results"]) != len(trace):
@@ -208,6 +253,17 @@ def main(argv: Optional[List[str]] = None) -> None:
               f"shared_steps={rep['shared_steps']} "
               f"decode_steps={rep['decode_steps']} arch={cfg.name} "
               f"slots={engine.scfg.batch_slots} device={engine.device}")
+        if engine.paged:
+            dense_mib = (engine.scfg.batch_slots * engine.scfg.max_len
+                         * engine.token_kv_bytes() / 2 ** 20)
+            print(f"[serve] paged kv: page_size={engine.pool.page_size} "
+                  f"kv_dtype={engine.scfg.kv_dtype or 'cache'} "
+                  f"pool={engine.pool.num_pages} pages "
+                  f"pages_hwm={rep['pages_hwm']} "
+                  f"pages_reclaimed={rep['pages_reclaimed']} "
+                  f"preemptions={rep['preemptions']} "
+                  f"kv_hwm={rep['kv_bytes_hwm'] / 2 ** 20:.2f}MiB "
+                  f"(dense would reserve {dense_mib:.2f}MiB)")
         if args.verify:
             _verify(cfg, params, trace, rep["results"], engine.scfg)
     finally:

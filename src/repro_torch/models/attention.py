@@ -1,17 +1,18 @@
-"""Grouped-query attention with RoPE, qk-norm and a dense KV cache
-(counterpart of ``repro/models/attention.py``).
+"""Grouped-query attention with RoPE, qk-norm and a dense or paged KV
+cache (counterpart of ``repro/models/attention.py``).
 
-Execution shapes of this slice:
+Execution shapes:
   * no cache: full causal self-attention;
-  * prefill: causal self-attention over the cache at a scalar offset
+  * prefill: causal self-attention over a dense cache at a scalar offset
     (``cache_pos``), which also writes the prompt's KV into the cache;
   * decode: one new token per slot (S == 1) at per-slot positions — a
-    (B,) ``cache_pos`` — against each slot's own valid prefix.
+    (B,) ``cache_pos`` — against each slot's own valid prefix, in a dense
+    cache or in a page pool addressed through ``block_tables``.
 
 The cache is updated **in place** (the reference returns a new cache from
-``dynamic_update_slice``); :func:`attention` returns the same dict it was
-given.  The paged KV layout, cross-attention and M-RoPE wait for later
-slices and raise ``NotImplementedError``.
+``dynamic_update_slice`` and ``.at[].set``); :func:`attention` returns the
+same dict it was given.  Cross-attention and M-RoPE wait for later slices
+and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models.config import torch_dtype
 
 Params = Dict[str, Any]
 
@@ -50,6 +52,69 @@ def init_kv_cache(batch: int, n_kv_heads: int, max_len: int, d_head: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def init_paged_kv_cache(num_pages: int, n_kv_heads: int, page_size: int,
+                        d_head: int, dtype: torch.dtype = torch.bfloat16,
+                        kv_dtype: Optional[str] = None,
+                        device: Union[str, torch.device] = "cpu") -> Params:
+    """Paged pool layout (``repro_torch.serving.kvpool``): ``num_pages``
+    pages of ``page_size`` token rows shared by every slot, addressed
+    through a per-slot block table.  ``num_pages`` already includes the
+    null sink page (the engine allocates pool + 1).
+
+    ``kv_dtype`` overrides the page dtype: a float name retypes the pools;
+    ``"int8"`` adds per-row f32 scale rows ``k_scale``/``v_scale``
+    (num_pages, Hkv, page_size), the layout the paged decode kernel
+    dequantizes."""
+    page_dtype = (dtype if kv_dtype is None else torch.int8
+                  if kv_dtype == "int8" else torch_dtype(kv_dtype))
+    shape = (num_pages, n_kv_heads, page_size, d_head)
+    cache = {"k_pages": torch.zeros(shape, dtype=page_dtype, device=device),
+             "v_pages": torch.zeros(shape, dtype=page_dtype, device=device)}
+    if page_dtype == torch.int8:
+        for key in ("k_scale", "v_scale"):
+            cache[key] = torch.zeros(shape[:3], dtype=torch.float32,
+                                     device=device)
+    return cache
+
+
+def _paged_decode(cache: Params, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor, cache_pos: torch.Tensor,
+                  block_tables: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """Decode against a page pool: write each slot's new KV row in place at
+    row ``pos % ps`` of page ``block_tables[b, pos // ps]``, then attend
+    over the slot's ``pos + 1`` rows.  Free slots all point at the null
+    sink page, so their writes collide there; which one wins is undefined
+    and harmless, as no live slot's length reaches the sink.  int8 pools
+    quantize exactly the appended row and write its scale.  q: (B, H, D);
+    k/v: (B, Hkv, D).  Returns (B, H, D)."""
+    ps = cache["k_pages"].shape[2]
+    dev = cache["k_pages"].device
+    pos = cache_pos.to(device=dev, dtype=torch.long)
+    bt = block_tables.to(device=dev, dtype=torch.int32)
+    page_ids = bt[torch.arange(bt.shape[0], device=dev), pos // ps].long()
+    rows = pos % ps
+    length = (pos + 1).to(torch.int32)
+    if "k_scale" in cache:
+        from repro_torch.serving.quant import quantize_kv_row
+        for key, x in (("k", k), ("v", v)):
+            xq, xs = quantize_kv_row(x)
+            cache[f"{key}_pages"][page_ids, :, rows] = xq
+            cache[f"{key}_scale"][page_ids, :, rows] = xs
+        return ops.decode_paged(q, cache["k_pages"], cache["v_pages"],
+                                block_tables=bt, length=length,
+                                k_scale=cache["k_scale"],
+                                v_scale=cache["v_scale"])
+    pools = []
+    for key, x in (("k", k), ("v", v)):
+        pool = cache[f"{key}_pages"]
+        pool[page_ids, :, rows] = x.to(pool.dtype)
+        # A pool stored in another float dtype is read as the compute one.
+        pools.append(pool if pool.dtype == dtype else pool.to(dtype))
+    return ops.decode_paged(q, pools[0], pools[1], block_tables=bt,
+                            length=length)
+
+
 def attention(
     p: Params,
     x: torch.Tensor,                          # (B, S, d_model)
@@ -69,10 +134,6 @@ def attention(
     use_cached_kv: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Returns (output (B, S, d_model), the cache updated in place)."""
-    if block_tables is not None or (cache is not None and "k_pages" in cache):
-        raise NotImplementedError(
-            "paged KV attention comes with the paged-KV slice "
-            "(ROADMAP Queue A item 5, paged branch)")
     if use_cached_kv or kv_from is not None:
         raise NotImplementedError(
             "cross-attention comes with the enc-dec architectures "
@@ -100,6 +161,16 @@ def attention(
         raise NotImplementedError(
             "per-slot cache_pos is a decode-only shape (S == 1); prefill "
             "admits one request at a time at its own scalar offset")
+    if cache is not None and "k_pages" in cache:
+        # Paged KV is decode-only: prefill runs against a dense one-slot
+        # cache whose pages the engine scatters into the pool.
+        if not ragged or block_tables is None:
+            raise NotImplementedError(
+                "paged KV attention needs per-slot cache_pos and "
+                "block_tables (the continuous-batching decode shape)")
+        out = _paged_decode(cache, q[:, :, 0], k[:, :, 0], v[:, :, 0],
+                            cache_pos, block_tables, x.dtype)
+        return L.dense(p["wo"], out.reshape(b, s, n_heads * d_head)), cache
     q_off = 0
     if cache is not None:
         ck, cv = cache["k"], cache["v"]

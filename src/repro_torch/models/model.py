@@ -96,9 +96,11 @@ def _positions(b: int, s: int, offset: Union[int, torch.Tensor],
 
 def forward(params: Params, batch: Batch, cfg: ModelConfig, *,
             caches: Optional[List] = None,
-            cache_pos: Union[int, torch.Tensor, None] = None
+            cache_pos: Union[int, torch.Tensor, None] = None,
+            block_tables: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Optional[List]]:
-    """Returns (logits (B, S, V) f32, caches updated in place)."""
+    """Returns (logits (B, S, V) f32, caches updated in place).
+    ``block_tables`` addresses a paged cache (decode only)."""
     tokens = batch["tokens"]
     x = L.embed(params["embed"], tokens, cfg.cdtype)
     b, s = tokens.shape
@@ -107,14 +109,39 @@ def forward(params: Params, batch: Batch, cfg: ModelConfig, *,
         pos = _positions(b, s, 0 if cache_pos is None else cache_pos,
                          x.device)
     x, caches = T.apply_stack(params["blocks"], x, cfg, positions=pos,
-                              caches=caches, cache_pos=cache_pos)
+                              caches=caches, cache_pos=cache_pos,
+                              block_tables=block_tables)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return L.logits(params["embed"], x, params.get("head")), caches
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device: Union[str, torch.device] = "cpu") -> List:
-    return T.init_stack_cache(cfg, batch, max_len, device)
+               device: Union[str, torch.device] = "cuda") -> List:
+    """Dense KV caches, (batch, Hkv, max_len, D) per layer, zeroed."""
+    return T.init_stack_cache(cfg, batch, max_len, resolve_device(device))
+
+
+def paged_eligible(cfg: ModelConfig) -> bool:
+    """True when the arch can decode through the paged KV pool: every
+    mixer is attention and there is no enc-dec cross cache."""
+    return (not cfg.encoder_decoder
+            and all(spec.mixer == "attn" for spec in cfg.pattern))
+
+
+def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
+                     kv_dtype: Optional[str] = None,
+                     device: Union[str, torch.device] = "cuda") -> List:
+    """Paged-KV caches (``repro_torch.serving.kvpool``): per attention
+    layer, a (num_pages + 1, Hkv, page_size, D) page pool — the extra page
+    is the null sink that unallocated block-table entries point at.
+    ``kv_dtype`` overrides the page dtype (``"int8"`` adds per-row scale
+    rows; see ``attention.init_paged_kv_cache``)."""
+    if not paged_eligible(cfg):
+        raise ValueError(
+            f"arch {cfg.name!r} has non-attention state (or an enc-dec "
+            f"cross cache) — the paged KV pool covers attention KV only")
+    return T.init_stack_cache(cfg, 0, 0, resolve_device(device),
+                              paged=(num_pages + 1, page_size, kv_dtype))
 
 
 def prefill(params: Params, batch: Batch, cfg: ModelConfig,
@@ -126,11 +153,16 @@ def prefill(params: Params, batch: Batch, cfg: ModelConfig,
 
 def decode_step(params: Params, token: torch.Tensor,
                 pos: Union[int, torch.Tensor], cfg: ModelConfig,
-                caches: List) -> Tuple[torch.Tensor, List]:
+                caches: List, block_tables: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, List]:
     """One token (B,) at position ``pos`` — a scalar (uniform batch) or a
     (B,) vector of per-slot positions (ragged continuous batching: each
     slot writes its KV at its own offset and attends only to its own valid
-    prefix).  Returns (logits (B, V), caches)."""
+    prefix).  With a paged cache (:func:`init_paged_cache`),
+    ``block_tables`` (B, max_pages) maps each slot's positions onto pool
+    pages and ``pos`` must be the per-slot vector.  Returns (logits (B, V),
+    caches)."""
     lg, caches = forward(params, {"tokens": token[:, None]}, cfg,
-                         caches=caches, cache_pos=pos)
+                         caches=caches, cache_pos=pos,
+                         block_tables=block_tables)
     return lg[:, 0], caches

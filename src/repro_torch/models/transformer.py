@@ -45,7 +45,8 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, spec: BlockSpec,
 def apply_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
                 spec: BlockSpec, *, positions: Optional[torch.Tensor],
                 cache: Optional[Cache] = None,
-                cache_pos: Union[int, torch.Tensor, None] = None
+                cache_pos: Union[int, torch.Tensor, None] = None,
+                block_tables: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """Returns (x, cache updated in place)."""
     check_block(cfg, spec)
@@ -55,7 +56,7 @@ def apply_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
         d_head=cfg.d_head, positions=positions, rope_theta=cfg.rope_theta,
         mrope_sections=cfg.mrope_sections, qk_norm=cfg.qk_norm,
         causal=cfg.causal, cache=None if cache is None else cache["attn"],
-        cache_pos=cache_pos)
+        cache_pos=cache_pos, block_tables=block_tables)
     x = x + out
     h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
     x = x + L.mlp(p["mlp"], h, cfg.ffn_kind)
@@ -73,7 +74,17 @@ def init_stack(gen: torch.Generator, cfg: ModelConfig,
 
 
 def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int,
-                     device: Union[str, torch.device] = "cpu") -> List[Cache]:
+                     device: Union[str, torch.device] = "cpu",
+                     paged: Optional[Tuple] = None) -> List[Cache]:
+    """Per-layer KV caches.  ``paged=(num_pages, page_size[, kv_dtype])``
+    swaps the dense (batch, Hkv, max_len, D) layout for page pools
+    (``attention.init_paged_kv_cache``; ``batch`` and ``max_len`` are then
+    ignored); the optional ``kv_dtype`` overrides the page dtype."""
+    if paged is not None:
+        return [{"attn": A.init_paged_kv_cache(
+            paged[0], cfg.n_kv_heads, paged[1], cfg.d_head, cfg.kvdtype,
+            kv_dtype=paged[2] if len(paged) > 2 else None, device=device)}
+            for _ in layer_specs(cfg)]
     return [{"attn": A.init_kv_cache(batch, cfg.n_kv_heads, max_len,
                                      cfg.d_head, cfg.kvdtype, device)}
             for _ in layer_specs(cfg)]
@@ -82,11 +93,12 @@ def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int,
 def apply_stack(stack: List[Params], x: torch.Tensor, cfg: ModelConfig, *,
                 positions: Optional[torch.Tensor],
                 caches: Optional[List[Cache]] = None,
-                cache_pos: Union[int, torch.Tensor, None] = None
+                cache_pos: Union[int, torch.Tensor, None] = None,
+                block_tables: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Optional[List[Cache]]]:
     """Run every layer in order.  Returns (x, caches updated in place)."""
     for i, (p, spec) in enumerate(zip(stack, layer_specs(cfg))):
         x, _ = apply_block(p, x, cfg, spec, positions=positions,
                            cache=None if caches is None else caches[i],
-                           cache_pos=cache_pos)
+                           cache_pos=cache_pos, block_tables=block_tables)
     return x, caches

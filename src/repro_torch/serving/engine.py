@@ -1,13 +1,22 @@
-"""Continuous-batching serving engine: slot-based dense KV cache + scheduler
-(the dense subset of ``repro/serving/engine.py``).
+"""Continuous-batching serving engine: a dense or paged KV cache + scheduler
+(the dense and paged subset of ``repro/serving/engine.py``).
 
-One persistent KV-cache allocation (``batch_slots`` rows of ``max_len``)
-lives for the engine's lifetime.  A :class:`~repro_torch.serving.scheduler.
-Scheduler` admits queued requests into free slots *mid-decode*: an
-admission is prefilled into its slot (one request at a time, its prompt
-padded to a power-of-two bucket, against a fresh single-slot cache that is
-then copied into the slot's row in place) and joins the very next batched
-decode step alongside every older in-flight request.
+One persistent KV-cache allocation lives for the engine's lifetime.  A
+:class:`~repro_torch.serving.scheduler.Scheduler` admits queued requests
+into free slots *mid-decode*: an admission is prefilled into its slot (one
+request at a time, its prompt padded to a power-of-two bucket, against a
+fresh single-slot dense cache that is then copied into the persistent
+cache in place) and joins the very next batched decode step alongside
+every older in-flight request.
+
+``ServeConfig(kv="dense")`` reserves ``batch_slots`` rows of ``max_len``.
+``kv="paged"`` swaps that for the ``repro_torch.serving.kvpool`` page pool:
+prefill scatters the prompt's pages into the pool along the slot's block
+table, decode appends rows (allocating pages on demand and preempting the
+youngest admission when the pool is exhausted; the victim is requeued at
+the head and regenerated), and completion, EOS and cancellation return a
+request's pages the same step.  ``kv_dtype="int8"`` stores quantized pages
+with per-row scales (``serving.quant``).
 
 API: :meth:`ServeEngine.submit` queues a request (optionally with a
 streaming per-token callback), :meth:`step` runs one engine step
@@ -16,11 +25,11 @@ streaming per-token callback), :meth:`step` runs one engine step
 one-shot :meth:`generate` admits a uniform batch at step 0.
 
 The engine runs on the device its parameters live on.  The reference's
-paged KV, int8 pages, chunked prefill, prefix cache, weight-only
-quantization, pack mesh and tuner-resolved sizes raise
-``NotImplementedError`` naming the ROADMAP item that brings them; none of
-them falls back to the dense path.  The ``obs`` hooks (tracer spans, step
-profiler, SLO monitor, flight recorder) wait for ROADMAP Queue A item 8.
+chunked prefill, prefix cache, weight-only quantization, pack mesh and
+tuner-resolved sizes raise ``NotImplementedError`` naming the ROADMAP item
+that brings them; none of them falls back to another path.  The ``obs``
+hooks (tracer spans, step profiler, SLO monitor, flight recorder) wait
+for ROADMAP Queue A item 8.
 """
 
 from __future__ import annotations
@@ -32,8 +41,11 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.models import decode_step, forward, init_cache
-from repro_torch.models.config import ModelConfig
+from repro_torch.models import (decode_step, forward, init_cache,
+                                init_paged_cache)
+from repro_torch.models.config import ModelConfig, torch_dtype
+from repro_torch.serving.kvpool import BlockTables, PagePool, pages_for
+from repro_torch.serving.quant import KV_PAGE_DTYPES, quantize_kv_row
 from repro_torch.serving.scheduler import DECODE, Request, Scheduler, Slot
 
 
@@ -44,12 +56,18 @@ class ServeConfig:
     temperature: float = 0.0  # 0 = greedy
     seed: int = 0             # torch.Generator seed for sampled decoding
     eos_id: Optional[int] = None  # sampled EOS ends the request early
+    # KV layout: "dense" per-slot max_len rows, or "paged" (kvpool).
+    kv: str = "dense"
+    # Paged only: tokens per page (None or 0 asks the tuner, which is not
+    # ported: both raise), pool capacity in pages (0 = the dense-equivalent
+    # slots * ceil(max_len / page_size)), and the page dtype (None keeps
+    # cfg.cache_dtype; "int8" adds per-row scales).
+    page_size: Optional[int] = None
+    pool_pages: int = 0
+    kv_dtype: Optional[str] = None
     # Options of the reference that later slices bring; each non-default
     # value raises NotImplementedError (see _UNSUPPORTED).
     quantize: bool = False
-    kv: str = "dense"
-    page_size: Optional[int] = None   # paged only; 0 asks the tuner
-    kv_dtype: Optional[str] = None
     prefix_cache: bool = False
     prefill_chunk: Optional[int] = 0  # None asks the tuner
     token_budget: int = 0     # read by the latency policy's signals
@@ -60,13 +78,9 @@ class ServeConfig:
 # (field, predicate on the value that the port cannot serve yet, the
 # ROADMAP item that brings it).
 _UNSUPPORTED = (
-    ("kv", lambda v: v != "dense",
-     "paged KV + flash_paged_decode (ROADMAP Queue A item 6.2, Queue B 4)"),
-    ("page_size", lambda v: v is not None,
-     "paged KV and its tuner-resolved page size (ROADMAP Queue A items "
-     "6.2 and 9)"),
-    ("kv_dtype", lambda v: v is not None,
-     "int8 KV pages (ROADMAP Queue A item 6.3)"),
+    ("page_size", lambda v: v == 0,
+     "the tuner-resolved page size of paged KV (ROADMAP Queue A items 6.2 "
+     "and 9)"),
     ("prefix_cache", bool, "prefix caching (ROADMAP Queue A item 6.5)"),
     ("prefill_chunk", lambda v: v != 0,
      "chunked prefill and its tuner-resolved chunk (ROADMAP Queue A items "
@@ -120,6 +134,23 @@ class ServeEngine:
                 raise NotImplementedError(
                     f"ServeConfig.{name}={value!r} is not ported yet: it "
                     f"comes with {item}")
+        if scfg.kv not in ("dense", "paged"):
+            raise ValueError(f"ServeConfig.kv must be 'dense' or 'paged', "
+                             f"got {scfg.kv!r}")
+        if scfg.kv_dtype is not None:
+            if scfg.kv_dtype not in KV_PAGE_DTYPES:
+                raise ValueError(f"ServeConfig.kv_dtype must be one of "
+                                 f"{KV_PAGE_DTYPES}, got {scfg.kv_dtype!r}")
+            if scfg.kv != "paged":
+                raise ValueError(
+                    f"ServeConfig.kv_dtype={scfg.kv_dtype!r} requires "
+                    f"kv='paged' — the dense layout has no page pool to "
+                    f"retype (got kv={scfg.kv!r})")
+        if scfg.kv == "paged" and scfg.page_size is None:
+            raise NotImplementedError(
+                "ServeConfig.page_size=None with kv='paged' asks the tuner "
+                "for a page size, which is not ported yet: it comes with "
+                "ROADMAP Queue A item 9 (pass a page size)")
         if any(spec.mixer != "attn" for spec in cfg.pattern):
             raise NotImplementedError(
                 f"arch {cfg.name!r}: recurrent mixers are served by a later "
@@ -132,6 +163,23 @@ class ServeEngine:
         self.sched = Scheduler(scfg.batch_slots, policy=scfg.policy)
         self.sched.signals = self._admission_signals
         self.caches = None            # allocated at first step
+        self.paged = scfg.kv == "paged"
+        if self.paged:
+            ps = scfg.page_size
+            self._max_pages = pages_for(scfg.max_len, ps)
+            self.pool = PagePool(
+                scfg.pool_pages or scfg.batch_slots * self._max_pages, ps)
+            self.blocks = BlockTables(self.pool, scfg.batch_slots,
+                                      self._max_pages)
+            # The dense scratch each prefill runs against is page-aligned,
+            # so whole pages scatter into the pool.
+            self._fresh_len = self._max_pages * ps
+        else:
+            self.pool = self.blocks = None
+            self._fresh_len = scfg.max_len
+        self._slot_req: Dict[int, Request] = {}  # slot -> its request
+        self._streamed: Dict[int, int] = {}       # rid -> tokens streamed
+        self._kv_tokens_hwm = 0
         self.step_count = 0
         self._next_rid = 0
         self._tok = np.zeros((scfg.batch_slots,), np.int64)
@@ -143,7 +191,7 @@ class ServeEngine:
         self._cancel_log: List[int] = []          # cancels since last step
         self.stats = {"admitted": 0, "finished": 0, "prefills": 0,
                       "decode_steps": 0, "shared_steps": 0,
-                      "eos_exits": 0, "cancelled": 0}
+                      "eos_exits": 0, "cancelled": 0, "preemptions": 0}
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -163,9 +211,52 @@ class ServeEngine:
 
     # -- helpers ------------------------------------------------------------
 
-    def new_cache(self, batch: Optional[int] = None) -> List:
-        return init_cache(self.cfg, batch or self.scfg.batch_slots,
+    def new_cache(self) -> List:
+        """The persistent cache: page pools (paged) or ``batch_slots`` rows
+        of ``max_len`` (dense)."""
+        if self.paged:
+            return init_paged_cache(self.cfg, self.pool.num_pages,
+                                    self.pool.page_size,
+                                    kv_dtype=self.scfg.kv_dtype,
+                                    device=self.device)
+        return init_cache(self.cfg, self.scfg.batch_slots,
                           self.scfg.max_len, self.device)
+
+    # -- KV memory accounting ------------------------------------------------
+
+    def token_kv_bytes(self) -> int:
+        """Bytes of attention KV one token occupies across the stack (k and
+        v, every layer), at the page dtype; an int8 row also carries its
+        f32 scale, so it costs D + 4 bytes per KV head."""
+        cfg = self.cfg
+        kv_dtype = self.scfg.kv_dtype if self.paged else None
+        row = cfg.d_head * (1 if kv_dtype == "int8" else torch_dtype(
+            kv_dtype or cfg.cache_dtype).itemsize)
+        if kv_dtype == "int8":
+            row += 4
+        return 2 * cfg.n_layers * cfg.n_kv_heads * row
+
+    def kv_bytes_reserved(self) -> int:
+        """Attention-KV bytes held for the engine's lifetime: the page pool
+        (paged) or slots x max_len rows (dense)."""
+        if self.paged:
+            rows = self.pool.num_pages * self.pool.page_size
+        else:
+            rows = self.scfg.batch_slots * self.scfg.max_len
+        return rows * self.token_kv_bytes()
+
+    def kv_bytes_high_water(self) -> int:
+        """Peak attention-KV bytes bound to live requests: the pool's
+        ``pages_in_use`` high-water x page bytes (paged), or the live-token
+        high-water x token bytes (dense)."""
+        if self.paged:
+            rows = self.pool.high_water * self.pool.page_size
+        else:
+            rows = self._kv_tokens_hwm
+        return rows * self.token_kv_bytes()
+
+    def _note_kv_tokens(self, live: int) -> None:
+        self._kv_tokens_hwm = max(self._kv_tokens_hwm, live)
 
     def _insert_slot(self, one: List, slot: int) -> None:
         """Overwrite slot ``slot`` of the persistent cache with a freshly
@@ -175,6 +266,27 @@ class ServeEngine:
         for full, fresh in zip(self.caches, one):
             for key in ("k", "v"):
                 full["attn"][key][slot].copy_(fresh["attn"][key][0])
+
+    def _insert_slot_pages(self, one: List, slot: int) -> None:
+        """Scatter a freshly prefilled single-slot dense cache into the page
+        pools along the slot's block table, in place: the scratch's first
+        pages go to the slot's pages, one page per pool row.  int8 pools
+        quantize each token row on the way in and write its scale."""
+        pages = self.blocks.slot_pages(slot)
+        ids = torch.tensor(pages, dtype=torch.long, device=self.device)
+        ps = self.pool.page_size
+        for full, fresh in zip(self.caches, one):
+            for key in ("k", "v"):
+                dense = fresh["attn"][key][0, :, :len(pages) * ps]
+                hkv, _, d = dense.shape
+                rows = dense.reshape(hkv, len(pages), ps, d).transpose(0, 1)
+                pool = full["attn"][f"{key}_pages"]
+                if pool.dtype == torch.int8:
+                    q, scale = quantize_kv_row(rows)
+                    pool[ids] = q
+                    full["attn"][f"{key}_scale"][ids] = scale
+                else:
+                    pool[ids] = rows.to(pool.dtype)
 
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
         """Greedy: argmax, first index on ties (torch.argmax's rule, as
@@ -214,6 +326,13 @@ class ServeEngine:
             raise ValueError(
                 f"prompt ({prompt.size}) + max_new ({max_new}) exceeds "
                 f"max_len={self.scfg.max_len}")
+        if self.paged:
+            need = pages_for(prompt.size + max_new, self.pool.page_size)
+            if need > self.pool.num_pages:
+                raise ValueError(
+                    f"request needs {need} pages but the pool has "
+                    f"{self.pool.num_pages} — it could never run, even "
+                    f"alone (raise ServeConfig.pool_pages)")
         rid = self._next_rid
         self._next_rid += 1
         arrival = self.step_count if arrival is None else int(arrival)
@@ -229,12 +348,15 @@ class ServeEngine:
 
     def step(self) -> Dict[str, Any]:
         """One engine step: admit arrived requests into free slots (each
-        prefilled and seeded with its first token), run one batched decode
-        over every active slot at per-slot positions, then a second
-        admission pass so slots freed this step (EOS, completion, cancel)
-        are reused at once.  Returns the step's events: {admitted,
-        decoded, finished, cancelled} request ids, per-request ``ttft_ms``
-        for first tokens, per-stream ``itl_ms`` gaps, and ``timings``."""
+        prefilled and seeded with its first token); (paged) grow every
+        active slot's block table for the row its next token writes,
+        preempting the youngest admission while the pool is exhausted; run
+        one batched decode over every active slot at per-slot positions;
+        then a second admission pass so slots and pages freed this step
+        (EOS, completion, cancel, preemption) are reused at once.  Returns
+        the step's events: {admitted, decoded, finished, preempted,
+        cancelled} request ids, per-request ``ttft_ms`` for first tokens,
+        per-stream ``itl_ms`` gaps, and ``timings``."""
         self._check_open("step")
         if self.caches is None:
             self.caches = self.new_cache()
@@ -245,25 +367,30 @@ class ServeEngine:
                 self._runnable_at[r.rid] = t_step
         holdover = [s.rid for s in self.sched.active_slots()]
         events: Dict[str, Any] = {"admitted": [], "decoded": [],
-                                  "finished": [],
+                                  "finished": [], "preempted": [],
                                   "cancelled": list(self._cancel_log),
                                   "ttft_ms": {}, "itl_ms": {}}
         self._cancel_log.clear()
         self._admit(events)
         admit_ms = (time.perf_counter() - t_step) * 1e3
+        if self.paged:
+            self._grow_pages(events)
         active = self.sched.active_slots()
         decode_ms = 0.0
         if active:
             pos = np.zeros((self.scfg.batch_slots,), np.int32)
             for s in self.sched.slots:
                 # Inactive slots decode garbage into their own dead rows
-                # (replaced wholesale on re-admission); the clamp only
-                # guards the bound.
-                pos[s.index] = min(s.length, self.scfg.max_len - 1)
+                # (dense: replaced wholesale on re-admission; paged: the
+                # null sink page); the clamp only guards the bound.
+                pos[s.index] = min(s.length, self._fresh_len - 1)
+            tables = (torch.from_numpy(self.blocks.table).to(self.device)
+                      if self.paged else None)
             t_dec = time.perf_counter()
             logits, self.caches = decode_step(
                 self.params, torch.from_numpy(self._tok).to(self.device),
-                torch.from_numpy(pos).to(self.device), self.cfg, self.caches)
+                torch.from_numpy(pos).to(self.device), self.cfg, self.caches,
+                block_tables=tables)
             toks = self._sample(logits).cpu().numpy()
             decode_ms = (time.perf_counter() - t_dec) * 1e3
             self.stats["decode_steps"] += 1
@@ -271,6 +398,8 @@ class ServeEngine:
                 # A mid-stream admission shared this decode step with
                 # older in-flight requests.
                 self.stats["shared_steps"] += 1
+            # Every active slot just wrote a row at position `length`.
+            self._note_kv_tokens(sum(s.length + 1 for s in active))
             for s in active:
                 if s.state != DECODE:
                     continue    # cancelled mid-step by a callback
@@ -281,7 +410,7 @@ class ServeEngine:
         if self._cancel_log:
             events["cancelled"].extend(self._cancel_log)
             self._cancel_log.clear()
-        if events["finished"] or events["cancelled"]:
+        if events["finished"] or events["preempted"] or events["cancelled"]:
             self._admit(events)
         self.step_count += 1
         events["timings"] = {
@@ -292,10 +421,32 @@ class ServeEngine:
 
     def _admit(self, events: Dict[str, Any]) -> None:
         """Admission pass: prefill every admitted request into its slot
-        without a host sync, then read the first tokens back."""
+        without a host sync, then read the first tokens back.  Paged, a
+        strict-FIFO gate admits a request only while the free pages cover
+        its prompt and its first decode row, reserving cumulatively."""
+        fits = None
+        if self.paged:
+            budget, ps = self.pool.free_pages, self.pool.page_size
+            reserved = 0
+
+            def fits(req: Request) -> bool:
+                # +1: the first decode token writes KV at position
+                # prompt_len, a fresh page for a page-aligned prompt;
+                # admitting without it would prefill only to preempt
+                # itself in _grow_pages the same step.
+                nonlocal reserved
+                need = pages_for(req.prompt_len + 1, ps)
+                if reserved + need > budget:
+                    return False
+                reserved += need
+                return True
         inflight = []
-        for req in self.sched.pop_admissible(self.step_count):
+        for req in self.sched.pop_admissible(self.step_count, fits=fits):
             slot = self.sched.admit(req)
+            if self.paged:
+                pages = self.blocks.assign(slot.index, req.prompt_len)
+                assert pages is not None, "admission fits() reserved these"
+            self._slot_req[slot.index] = req
             inflight.append((slot, self._prefill_slot(slot, req)))
             self.stats["admitted"] += 1
             events["admitted"].append(req.rid)
@@ -303,33 +454,39 @@ class ServeEngine:
             tok = int(tok0)
             self._tok[slot.index] = tok
             self._emit(slot, tok, events)
+        self._note_kv_tokens(sum(s.length for s in self.sched.active_slots()))
 
     def _prefill_slot(self, slot: Slot, req: Request) -> torch.Tensor:
         """Prefill one admission into its slot: pad the prompt to its
-        bucket, run it against a *fresh* single-slot cache (zero KV — no
-        leakage from the previous occupant), copy that cache into the
-        slot's row, and return the first generated token (greedy from the
-        prompt's last-position logits) as an unsynced device tensor."""
+        bucket, run it against a *fresh* single-slot dense cache (zero KV —
+        no leakage from the previous occupant), copy that cache into the
+        slot's row (dense) or scatter its pages into the pool (paged), and
+        return the first generated token (greedy from the prompt's
+        last-position logits) as an unsynced device tensor."""
         plen = req.prompt_len
         bucket = _bucket_for(plen, self.scfg.max_len)
         toks = np.zeros((1, bucket), np.int64)
         toks[0, :plen] = req.prompt
-        fresh = self.new_cache(1)
+        fresh = init_cache(self.cfg, 1, self._fresh_len, self.device)
         logits, fresh = forward(
             self.params, {"tokens": torch.from_numpy(toks).to(self.device)},
             self.cfg, caches=fresh, cache_pos=0)
-        self._insert_slot(fresh, slot.index)
+        if self.paged:
+            self._insert_slot_pages(fresh, slot.index)
+        else:
+            self._insert_slot(fresh, slot.index)
         self.stats["prefills"] += 1
         slot.length = plen
         return torch.argmax(logits[0, plen - 1])
 
     def cancel(self, rid: int) -> bool:
         """Drop a request wherever it is — queued or mid-decode — freeing
-        its slot the same step.  Partial output is discarded.  Safe from
-        an ``on_token`` callback.  False when ``rid`` is unknown or
-        already finished."""
+        its slot (and, paged, its pages) the same step.  Partial output is
+        discarded.  Safe from an ``on_token`` callback.  False when ``rid``
+        is unknown or already finished."""
         self._check_open("cancel")
         req = self.sched.cancel(rid)
+        self._streamed.pop(rid, None)
         if req is not None:                      # still queued
             self._runnable_at.pop(rid, None)
             self._on_token.pop(rid, None)
@@ -339,6 +496,9 @@ class ServeEngine:
         for slot in self.sched.slots:
             if slot.rid == rid and slot.state == DECODE:
                 self._out.pop(rid, None)
+                self._slot_req.pop(slot.index, None)
+                if self.paged:
+                    self.blocks.release(slot.index)
                 self.sched.release(slot)
                 self._runnable_at.pop(rid, None)
                 self._last_emit.pop(rid, None)
@@ -365,6 +525,7 @@ class ServeEngine:
         rid = slot.rid
         self._out.setdefault(rid, []).append(int(tok))
         slot.generated += 1
+        n_out = slot.generated      # release() below resets the slot
         now = time.perf_counter()
         t0 = self._runnable_at.pop(rid, None)
         if t0 is not None:
@@ -387,11 +548,56 @@ class ServeEngine:
             self.stats["finished"] += 1
             events["finished"].append(rid)
             self._last_emit.pop(rid, None)
+            self._slot_req.pop(slot.index, None)
+            if self.paged:
+                # Pages return to the pool the step the request ends.
+                self.blocks.release(slot.index)
             self.sched.release(slot)
         cb = (self._on_token.pop(rid, None) if done
               else self._on_token.get(rid))
-        if cb is not None:
+        # A request regenerating after a preemption emits again the tokens
+        # its stream already received (greedy: the same ones); the stream
+        # gets each position once.
+        if cb is not None and n_out > self._streamed.get(rid, 0):
+            self._streamed[rid] = n_out
             cb(rid, int(tok), done)
+        if done:
+            self._streamed.pop(rid, None)
+
+    # -- paged KV: growth and preemption ------------------------------------
+
+    def _grow_pages(self, events: Dict[str, Any]) -> None:
+        """Before a paged decode every active slot needs a table entry for
+        the row its incoming token writes (position ``length``).  While the
+        pool is exhausted the *youngest* admission (largest admit_seq) is
+        preempted; oldest slots grow first, so the policy is deterministic
+        and FIFO-fair (a victim is never older than the slot it yields
+        to)."""
+        for s in sorted(self.sched.active_slots(), key=lambda s: s.admit_seq):
+            if s.state != DECODE:
+                continue            # preempted by an earlier iteration
+            while not self.blocks.extend_to(s.index, s.length + 1):
+                victim = max(self.sched.active_slots(),
+                             key=lambda v: v.admit_seq)
+                self._preempt(victim, events)
+                if victim is s:
+                    break           # s yielded its own pages
+
+    def _preempt(self, slot: Slot, events: Dict[str, Any]) -> None:
+        """Evict a mid-decode request to reclaim its pages: its partial
+        output is discarded and the request returns to the head of the
+        queue (greedy decoding regenerates the identical stream)."""
+        rid = slot.rid
+        self._out.pop(rid, None)
+        self._last_emit.pop(rid, None)
+        self.blocks.release(slot.index)
+        req = self._slot_req.pop(slot.index)
+        self.sched.release(slot)
+        self.sched.requeue(req)
+        self.stats["preemptions"] += 1
+        events["preempted"].append(rid)
+        # The regenerated stream measures TTFT again from the eviction.
+        self._runnable_at[rid] = time.perf_counter()
 
     # -- one-shot API (on the continuous loop) --------------------------------
 

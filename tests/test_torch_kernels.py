@@ -22,9 +22,12 @@ except ImportError:
     # (python -m pytest -m cuda tests/test_torch_kernels.py).
     jnp = jops = None
 from repro_torch.kernels import ops as tops
-from repro_torch.kernels.decode_attention import flash_decode
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.decode_attention import (flash_decode,
+                                                  flash_paged_decode)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gemm import gama_gemm
+from repro_torch.serving import quant as tquant
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -319,3 +322,59 @@ def test_cuda_flash_decode_matches_plain(dtype, tol):
         torch.cuda.synchronize()
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
+
+
+def _cuda_paged_case(g, dtype, pool, hq, hkv, d, ps, lengths):
+    """Pools with shuffled, disjoint per-slot pages and null-sink tails."""
+    slot_pages = [-(-n // ps) for n in lengths]
+    n_pool, max_pages = sum(slot_pages) + 3, max(slot_pages) + 1
+    perm = torch.randperm(n_pool, generator=g, device="cuda").tolist()
+    bt = torch.full((len(lengths), max_pages), n_pool, dtype=torch.int32)
+    for i, n in enumerate(slot_pages):
+        bt[i, :n], perm = torch.tensor(perm[:n]), perm[n:]
+    q = torch.randn((len(lengths), hq, d), generator=g, device="cuda")
+    pools = [torch.randn((n_pool + 1, hkv, ps, d), generator=g,
+                         device="cuda").to(dtype) for _ in range(2)]
+    scales = {}
+    if pool == "int8":
+        (kq, ks), (vq, vs) = (tquant.quantize_kv_pages(p) for p in pools)
+        pools, scales = [kq, vq], {"k_scale": ks, "v_scale": vs}
+    return (q.to(dtype), pools[0], pools[1], bt.cuda(),
+            torch.tensor(lengths, dtype=torch.int32, device="cuda"), scales)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["float", "int8"])
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 2e-5)])
+def test_cuda_flash_paged_decode_matches_plain(dtype, tol, pool):
+    """Both buffering variants against the plain version, bit-identical to
+    each other; page sizes that straddle the kernel's 32-key tiles; a
+    zero-length slot; a NaN null sink that changes nothing; and a float
+    pool bit-identical to flash_decode on the gathered cache."""
+    _require_cuda()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for (hq, hkv, d, ps) in [(15, 5, 64, 16), (32, 8, 128, 7),
+                             (8, 8, 64, 5)]:
+        q, kp, vp, bt, ln, sc = _cuda_paged_case(
+            g, dtype, pool, hq, hkv, d, ps, [0, 1, 33, 100, 64])
+        one, two = (flash_paged_decode(q, kp, vp, bt, length=ln, buffers=n,
+                                       **sc) for n in (1, 2))
+        want = tops.decode_paged(q, kp, vp, block_tables=bt, length=ln,
+                                 mode="ref", **sc)
+        sink = kp.shape[0] - 1
+        kn, vn = kp.clone(), vp.clone()
+        scn = {k: v.clone() for k, v in sc.items()}
+        for t in (scn.values() if pool == "int8" else (kn, vn)):
+            t[sink] = float("nan")
+        nan_sink = flash_paged_decode(q, kn, vn, bt, length=ln, **scn)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(two.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        assert torch.equal(one, two) and torch.equal(nan_sink, two)
+        assert (two[0] == 0).all()
+        if pool == "float":
+            dense = flash_decode(q, tref.gather_pages(kp, bt).contiguous(),
+                                 tref.gather_pages(vp, bt).contiguous(),
+                                 length=ln)
+            assert torch.equal(dense, two)

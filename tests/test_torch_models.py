@@ -114,7 +114,7 @@ def test_forward_prefill_and_ragged_decode_match_jax(arch):
     max_len, bucket = 32, 16
     toks = rng.integers(0, jcfg.vocab_size, size=(3, bucket)).astype(np.int32)
     jcache = jmodel.init_cache(jcfg, 3, max_len)
-    tcache = tmodel.init_cache(tcfg, 3, max_len)
+    tcache = tmodel.init_cache(tcfg, 3, max_len, device="cpu")
     # Jitted: one XLA program per call shape is cheaper to run here than
     # the eager model's op-by-op dispatch.
     jforward = jax.jit(lambda p, t, c, pos: jmodel.forward(
@@ -161,5 +161,9 @@ def test_init_params_seeded_and_shaped_like_reference(arch):
 def test_cuda_device_without_a_card_raises():
     if torch.cuda.is_available():
         pytest.skip("this host has a card")
-    with pytest.raises(RuntimeError, match="cuda"):
-        tmodel.init_params(TC.get_smoke("smollm_360m"))
+    cfg = TC.get_smoke("smollm_360m")
+    for entry_point in (lambda: tmodel.init_params(cfg),
+                        lambda: tmodel.init_cache(cfg, 2, 16),
+                        lambda: tmodel.init_paged_cache(cfg, 4, 8)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            entry_point()

@@ -237,7 +237,6 @@ def test_submit_validation_and_close_as_reference():
 
 
 @pytest.mark.parametrize("option,value,item", [
-    ("kv", "paged", "6.2"), ("kv_dtype", "int8", "6.3"),
     ("prefix_cache", True, "6.5"), ("prefill_chunk", 8, "6.4"),
     ("prefill_chunk", None, "6.4"), ("quantize", True, "item 3"),
     ("pack_mesh", object(), "item 12"), ("batch_slots", 0, "item 9"),
@@ -248,6 +247,36 @@ def test_unported_options_raise(option, value, item):
                                **{option: value})
     with pytest.raises(NotImplementedError, match=item):
         ServeEngine(tcfg, tparams, scfg)
+
+
+@pytest.mark.parametrize("option,value,item", [
+    ("page_size", 0, "items 6.2 and 9"), ("page_size", None, "item 9"),
+    ("prefix_cache", True, "6.5"), ("prefill_chunk", 8, "6.4")])
+def test_unported_paged_options_raise(option, value, item):
+    """Paged KV and int8 pages are served; the tuner's page size, the
+    prefix cache and chunked prefill on top of them still raise."""
+    _, tcfg, _, tparams = _setup()
+    scfg = dataclasses.replace(ServeConfig(batch_slots=2, max_len=32,
+                                           kv="paged", page_size=16),
+                               **{option: value})
+    with pytest.raises(NotImplementedError, match=item):
+        ServeEngine(tcfg, tparams, scfg)
+
+
+def test_kv_options_validated_as_reference():
+    """Unknown KV layouts and page dtypes, and a page dtype without the
+    page pool, are ValueErrors in both engines."""
+    jcfg, tcfg, jparams, tparams = _setup()
+    for kw, match in ((dict(kv="ring"), "kv must be"),
+                      (dict(kv="paged", page_size=16, kv_dtype="fp8"),
+                       "kv_dtype must be"),
+                      (dict(kv_dtype="int8"), "requires kv='paged'")):
+        for engine, cfg, params, scfg_cls in (
+                (JServeEngine, jcfg, jparams, JServeConfig),
+                (ServeEngine, tcfg, tparams, ServeConfig)):
+            with pytest.raises(ValueError, match=match):
+                engine(cfg, params, scfg_cls(batch_slots=2, max_len=32,
+                                             **kw))
 
 
 def _imports(path):
@@ -273,6 +302,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "import repro_torch, repro_torch.bridge, repro_torch.configs\n"
             "import repro_torch.kernels.ops, repro_torch.models\n"
             "import repro_torch.serving.engine, repro_torch.launch.serve\n"
+            "import repro_torch.serving.kvpool, repro_torch.serving.quant\n"
             "print('ok')")
     env = {"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin"}
     out = subprocess.run([sys.executable, "-c", code], env=env,
