@@ -23,7 +23,17 @@
    replay and checked per path; each replay ends with ``--verify``'s check
    (bit-identical to a one-slot one-shot engine).  Then a
    kernel-vs-plain-GEMM logit check and a profile of a decode step.
-5. A ``{"kernels": [...]}`` JSON line, the card line, and last the
+5. Train: the wkv6 forward and backward kernels against their plain
+   versions at the training shape, a ragged length and a long one, and
+   the head-16 builds the SMOKE config runs (bf16, and f32 at the
+   launcher's shape); then RWKV-6 3B FULL (32 layers, d_model 2560, f32
+   parameters, bf16 compute, seeded random weights) takes training steps
+   through ``make_train_step`` (each step's wkv6 launches counted), one
+   step profiled; a 2-layer step with the kernels against one with the
+   plain recurrence, in f32 and in bf16 compute, each beside a control;
+   the training launcher at SMOKE size; and a restart after an injected
+   failure that must resume with the uninterrupted run's losses.
+6. A ``{"kernels": [...]}`` JSON line, the card line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 Any failure raises and exits non-zero before the last line is printed.
@@ -31,9 +41,12 @@ Any failure raises and exits non-zero before the last line is printed.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -52,10 +65,16 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     flash_decode, flash_paged_decode)
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.gemm import gama_gemm  # noqa: E402
+from repro_torch.kernels.wkv import wkv6, wkv6_bwd  # noqa: E402
 from repro_torch.launch import serve as S  # noqa: E402
+from repro_torch.launch import train as TL  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.models import (  # noqa: E402
-    decode_step, forward, init_cache, init_paged_cache, init_params)
+    decode_step, forward, init_cache, init_paged_cache, init_params, loss_fn)
 from repro_torch.models.layers import set_gemm_mode  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.training.trainer import (  # noqa: E402
+    TrainConfig, Trainer, make_train_step)
 from repro_torch.serving.engine import ServeConfig, ServeEngine  # noqa: E402
 from repro_torch.serving.kvpool import pages_for  # noqa: E402
 from repro_torch.serving.quant import quantize_kv_pages  # noqa: E402
@@ -72,11 +91,19 @@ SOURCES = {"gama_gemm": "src/repro_torch/csrc/gemm.cu",
            "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
            "flash_decode": "src/repro_torch/csrc/decode_attention.cu",
            "flash_paged_decode":
-               "src/repro_torch/csrc/paged_decode_attention.cu"}
+               "src/repro_torch/csrc/paged_decode_attention.cu",
+           "wkv6": "src/repro_torch/csrc/wkv.cu",
+           "wkv6_bwd": "src/repro_torch/csrc/wkv.cu"}
+# wkv6_bwd replaces the VJP that JAX derives through the same pallas_call.
 REPLACES = {"gama_gemm": "src/repro/kernels/gemm.py:113",
             "flash_attention": "src/repro/kernels/flash_attention.py:145",
             "flash_decode": "src/repro/kernels/decode_attention.py:127",
-            "flash_paged_decode": "src/repro/kernels/decode_attention.py:415"}
+            "flash_paged_decode": "src/repro/kernels/decode_attention.py:415",
+            "wkv6": "src/repro/kernels/wkv.py:70",
+            "wkv6_bwd": "src/repro/kernels/wkv.py:70"}
+SERVE_KERNELS = ("gama_gemm", "flash_attention", "flash_decode",
+                 "flash_paged_decode")
+TRAIN_KERNELS = ("wkv6", "wkv6_bwd")
 
 
 def card_line() -> str:
@@ -629,7 +656,7 @@ def serve_phase(cfg, max_len):
         ("paged-bf16 synth 8x448+32", long8,
          ServeConfig(batch_slots=8, max_len=long_len, **paged)),
     ]
-    total = {n: 0 for n in SOURCES}
+    total = {n: 0 for n in SERVE_KERNELS}
     for label, trace, scfg in paths:
         counts, rep = replay(cfg, params, trace, scfg, label)
         if "pool_pages=4" in label and rep["preemptions"] < 1:
@@ -657,6 +684,412 @@ def serve_phase(cfg, max_len):
     return total
 
 
+# ---------------------------------------------------------------------------
+# 5. Train: wkv6 kernels, then RWKV-6 3B
+# ---------------------------------------------------------------------------
+
+
+def _wkv_inputs(gen, b, h, t, n, dtype=torch.bfloat16):
+    """Inputs at the scale of the training path: r, k, v ~ N(0, 0.25) in
+    ``dtype`` (the compute dtype), u ~ N(0, 0.01), and decays w = exp(-exp(x))
+    from the real decay's range, x uniform in [-8, 2]: w from ~6e-4 (near 0)
+    to ~0.9997."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEV)
+    r, k, v = ((randn(b, h, t, n) * 0.5).to(dtype) for _ in range(3))
+    w = torch.exp(-torch.exp(
+        torch.rand((b, h, t, n), generator=gen, device=DEV) * 10 - 8))
+    u = randn(h, n) * 0.1
+    gy = randn(b, h, t, n).to(dtype)
+    return r, k, v, w, u, gy
+
+
+def _err_to_max(got, want, tol):
+    """Max |got - want|; fails unless it is <= tol * max(1, max |want|).
+    The kernels and the plain versions sum in different orders, and where
+    a sum cancels the error is relative to its terms, not its result."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"shape/dtype {tuple(got.shape)} {got.dtype} vs "
+                             f"{tuple(want.shape)} {want.dtype}")
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError("kernel output has non-finite values")
+    scale = max(1.0, want.float().abs().max().item())
+    err = (got.double() - want.double()).abs().max().item()
+    if err > tol * scale:
+        raise AssertionError(f"max abs err {err:.3e} over {tol:g} * "
+                             f"max(1, max|plain|) = {tol * scale:.3e}")
+    return err
+
+
+def check_wkv(label, b, h, t, n, seed, main=False, dtype=torch.bfloat16):
+    """wkv6 and wkv6_bwd against ref_wkv and ref_wkv_bwd, r/k/v/gy in
+    ``dtype``.  Tolerances, of the largest value: with bf16 r/k/v, the bf16
+    outputs (y, gr, gk, gv) 1e-2 (one bf16 ulp is 2**-8 of a value) and the
+    f32 ones (gw, gu) 1e-3 (f32 sums over up to 4096 steps in another
+    order); with f32 r/k/v (only T=64 here) every output 1e-4.  The
+    backward must also repeat itself bit for bit (no atomics)."""
+    gen = _gen(seed)
+    r, k, v, w, u, gy = _wkv_inputs(gen, b, h, t, n, dtype)
+    f32 = dtype == torch.float32
+    tol_act, tol_f32 = (1e-4, 1e-4) if f32 else (1e-2, 1e-3)
+    tol_text = "1e-4" if f32 else "1e-2 (bf16) / 1e-3 (f32)"
+    y = wkv6(r, k, v, w, u)
+    grads = wkv6_bwd(r, k, v, w, u, gy)
+    again = wkv6_bwd(r, k, v, w, u, gy)
+    want_y = ref.ref_wkv(r, k, v, w, u)
+    want = ref.ref_wkv_bwd(r, k, v, w, u, gy)
+    torch.cuda.synchronize()
+    errs = {"y": _err_to_max(y, want_y, tol_act)}
+    for name, got_g, want_g in zip(("gr", "gk", "gv", "gw", "gu"), grads,
+                                   want):
+        errs[name] = _err_to_max(got_g, want_g,
+                                 tol_act if name in ("gr", "gk", "gv")
+                                 else tol_f32)
+    if not all(torch.equal(a, b_) for a, b_ in zip(grads, again)):
+        raise AssertionError(f"wkv6_bwd {label}: two runs differ")
+    del want, again
+    elems = b * h * t * n
+    # Bytes: every input read once, every output written once.  Operations:
+    # the least the recurrence needs per (b, h, t): 4 N^2 forward (r.S and
+    # the rank-1 state update), 12 N^2 backward (the state again, and
+    # r/k/v/w's four products with S or G plus G's update).
+    e = r.element_size()
+    fwd_bytes = elems * (3 * e + 4 + e) + h * n * 4
+    bwd_bytes = elems * (4 * e + 4 + 3 * e + 4) + 2 * h * n * 4
+    steps = b * h * t
+
+    def mk(fn):
+        def make():     # fresh inputs per copy, rotated past the L2
+            args = _wkv_inputs(gen, b, h, t, n, dtype)
+            return lambda: fn(*args)
+        return make
+
+    fwd_ms = device_ms(mk(lambda *a: wkv6(*a[:5])), fwd_bytes)
+    bwd_ms = device_ms(mk(wkv6_bwd), bwd_bytes)
+    # The plain versions loop over T in Python: at long T one call per
+    # graph does.
+    plain_reps = 24 if t <= 128 else 1
+    fwd_plain = device_ms(mk(lambda *a: ref.ref_wkv(*a[:5])), fwd_bytes,
+                          reps=plain_reps)
+    bwd_plain = device_ms(mk(ref.ref_wkv_bwd), bwd_bytes, reps=plain_reps)
+    out = {}
+    for name, ms, plain, nbytes, flops, err in (
+            ("wkv6", fwd_ms, fwd_plain, fwd_bytes, 4.0 * n * n * steps,
+             errs["y"]),
+            ("wkv6_bwd", bwd_ms, bwd_plain, bwd_bytes, 12.0 * n * n * steps,
+             max(v_ for k_, v_ in errs.items() if k_ != "y"))):
+        bms, by = bound(nbytes, flops, torch.float32)
+        res = RESULTS[name]
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        print(f"[kernel] {name} {label} B={b} H={h} T={t} N={n} "
+              f"r/k/v={'f32' if f32 else 'bf16'} w/u=f32 max_abs_err={err:.3e} "
+              f"tol={('1e-4' if f32 else '1e-2') if name == 'wkv6' else tol_text}"
+              f"*max(1,max|plain|) kernel_ms={ms:.5f} plain_ms={plain:.5f} "
+              f"bound_ms={bms:.6f} ({by}: {nbytes / 1e6:.2f} MB at "
+              f"{HBM_BYTES_S / 1e12:g} TB/s, {flops / 1e9:.3f} GFLOP f32 at "
+              f"{PEAK_OPS_S[torch.float32] / 1e12:g} TFLOP/s) library_ms=null "
+              f"(none: no single PyTorch call computes the WKV6 recurrence)")
+        out[name] = ms
+        if main:
+            res.update(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bms,
+                       bound_by=by, shape=f"B={b} H={h} T={t} N={n}")
+    print(f"[kernel] wkv6_bwd {label} per-output max_abs_err "
+          f"{json.dumps({k_: float(f'{v_:.3e}') for k_, v_ in errs.items()})}"
+          f" repeatable=True")
+    return out
+
+
+def wkv_phase():
+    check_wkv("train-shape", 8, 40, 64, 64, seed=41, main=True)
+    check_wkv("ragged-T", 8, 40, 100, 64, seed=42)
+    check_wkv("long-prompt", 1, 40, 4096, 64, seed=43)
+    check_wkv("smoke-head", 2, 4, 37, 16, seed=44)
+    # The build the SMOKE launcher and the restart check run: f32 compute,
+    # head size 16, at their batch (8 x 64 tokens, 4 heads).
+    check_wkv("smoke-launcher", 8, 4, 64, 16, seed=45, dtype=torch.float32)
+
+
+@contextlib.contextmanager
+def wkv_mode(mode, u_scale=1.0):
+    """Route the models' ``ops.wkv`` calls through ``mode`` for a while, with
+    the bonus u scaled by ``u_scale`` (the controls' perturbation)."""
+    orig = ops.wkv
+
+    def routed(r, k, v, w, u):
+        return orig(r, k, v, w, u * u_scale if u_scale != 1.0 else u,
+                    mode=mode)
+    ops.wkv = routed
+    try:
+        yield
+    finally:
+        ops.wkv = orig
+
+
+def _batches(cfg, batch, seq_len, seed):
+    return SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
+                                  global_batch=batch, seed=seed))
+
+
+def _kernel_name(e):
+    return e.name.replace("void ", "").replace(
+        "(anonymous namespace)::", "").split("<")[0].split("(")[0][:70]
+
+
+def _kind(name):
+    low = name.lower()
+    if "wkv6" in low:
+        return name
+    if any(x in low for x in ("gemm", "nvjet", "cutlass", "xmma", "cublas")):
+        return "GEMM (torch.matmul)"
+    if "multi_tensor_apply" in low or "foreach" in low:
+        return "AdamW (torch._foreach_*)"
+    if "reduce" in low or "norm" in low:
+        return "reductions"
+    return "elementwise and other torch"
+
+
+def train_phase(steps=4):
+    """RWKV-6 3B FULL: f32 params on the card, ``steps`` training steps at
+    global batch 8 x 64 tokens through make_train_step (no remat: every
+    activation fits), the first a warm-up; launch counts reset just before
+    the measured steps and read just after; then one profiled step."""
+    set_gemm_mode("ref")
+    cfg = C.get("rwkv6_3b")
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, seed=2, device=DEV, dtype=torch.float32)
+    n_params = sum(p.numel() for p in adamw.leaves(params))
+    opt_cfg = adamw.AdamWConfig(lr=1e-4, warmup_steps=2, total_steps=100)
+    opt = adamw.init(params)
+    step_fn = make_train_step(cfg, opt_cfg, remat=False)
+    data = _batches(cfg, 8, 64, seed=0)
+    tokens = 8 * 64
+    print(f"[train] arch={cfg.name} layers={cfg.n_layers} d_model="
+          f"{cfg.d_model} heads={cfg.d_model // cfg.rwkv.head_size}x"
+          f"{cfg.rwkv.head_size} d_ff={cfg.d_ff} vocab={cfg.vocab_size} "
+          f"params={n_params} (f32) compute={cfg.compute_dtype} "
+          f"global_batch=8 seq_len=64 remat=off gemm=torch.matmul")
+    total = {n: 0 for n in TRAIN_KERNELS}
+    step_ms = []
+    for i in range(steps):
+        batch = data.batch_at(i)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt, m = step_fn(params, opt, batch)
+        end.record()
+        end.synchronize()
+        counts = K.launch_counts()
+        ms = start.elapsed_time(end)
+        loss = float(m["loss"])
+        print(f"[train] step {i}{' (warm-up)' if i == 0 else ''}: "
+              f"loss={loss:.5f} grad_norm={float(m['grad_norm']):.5f} "
+              f"lr={m['lr']:.3e} step_ms={ms:.3f} tok_s={tokens / ms * 1e3:.1f}"
+              f" max_memory_allocated={torch.cuda.max_memory_allocated()} "
+              f"launches={json.dumps({n: counts[n] for n in TRAIN_KERNELS})}")
+        if not math.isfinite(loss):
+            raise AssertionError(f"non-finite loss at step {i}")
+        bad = {n: counts[n] for n in TRAIN_KERNELS
+               if counts[n] != cfg.n_layers}
+        if bad:
+            raise AssertionError(f"expected {cfg.n_layers} launches of each "
+                                 f"wkv kernel per step, got {bad}")
+        if i:
+            step_ms.append(ms)
+            for n in TRAIN_KERNELS:
+                total[n] += counts[n]
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    batch = data.batch_at(steps)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name, by_kind = {}, {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = _kernel_name(e)
+            us = e.time_range.elapsed_us()
+            n, t = by_name.get(name, (0, 0.0))
+            by_name[name] = (n + 1, t + us)
+            n, t = by_kind.get(_kind(name), (0, 0.0))
+            by_kind[_kind(name)] = (n + 1, t + us)
+    if not by_name:
+        print(f"[profile] train step wall_ms={wall_ms:.3f}; device time not "
+              f"measured (the profiler saw no CUDA events)")
+    else:
+        busy = sum(t for _, t in by_name.values()) / 1e3
+        plain_wall = sum(step_ms) / len(step_ms)
+        print(f"[profile] train step (rwkv6-3b FULL, 8x64 tokens): traced "
+              f"wall_ms={wall_ms:.3f} device_busy_ms={busy:.3f} "
+              f"device_idle_share={1 - busy / wall_ms:.3f} (traced); "
+              f"against the measured steps' mean {plain_wall:.3f} ms "
+              f"(profiler off) {1 - busy / plain_wall:.3f}; kernels="
+              f"{sum(n for n, _ in by_name.values())}")
+        for kind, (n, us) in sorted(by_kind.items(), key=lambda kv: -kv[1][1]):
+            print(f"[profile]   by kind: {kind}: {n} launches, "
+                  f"{us / 1e3:.3f} ms ({us / 1e3 / busy:.3f} of busy)")
+        for name, (n, us) in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][1])[:15]:
+            print(f"[profile]   {name}: {n} launches, {us / 1e3:.3f} ms")
+    del params, opt, m
+    torch.cuda.empty_cache()
+    return total
+
+
+def _grads(cfg, params, batch, mode, u_scale=1.0):
+    """Loss and the gradient of every leaf with ``ops.wkv`` in ``mode``.  A
+    ``ref`` run must launch no wkv kernel: the counts may not move."""
+    leaves = adamw.leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    before = K.launch_counts()
+    with wkv_mode(mode, u_scale):
+        loss, _ = loss_fn(params, batch, cfg, remat=False)
+        grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    moved = {n: K.launch_counts()[n] - before[n] for n in TRAIN_KERNELS}
+    if mode == "ref" and any(moved.values()):
+        raise AssertionError(f"the plain run launched wkv kernels: {moved}")
+    return loss.item(), grads, moved
+
+
+def _grad_diff(names, g_a, g_b):
+    """Per leaf: max |a - b| over the largest |b| of that leaf."""
+    return {n: (a - b_).abs().max().item() / max(b_.abs().max().item(), 1e-30)
+            for n, a, b_ in zip(names, g_a, g_b)}
+
+
+def _worst(rel, n=5):
+    return json.dumps({k: float(f"{v:.3e}") for k, v in
+                       sorted(rel.items(), key=lambda kv: -kv[1])[:n]})
+
+
+def train_kernel_vs_plain():
+    """One step's loss and gradients at FULL width and 2 layers, with the
+    wkv6 kernels (``ops.wkv`` auto) and with the plain recurrence (``ref``,
+    torch autograd of the loop), same parameters and batch, twice:
+
+    * f32 compute: the two differ only in the f32 summation order inside
+      the recurrence.  Bounds: the loss within 1e-5, every leaf's gradient
+      within 1e-4 of its largest element.  Control: the plain run with u
+      1% off must break the gradient bound, so a wrong kernel would.
+    * bf16 compute (the FULL config's): y, gr, gk and gv round to bf16,
+      and a last-bit difference before rounding flips a bf16 ulp (2**-8).
+      Control: the plain run with u scaled by 1 + 1e-6, a change of the
+      size of a summation-order difference, gives the rounding floor.
+      Bounds, as a witness that the step stays finite and close: the loss
+      within 1e-2, every leaf within 5e-2 of its largest element."""
+    base = dataclasses.replace(C.get("rwkv6_3b"), n_layers=2)
+    params = init_params(base, seed=3, device=DEV, dtype=torch.float32)
+    names = [n for n, _ in _leaf_names(params)]
+    batch = {k: torch.as_tensor(v, device=DEV)
+             for k, v in _batches(base, 8, 64, seed=1).batch_at(0).items()}
+    for compute, loss_tol, grad_tol, u_scale in (
+            ("float32", 1e-5, 1e-4, 1.01), ("bfloat16", 1e-2, 5e-2, 1 + 1e-6)):
+        cfg = dataclasses.replace(base, compute_dtype=compute)
+        loss_k, g_k, counts = _grads(cfg, params, batch, "auto")
+        loss_p, g_p, _ = _grads(cfg, params, batch, "ref")
+        rel = _grad_diff(names, g_k, g_p)
+        del g_k
+        loss_c, g_c, _ = _grads(cfg, params, batch, "ref", u_scale)
+        rel_c = _grad_diff(names, g_c, g_p)
+        del g_c, g_p
+        print(f"[train] kernel vs plain (rwkv6-3b width, 2 layers, 8x64 "
+              f"tokens, compute={compute}): loss {loss_k:.7f} vs "
+              f"{loss_p:.7f} (|diff| {abs(loss_k - loss_p):.3e}, bound "
+              f"{loss_tol:g}); gradient max rel diff {max(rel.values()):.3e}"
+              f" over {len(rel)} leaves (bound {grad_tol:g}), largest: "
+              f"{_worst(rel)}; launches {json.dumps(counts)}")
+        print(f"[train]   control, plain with u x {u_scale!r} vs plain "
+              f"({'must break the bound' if compute == 'float32' else 'the bf16 rounding floor'}): "
+              f"loss |diff| {abs(loss_c - loss_p):.3e}, gradient max rel diff "
+              f"{max(rel_c.values()):.3e}, largest: {_worst(rel_c)}")
+        if counts != {"wkv6": 2, "wkv6_bwd": 2}:
+            raise AssertionError(f"kernel path launched {counts}")
+        if abs(loss_k - loss_p) > loss_tol or max(rel.values()) > grad_tol:
+            raise AssertionError(f"kernel and plain training steps differ "
+                                 f"({compute})")
+        if compute == "float32" and max(rel_c.values()) <= grad_tol:
+            raise AssertionError("the f32 bound does not catch u 1% off")
+    del params
+    torch.cuda.empty_cache()
+
+
+def _leaf_names(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in _leaf_names(v, f"{prefix}{k}/")]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree)
+                for x in _leaf_names(v, f"{prefix}{i}/")]
+    return [(prefix[:-1], tree)]
+
+
+def trainer_phase():
+    """The training launcher at SMOKE size on the card, then a restart
+    check: a Trainer that fails once at step 3 restores the step-2
+    checkpoint and must log the uninterrupted run's losses exactly."""
+    ckpt_root = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    try:
+        K.reset_launch_counts()
+        res = TL.main(["--arch", "rwkv6_3b", "--smoke", "--steps", "6",
+                       "--device", DEV,
+                       "--ckpt_every", "2", "--ckpt_dir",
+                       os.path.join(ckpt_root, "launcher")])
+        counts = K.launch_counts()
+        if res["restarts"] != 0 or res["final_step"] != 6:
+            raise AssertionError(f"launcher: {res}")
+        print(f"[train] launcher --smoke --steps 6 --ckpt_every 2: "
+              f"final_step={res['final_step']} restarts={res['restarts']} "
+              f"losses={[round(m['loss'], 5) for m in res['metrics']]} "
+              f"launches={json.dumps({n: counts[n] for n in TRAIN_KERNELS})}")
+        if not counts["wkv6"] or not counts["wkv6_bwd"]:
+            raise AssertionError("the launcher's steps ran no wkv kernel")
+
+        cfg = C.get_smoke("rwkv6_3b")
+
+        def run(tag, hook=None):
+            params = init_params(cfg, seed=0, device=DEV, dtype=torch.float32)
+            opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=2,
+                                        total_steps=6)
+            data = _batches(cfg, 8, 64, seed=0)
+            t = Trainer(cfg, TrainConfig(
+                steps=6, ckpt_every=2, log_every=1,
+                ckpt_dir=os.path.join(ckpt_root, tag)), opt_cfg, params,
+                adamw.init(params), lambda s: data.iterate(s),
+                make_train_step(cfg, opt_cfg, remat=True,
+                                remat_policy="tp_outs"), failure_hook=hook)
+            return t.run()
+        clean = run("clean")
+        fail = {3}
+
+        def hook(step):
+            if step in fail:
+                fail.clear()
+                raise RuntimeError("injected node failure")
+        hurt = run("hurt", hook)
+        want = {m["step"]: m["loss"] for m in clean["metrics"]}
+        got = {m["step"]: m["loss"] for m in hurt["metrics"]}
+        print(f"[train] restart: uninterrupted losses "
+              f"{[want[s] for s in sorted(want)]}; with a failure at step 3 "
+              f"steps {[m['step'] for m in hurt['metrics']]} restarts="
+              f"{hurt['restarts']} final losses {[got[s] for s in sorted(got)]}"
+              f" equal={got == want}")
+        if clean["restarts"] != 0 or hurt["restarts"] != 1 or got != want:
+            raise AssertionError("restart did not resume the uninterrupted "
+                                 "run's losses")
+        if [m["step"] for m in hurt["metrics"]] != [0, 1, 2, 2, 3, 4, 5]:
+            raise AssertionError("restart did not resume from step 2")
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
@@ -678,7 +1111,11 @@ def main() -> int:
     trace = S.load_trace(S.resolve_trace_path("smoke6"), cfg.vocab_size)
     max_len = max(len(t["prompt"]) + t["max_new"] for t in trace) + 8
     kernel_phase(cfg, max_len)
+    wkv_phase()
     counts = serve_phase(cfg, max_len)
+    counts.update(train_phase())
+    train_kernel_vs_plain()
+    trainer_phase()
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     line = {"kernels": [dict(

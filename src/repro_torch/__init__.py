@@ -1,8 +1,9 @@
-"""PyTorch/CUDA port of the GAMA serving stack, for one NVIDIA H100.
+"""PyTorch/CUDA port of the GAMA serving and training stacks, for one
+NVIDIA H100.
 
 It mirrors the JAX package ``repro`` module for module (``configs``,
-``kernels``, ``models``, ``serving``, ``launch``) and imports nothing of
-it.  Its kernels are hand-written CUDA C++ for ``sm_90a`` (``csrc/``),
+``kernels``, ``models``, ``serving``, ``optim``, ``data``,
+``checkpoint``, ``training``, ``launch``) and imports nothing of it.  Its kernels are hand-written CUDA C++ for ``sm_90a`` (``csrc/``),
 each beside its plain PyTorch version.  Entry points run on the card
 (``device="cuda"``) unless the caller passes ``device="cpu"``.
 """

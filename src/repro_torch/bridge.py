@@ -40,6 +40,10 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
     * dense weights and the embedding table are cast to the compute dtype
       (``dtype``, default ``cfg.compute_dtype``) once, here;
     * the tied lm-head operand ``table.T`` is stored contiguously once.
+
+    Training passes ``dtype=torch.float32``: every leaf then stays the
+    reference's f32 tensor, and an untied model (RWKV-6) gets no second
+    copy of any leaf that a gradient could split over.
     """
     dev = resolve_device(device)
     for spec in cfg.pattern:

@@ -1,8 +1,8 @@
 """Architecture registry: ``--arch <id>`` resolution (counterpart of
 ``repro/configs/registry.py``'s ``get``/``get_smoke``).
 
-Only the dense GQA decoders of this slice are ported; every other id of
-the reference raises ``NotImplementedError``.
+Ported: the dense GQA decoders (served) and RWKV-6 (trained); every
+other id of the reference raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -11,12 +11,12 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-PORTED = ("smollm_360m", "qwen3_8b")
+PORTED = ("smollm_360m", "qwen3_8b", "rwkv6_3b")
 
 # The reference's other architecture ids, each waiting for a later slice.
 LATER = (
     "kimi_k2_1t_a32b", "llama4_maverick_400b_a17b", "phi3_medium_14b",
-    "minitron_8b", "rwkv6_3b", "jamba_v01_52b", "seamless_m4t_large_v2",
+    "minitron_8b", "jamba_v01_52b", "seamless_m4t_large_v2",
     "qwen2_vl_72b",
 )
 

@@ -6,7 +6,9 @@ so a build takes seconds.  Libraries go into ``build/repro_torch/`` at the
 repository root, named by a digest of the sources and flags, so an edited
 source is rebuilt and an unchanged one is reused.  Nothing is built when
 this module is imported: the first kernel launch (or :func:`build`) does
-it, and all sources compile in parallel, one ``nvcc`` each.
+it, and all sources compile in parallel, one ``nvcc`` each.  It also
+holds the checks every wrapper makes around a launch (:func:`check`,
+:func:`refuse_autograd`).
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -111,3 +115,16 @@ def check(lib: ctypes.CDLL, prefix: str, code: int) -> None:
         fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_char_p
         raise RuntimeError(f"{prefix} launch failed: CUDA error {code} "
                            f"({fn(code).decode()})")
+
+
+def refuse_autograd(name: str, *tensors: torch.Tensor) -> None:
+    """Raise if autograd would record a launch: a kernel's output has no
+    ``grad_fn``, so a gradient through it would silently be zero.  A
+    kernel that is differentiated goes through its own
+    ``torch.autograd.Function`` (``kernels.wkv.WKV6``), whose forward runs
+    with grad mode off."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, but the kernel has no backward "
+            f"and its output would carry none; call it under torch.no_grad() "
+            f"or use the plain version (mode='ref') to differentiate")

@@ -75,6 +75,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = d ** -0.5 if scale is None else float(scale)
     if all(t.device.type == "cpu" for t in (q, k, v, length)):
         return plain(q, k, v, length=length, scale=scale)
+    _build.refuse_autograd("flash_decode", q, k, v)
     check_cuda_operands("flash_decode", q, k, v)
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"flash_decode shapes: q {tuple(q.shape)}, "
@@ -132,6 +133,7 @@ def flash_paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
     if all(t.device.type == "cpu" for t in tensors + scales):
         return plain_paged(q, k_pages, v_pages, block_tables, length=length,
                            scale=scale, k_scale=k_scale, v_scale=v_scale)
+    _build.refuse_autograd("flash_paged_decode", *tensors, *scales)
     check_cuda_operands("flash_paged_decode", q)
     dev = q.device
     if not all(t.device == dev and t.is_contiguous()

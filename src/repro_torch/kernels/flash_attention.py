@@ -70,6 +70,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return plain(q, k, v, causal=causal, scale=scale, q_offset=q_offset,
                      kv_len=kv_len)
+    _build.refuse_autograd("flash_attention", q, k, v)
     check_cuda_operands("flash_attention", q, k, v)
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"flash_attention shapes: q {tuple(q.shape)}, "

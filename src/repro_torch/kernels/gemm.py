@@ -56,6 +56,7 @@ def gama_gemm(a: torch.Tensor, b: torch.Tensor, *,
     int8 inputs, else the input dtype (``repro/kernels/gemm.py:93-97``)."""
     if a.device.type == "cpu" and b.device.type == "cpu":
         return plain(a, b, out_dtype=out_dtype, scale=scale)
+    _build.refuse_autograd("gama_gemm", a, b)
     if not (a.is_cuda and b.is_cuda and a.device == b.device):
         raise ValueError(f"gama_gemm needs both operands on one CUDA device, "
                          f"got {a.device} and {b.device}")

@@ -13,7 +13,9 @@ The TPU padding of the reference (tiles, and the GQA group padded to 8
 sublanes) is gone: the CUDA kernels mask their ragged edges themselves.
 The reference's pack-context branch of ``matmul`` (the multi-device pack
 GEMM, ``repro/kernels/ops.py:99-109``) is left out until the multi-device
-slice (ROADMAP Queue A item 12).
+slice (ROADMAP Queue A item 12), and so is ``wkv``'s ``chunk`` (a TPU grid
+step with no counterpart here; the tuner slice, item 9, decides whether it
+gets one).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from repro_torch.kernels.decode_attention import (flash_decode,
                                                   flash_paged_decode)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gemm import gama_gemm
+from repro_torch.kernels.wkv import WKV6
 
 MODES = ("auto", "kernel", "ref")
 
@@ -146,3 +149,23 @@ def decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
                               length=length.contiguous(), scale=scale,
                               k_scale=k_scale, v_scale=v_scale,
                               buffers=buffers)
+
+
+def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+        u: torch.Tensor, *, mode: str = "auto") -> torch.Tensor:
+    """WKV6 recurrence from the zero state.  r/k/v/w: (B, H, T, N); u:
+    (H, N) -> y (B, H, T, N) in r's dtype.  Differentiable on every path:
+    ``auto`` and ``kernel`` go through :class:`~repro_torch.kernels.wkv.
+    WKV6` (the forward and backward kernels for CUDA tensors, their plain
+    versions for CPU tensors), ``ref`` through torch autograd of
+    ``ref.ref_wkv``."""
+    if r.dim() != 4 or any(t.shape != r.shape for t in (k, v, w)):
+        raise ValueError(f"wkv needs r, k, v, w (B, H, T, N) of one shape, "
+                         f"got {[tuple(t.shape) for t in (r, k, v, w)]}")
+    if u.shape != (r.shape[1], r.shape[3]):
+        raise ValueError(f"wkv needs u (H, N) = {(r.shape[1], r.shape[3])}, "
+                         f"got {tuple(u.shape)}")
+    if mode != "ref":
+        _use_kernel(mode, r, k, v, w, u)
+        return WKV6.apply(*(t.contiguous() for t in (r, k, v, w, u)))
+    return ref.ref_wkv(r, k, v, w, u)

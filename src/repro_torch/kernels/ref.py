@@ -141,3 +141,64 @@ def ref_paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     live = (rows[None, :] < length.to(kc.device)[:, None])[:, None, :, None]
     kc, vc = kc.masked_fill(~live, 0), vc.masked_fill(~live, 0)
     return ref_decode_attention(q, kc, vc, length=length, scale=scale)
+
+
+def ref_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Plain wkv6 from the zero state.  r/k/v/w: (B, H, T, N); u: (H, N)
+    -> y (B, H, T, N) in r's dtype, computed in f32:
+    y_t = r_t (S_{t-1} + diag(u) k_t^T v_t);  S_t = diag(w_t) S_{t-1} + a_t.
+    Plain torch ops throughout, so torch autograd differentiates it."""
+    b, h, t, n = r.shape
+    rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
+    uf = u.float()[:, :, None]                        # (H, N, 1)
+    s = torch.zeros((b, h, n, n), dtype=torch.float32, device=r.device)
+    ys = []
+    for i in range(t):
+        a = kf[:, :, i, :, None] * vf[:, :, i, None, :]
+        ys.append(torch.einsum("bhn,bhnm->bhm", rf[:, :, i], s + uf * a))
+        s = wf[:, :, i, :, None] * s + a
+    return torch.stack(ys, dim=2).to(r.dtype)
+
+
+def ref_wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                w: torch.Tensor, u: torch.Tensor, gy: torch.Tensor):
+    """Plain VJP of :func:`ref_wkv`: (gr, gk, gv, gw, gu) for the output
+    gradient gy (B, H, T, N), each in its input's dtype.  With S_t the
+    state after step t (S_0 = 0) and G_t the gradient flowing into S_t
+    from later steps (G_T = 0, G_{t-1} = diag(w_t) G_t + r_t gy_t^T):
+
+    * gr_t = (S_{t-1} + diag(u) k_t v_t^T) gy_t
+    * gk_t[n] = sum_m (G_t + diag(u) r_t gy_t^T)[n, m] v_t[m]
+    * gv_t[m] = sum_n (G_t + diag(u) r_t gy_t^T)[n, m] k_t[n]
+    * gw_t[n] = sum_m G_t[n, m] S_{t-1}[n, m]
+    * gu[h, n] = sum_{b, t} r_t[n] k_t[n] (v_t . gy_t)
+
+    Every S_{t-1} is kept from a forward pass (never recovered by dividing
+    by w_t, which may underflow to 0)."""
+    b, h, t, n = r.shape
+    rf, kf, vf, wf, gf = (x.float() for x in (r, k, v, w, gy))
+    uf = u.float()
+    s = torch.zeros((b, h, n, n), dtype=torch.float32, device=r.device)
+    prev = []
+    for i in range(t):
+        prev.append(s)
+        s = wf[:, :, i, :, None] * s + kf[:, :, i, :, None] * vf[:, :, i, None, :]
+    g = torch.zeros_like(s)
+    grads = {name: [None] * t for name in ("r", "k", "v", "w")}
+    gu = torch.zeros((h, n), dtype=torch.float32, device=r.device)
+    for i in reversed(range(t)):
+        ri, ki, vi, wi, gi = (x[:, :, i] for x in (rf, kf, vf, wf, gf))
+        vg = (vi * gi).sum(-1, keepdim=True)                    # (B, H, 1)
+        m = g + (uf * ri)[..., :, None] * gi[..., None, :]
+        grads["r"][i] = (torch.einsum("bhnm,bhm->bhn", prev[i], gi)
+                         + uf * ki * vg)
+        grads["k"][i] = torch.einsum("bhnm,bhm->bhn", m, vi)
+        grads["v"][i] = torch.einsum("bhnm,bhn->bhm", m, ki)
+        grads["w"][i] = (g * prev[i]).sum(-1)
+        gu = gu + (ri * ki * vg).sum(0)
+        g = wi[..., :, None] * g + ri[..., :, None] * gi[..., None, :]
+    gr, gk, gv, gw = (torch.stack(grads[x], dim=2).to(dt) for x, dt in
+                      (("r", r.dtype), ("k", k.dtype), ("v", v.dtype),
+                       ("w", w.dtype)))
+    return gr, gk, gv, gw, gu.to(u.dtype)

@@ -3,8 +3,9 @@
 A model is a stack of ``n_layers`` blocks cycling through ``pattern`` (a
 tuple of BlockSpec).  Dtype names map to ``torch`` dtypes.  The sub-config
 fields of other architectures (``moe``, ``mamba``, ``rwkv``) are kept so
-the dataclass has the reference's shape; their models wait for the
-other-architectures slice (ROADMAP Queue A item 10).
+the dataclass has the reference's shape; ``rwkv`` holds a
+``models.rwkv.RwkvConfig``, the others wait for the other-architectures
+slice (ROADMAP Queue A item 10).
 """
 
 from __future__ import annotations
@@ -43,7 +44,8 @@ class ModelConfig:
     vocab_size: int
     pattern: Tuple[BlockSpec, ...] = (BlockSpec(),)
 
-    # Sub-configs of the architectures that wait for a later slice.
+    # Sub-configs of the other block kinds (rwkv: models.rwkv.RwkvConfig;
+    # moe and mamba wait for their slice).
     moe: Optional[Any] = None
     mamba: Optional[Any] = None
     rwkv: Optional[Any] = None
@@ -91,20 +93,29 @@ class ModelConfig:
         return torch_dtype(self.cache_dtype)
 
     def n_params(self) -> int:
-        """Total parameter count of the attention/dense-FFN blocks this
-        slice serves (other mixers and FFNs wait for their slice)."""
+        """Total parameter count, as the reference counts it (analytic:
+        the rwkv loras at their default ranks, norms and mixing vectors
+        left out), for the blocks the port has: attention/dense-FFN and
+        rwkv/channel-mix (other mixers and FFNs wait for their slice)."""
         d, f, v = self.d_model, self.d_ff, self.vocab_size
         total = v * d
         if not self.tie_embeddings:
             total += v * d
         for spec in self.pattern:
-            if spec.mixer != "attn" or spec.ffn != "dense" \
-                    or self.encoder_decoder:
+            if self.encoder_decoder or (spec.mixer, spec.ffn) not in (
+                    ("attn", "dense"), ("rwkv", "rwkv_cm")):
                 raise NotImplementedError(
-                    f"{self.name}: only ('attn', 'dense') decoder blocks are "
-                    f"ported (ROADMAP Queue A item 10)")
-            n = d * (self.n_heads + 2 * self.n_kv_heads) * self.d_head
-            n += self.n_heads * self.d_head * d
-            n += (3 if self.ffn_kind == "swiglu" else 2) * d * f
+                    f"{self.name}: only ('attn', 'dense') and ('rwkv', "
+                    f"'rwkv_cm') decoder blocks are ported (ROADMAP Queue A "
+                    f"item 10)")
+            if spec.mixer == "attn":
+                n = d * (self.n_heads + 2 * self.n_kv_heads) * self.d_head
+                n += self.n_heads * self.d_head * d
+                n += (3 if self.ffn_kind == "swiglu" else 2) * d * f
+            else:
+                n = 5 * d * d                        # r,k,v,g,o
+                n += d * 5 * 32 + 5 * 32 * d         # ddlerp loras
+                n += d * 64 + 64 * d                 # decay lora
+                n += 2 * d * f + d * d               # channel mix
             total += n * self.n_groups
         return total

@@ -1,11 +1,12 @@
-"""Shared layers: norms, rotary embeddings, the SwiGLU MLP, embeddings
-(counterpart of ``repro/models/layers.py``).
+"""Shared layers: RMS, layer and group norms, rotary embeddings, the SwiGLU
+MLP, embeddings, cross-entropy (counterpart of ``repro/models/layers.py``).
 
 All layers are plain functions over dicts of tensors.  Every matmul goes
-through :func:`gemm`, the GAMA integration point.  Dense weights and the
-embedding table are expected in the compute dtype already (the bridge and
-``init_params`` cast them once at load); a weight of another dtype is cast
-per call, as the reference's ``maybe_dequant`` does.
+through :func:`gemm`, the GAMA integration point.  For serving, dense
+weights and the embedding table are in the compute dtype already (the
+bridge and ``init_params`` cast them once at load); training keeps them in
+f32, and a weight of another dtype is cast per call, as the reference's
+``maybe_dequant`` does.
 """
 
 from __future__ import annotations
@@ -24,7 +25,9 @@ Params = Dict[str, Any]
 # ---------------------------------------------------------------------------
 
 # "auto" (kernel for CUDA tensors, plain version on the CPU) | "kernel" |
-# "ref" (the plain version on any device) — set by set_gemm_mode.
+# "ref" (x @ w, a plain matrix product in the compute dtype, as the
+# reference's "ref": it is differentiable, and the training launcher keeps
+# it, as the reference's does) — set by set_gemm_mode.
 _GEMM_MODE = "auto"
 
 
@@ -36,7 +39,10 @@ def set_gemm_mode(mode: str) -> None:
 
 
 def gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x: (..., K) @ w: (K, N) -> (..., N) through ``ops.matmul``."""
+    """x: (..., K) @ w: (K, N) -> (..., N): ``x @ w`` in mode "ref", else
+    ``ops.matmul`` (the GAMA kernel for CUDA tensors)."""
+    if _GEMM_MODE == "ref":
+        return x @ w
     lead = x.shape[:-1]
     out = ops.matmul(x.reshape(-1, x.shape[-1]).contiguous(), w,
                      mode=_GEMM_MODE)
@@ -105,6 +111,32 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+def layernorm_init(d: int, dtype=torch.float32, device="cpu") -> Params:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with f32 statistics, as the reference."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * p["scale"].float() + p["bias"].float()).to(x.dtype)
+
+
+def groupnorm(x: torch.Tensor, n_groups: int, scale: torch.Tensor,
+              bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm over the channel dim with f32 statistics (RWKV's wkv
+    output, one group per head)."""
+    *lead, d = x.shape
+    xf = x.float().reshape(*lead, n_groups, d // n_groups)
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    out = ((xf - mu) * torch.rsqrt(var + eps)).reshape(*lead, d)
+    return (out * scale.float() + bias.float()).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Rotary position embeddings
 # ---------------------------------------------------------------------------
@@ -145,8 +177,12 @@ def mlp(p: Params, x: torch.Tensor, kind: str = "swiglu") -> torch.Tensor:
 
 
 def embed(p: Params, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Rows of the table in ``dtype``.  ``F.embedding``: on the card its
+    backward sums repeated tokens' gradients in a fixed order (sorted
+    indices, no atomics), so a training step is reproducible."""
     table = p["table"]
-    return (table if table.dtype == dtype else table.to(dtype))[tokens]
+    return F.embedding(tokens, table if table.dtype == dtype
+                       else table.to(dtype))
 
 
 def logits(p: Params, x: torch.Tensor, head: Optional[Params]) -> torch.Tensor:
@@ -162,3 +198,14 @@ def logits(p: Params, x: torch.Tensor, head: Optional[Params]) -> torch.Tensor:
                        "models.init_params or bridge.params_from_numpy")
     t = p["table_t"]
     return gemm(x, t if t.dtype == x.dtype else t.to(x.dtype)).float()
+
+
+def cross_entropy(logits_: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token cross-entropy; logits (B, S, V) f32, labels (B, S) int."""
+    logp = torch.log_softmax(logits_, dim=-1)
+    ll = logp.gather(-1, labels.long()[..., None])[..., 0]
+    if mask is None:
+        return -ll.mean()
+    mask = mask.to(ll.dtype)
+    return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

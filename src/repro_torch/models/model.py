@@ -1,14 +1,23 @@
-"""Top-level model API: init / forward / prefill / decode (counterpart of
-``repro/models/model.py``) for the dense decoders of this slice.
+"""Top-level model API: init / forward / train loss / prefill / decode
+(counterpart of ``repro/models/model.py``) for the dense decoders (served)
+and RWKV-6 (trained).
 
 Parameters are a dict of tensors::
 
     {"embed": {"table": (V, d), "table_t": (d, V)},   # table_t: tied head
-     "final_norm": {"scale": (d,)},
+     "final_norm": {"scale": (d,)},                   # + "bias": layernorm
+     "ln0": {"scale": (d,), "bias": (d,)},            # layernorm models
      "blocks": [per-layer dicts],
      "head": {"w": (d, V)}}                            # untied models only
 
-Batch dict: ``tokens`` (B, S) integer ids; optional ``positions`` (B, S).
+Batch dict: ``tokens`` (B, S) integer ids; optional ``positions`` (B, S);
+for training ``labels`` (B, S) and an optional ``mask`` (B, S).
+
+Training keeps the parameters in f32 (``init_params(..., dtype=
+torch.float32)``) and casts each weight per GEMM, as the reference does.
+``table_t``, the second layout of a tied table, would split a tied model's
+gradient between two leaves; the one model trained so far, RWKV-6, is
+untied.
 """
 
 from __future__ import annotations
@@ -56,16 +65,19 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     """Random parameters with the reference initialisers' distributions
     (``dense_init``: N(0, 1/d_in); ``embedding_init``: N(0, 0.02^2); norms:
     ones), drawn from a ``torch.Generator`` seeded with ``seed`` on
-    ``device``, then :func:`prepare_params`."""
+    ``device``, then :func:`prepare_params` (``dtype=torch.float32``
+    keeps f32 parameters for training)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     p: Params = {
         "embed": L.embedding_init(gen, cfg.vocab_size, cfg.d_model,
                                   cfg.pdtype, dev),
-        "final_norm": L.norm_init(cfg.d_model, cfg.pdtype, dev),
+        "final_norm": T.init_norm(cfg, dev),
         "blocks": T.init_stack(gen, cfg, dev),
     }
+    if cfg.norm == "layernorm":
+        p["ln0"] = L.layernorm_init(cfg.d_model, cfg.pdtype, dev)
     if not cfg.tie_embeddings:
         p["head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size,
                                  cfg.pdtype, dev)
@@ -97,12 +109,16 @@ def _positions(b: int, s: int, offset: Union[int, torch.Tensor],
 def forward(params: Params, batch: Batch, cfg: ModelConfig, *,
             caches: Optional[List] = None,
             cache_pos: Union[int, torch.Tensor, None] = None,
-            block_tables: Optional[torch.Tensor] = None
+            block_tables: Optional[torch.Tensor] = None,
+            remat: bool = False, remat_policy: str = "full"
             ) -> Tuple[torch.Tensor, Optional[List]]:
     """Returns (logits (B, S, V) f32, caches updated in place).
-    ``block_tables`` addresses a paged cache (decode only)."""
+    ``block_tables`` addresses a paged cache (decode only); ``remat`` and
+    ``remat_policy`` are training's (``transformer.apply_stack``)."""
     tokens = batch["tokens"]
     x = L.embed(params["embed"], tokens, cfg.cdtype)
+    if "ln0" in params:
+        x = L.layernorm(params["ln0"], x, cfg.norm_eps)
     b, s = tokens.shape
     pos = batch.get("positions")
     if pos is None:
@@ -110,9 +126,22 @@ def forward(params: Params, batch: Batch, cfg: ModelConfig, *,
                          x.device)
     x, caches = T.apply_stack(params["blocks"], x, cfg, positions=pos,
                               caches=caches, cache_pos=cache_pos,
-                              block_tables=block_tables)
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+                              block_tables=block_tables, remat=remat,
+                              remat_policy=remat_policy)
+    x = T.apply_norm(cfg, params["final_norm"], x)
     return L.logits(params["embed"], x, params.get("head")), caches
+
+
+def loss_fn(params: Params, batch: Batch, cfg: ModelConfig,
+            remat: bool = True, remat_policy: str = "full"
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean next-token cross-entropy plus the auxiliary loss (zero: no
+    ported block has one).  Returns (loss, {"ce", "aux"})."""
+    lg, _ = forward(params, batch, cfg, remat=remat,
+                    remat_policy=remat_policy)
+    ce = L.cross_entropy(lg, batch["labels"], batch.get("mask"))
+    aux = torch.zeros((), dtype=torch.float32, device=lg.device)
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

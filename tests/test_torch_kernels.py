@@ -27,6 +27,7 @@ from repro_torch.kernels.decode_attention import (flash_decode,
                                                   flash_paged_decode)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gemm import gama_gemm
+from repro_torch.kernels.wkv import wkv6, wkv6_bwd
 from repro_torch.serving import quant as tquant
 
 
@@ -256,6 +257,45 @@ def test_kernel_mode_on_cpu_tensors_raises():
                     mode="kernel")
 
 
+def _kernel_calls(dev, grad):
+    """One call of each kernel wrapper on tensors of ``dev``."""
+    f = dict(device=dev, requires_grad=grad)
+    a, bm = torch.ones((4, 8), **f), torch.ones((8, 4), **f)
+    q4, kv4 = torch.ones((1, 2, 4, 64), **f), torch.ones((1, 2, 8, 64), **f)
+    q3 = torch.ones((1, 2, 64), **f)
+    length = torch.ones((1,), dtype=torch.int32, device=dev)
+    pool = torch.ones((2, 2, 4, 64), **f)
+    table = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+    x = torch.ones((1, 2, 3, 64), **f)
+    u = torch.ones((2, 64), **f)
+    return {
+        "gama_gemm": lambda: gama_gemm(a, bm),
+        "flash_attention": lambda: flash_attention(q4, kv4, kv4),
+        "flash_decode": lambda: flash_decode(q3, kv4, kv4, length=length),
+        "flash_paged_decode": lambda: flash_paged_decode(
+            q3, pool, pool, table, length=length),
+        "wkv6": lambda: wkv6(x, x, x, x, u),
+        "wkv6_bwd": lambda: wkv6_bwd(x, x, x, x, u, x),
+    }
+
+
+def test_kernel_wrappers_refuse_inputs_that_require_grad():
+    """A launched kernel's output has no grad_fn, so a gradient through it
+    would silently be zero: off the CPU, every wrapper raises when autograd
+    is on and an input requires grad.  Meta tensors reach that branch
+    without a card; under no_grad the same calls get past the check to the
+    device check.  (The plain versions on CPU tensors stay differentiable.)"""
+    for name, call in _kernel_calls("meta", True).items():
+        with pytest.raises(RuntimeError, match="requires grad"):
+            call()
+        with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+            call()
+    for name, call in _kernel_calls("cpu", True).items():
+        out = call()
+        out = out[0] if isinstance(out, tuple) else out
+        assert out.requires_grad, name
+
+
 # ---------------------------------------------------------------------------
 # The CUDA kernels against their plain versions (card only)
 # ---------------------------------------------------------------------------
@@ -378,3 +418,50 @@ def test_cuda_flash_paged_decode_matches_plain(dtype, tol, pool):
                                  tref.gather_pages(vp, bt).contiguous(),
                                  length=ln)
             assert torch.equal(dense, two)
+
+
+def _cuda_wkv_case(g, b, h, t, n, dtype):
+    """Inputs of the training path's scale: decays from the real decay's
+    range exp(-exp(x)), x in [-8, 2] (down to ~6e-4), r/k/v ~ N(0, 0.25)."""
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+    r, k, v = ((randn(b, h, t, n) * 0.5).to(dtype) for _ in range(3))
+    x = torch.rand((b, h, t, n), generator=g, device="cuda") * 10 - 8
+    w = torch.exp(-torch.exp(x))
+    u = randn(h, n) * 0.1
+    gy = randn(b, h, t, n).to(dtype)
+    return r, k, v, w, u, gy
+
+
+def _close_to_max(got, want, tol):
+    """|got - want| <= tol * max(1, max|want|): the kernels and the plain
+    versions sum in different orders, so where a sum cancels the error is
+    relative to the terms, not to the result."""
+    scale = max(1.0, want.float().abs().max().item())
+    err = (got.float() - want.float()).abs().max().item()
+    assert torch.isfinite(got.float()).all()
+    assert got.dtype == want.dtype and err <= tol * scale, (err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("b,h,t,n", [(8, 40, 64, 64), (8, 40, 100, 64),
+                                     (2, 4, 37, 16)])
+def test_cuda_wkv6_and_bwd_match_plain(b, h, t, n, dtype, tol):
+    """The training shape, a ragged T and the SMOKE head size.  bf16
+    outputs round once from f32 (one ulp is 2**-8 of the value); f32 at
+    1e-4 of the largest value."""
+    _require_cuda()
+    g = torch.Generator(device="cuda").manual_seed(t + n)
+    r, k, v, w, u, gy = _cuda_wkv_case(g, b, h, t, n, dtype)
+    y = wkv6(r, k, v, w, u)
+    grads = wkv6_bwd(r, k, v, w, u, gy)
+    again = wkv6_bwd(r, k, v, w, u, gy)
+    want_y = tops.wkv(r, k, v, w, u, mode="ref")
+    want = tref.ref_wkv_bwd(r, k, v, w, u, gy)
+    torch.cuda.synchronize()
+    _close_to_max(y, want_y, tol)
+    for got_g, want_g in zip(grads, want):
+        _close_to_max(got_g, want_g, tol if got_g.dtype == dtype else 1e-4)
+    assert all(torch.equal(a_, b_) for a_, b_ in zip(grads, again))

@@ -22,6 +22,8 @@ from repro_torch.bridge import params_from_numpy
 from repro_torch.models import model as tmodel
 
 ARCHS = ["smollm_360m", "qwen3_8b"]
+# Every ported config, including RWKV-6 (trained, not served).
+CONFIG_ARCHS = ARCHS + ["rwkv6_3b"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
@@ -49,7 +51,7 @@ def _params(arch):
 
 def test_port_configs_equal_reference():
     import dataclasses
-    for arch in ARCHS:
+    for arch in CONFIG_ARCHS:
         for get in ("get", "get_smoke"):
             jcfg, tcfg = getattr(JC, get)(arch), getattr(TC, get)(arch)
             assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
@@ -59,10 +61,10 @@ def test_port_configs_equal_reference():
 
 def test_unported_arch_raises():
     with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        TC.get("rwkv6_3b")
+        TC.get("jamba_v01_52b")
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", CONFIG_ARCHS)
 def test_bridge_round_trips_every_leaf(arch):
     jcfg, tcfg, _, tree, tp = _params(arch)
     n_layers = jcfg.n_layers

@@ -303,6 +303,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "import repro_torch.kernels.ops, repro_torch.models\n"
             "import repro_torch.serving.engine, repro_torch.launch.serve\n"
             "import repro_torch.serving.kvpool, repro_torch.serving.quant\n"
+            "import repro_torch.launch.train, repro_torch.models.rwkv\n"
+            "import repro_torch.checkpoint.manager, repro_torch.data.pipeline\n"
+            "import repro_torch.kernels.wkv, repro_torch.training.trainer\n"
             "print('ok')")
     env = {"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin"}
     out = subprocess.run([sys.executable, "-c", code], env=env,
