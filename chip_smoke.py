@@ -7,12 +7,16 @@
 2. Build: every CUDA kernel of ``src/repro_torch/csrc`` with ``nvcc``
    (``-Xptxas -v`` output printed).
 3. Kernels: each hand-written kernel against its plain PyTorch version on
-   the card at the serve path's shapes (and the paper's Table V GEMMs; for
-   the paged decode also a long-context Qwen3-8B shape, bf16 and int8
-   pools in shuffled page order), with the error against a stated
-   tolerance, and timed with CUDA events beside its roofline bound, its
-   plain version and one PyTorch library call computing the same function
-   where there is one (a yardstick the port never calls).
+   the card at the serve path's shapes (the GEMM at every weight GEMM of
+   SmolLM-360M at M = 1, 3, 8, 16 and 512 and of Qwen3-8B at M = 3, the
+   paper's Table V GEMMs and ragged shapes; flash attention also at the
+   512-token prefill; for the paged decode also a long-context Qwen3-8B
+   shape, bf16 and int8 pools in shuffled page order), with the error
+   against a stated tolerance, and timed with CUDA events beside its
+   roofline bound, its plain version and one PyTorch library call
+   computing the same function where there is one (a yardstick the port
+   never calls).  The GEMM's rows must also be bit for bit independent of
+   the batch: every row at M = 3, 8, 16 and 512 equal to the row alone.
 4. Serve: SmolLM-360M FULL (32 layers, d_model 960, bf16, seeded random
    weights) replays traces through the port's continuous-batching
    ``ServeEngine`` with every GEMM, prefill attention and decode attention
@@ -22,7 +26,8 @@
    Launch counts are reset just before and read just after each measured
    replay and checked per path; each replay ends with ``--verify``'s check
    (bit-identical to a one-slot one-shot engine).  Then a
-   kernel-vs-plain-GEMM logit check and a profile of a decode step.
+   kernel-vs-plain-GEMM logit check and a profile of a decode step (by
+   kernel and by kind, with its 225 ``gama_gemm`` launches checked).
 5. Train: the wkv6 forward and backward kernels against their plain
    versions at the training shape, a ragged length and a long one, and
    the head-16 builds the SMOKE config runs (bf16, and f32 at the
@@ -65,6 +70,8 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     flash_decode, flash_paged_decode)
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.gemm import gama_gemm  # noqa: E402
+from repro_torch.kernels.gemm import blocks as gemm_blocks  # noqa: E402
+from repro_torch.kernels.gemm import plan as gemm_plan  # noqa: E402
 from repro_torch.kernels.wkv import wkv6, wkv6_bwd  # noqa: E402
 from repro_torch.launch import serve as S  # noqa: E402
 from repro_torch.launch import train as TL  # noqa: E402
@@ -123,9 +130,9 @@ def device_ms(make_call, input_bytes: int, reps: int = 24) -> float:
     """Device time of one call: ``reps`` calls captured in a CUDA graph
     (so host dispatch does not count), replayed 5 times between CUDA
     events.  The calls rotate over copies of the inputs until they cover
-    twice the L2 (at most 64 copies), so weights come from device memory
+    twice the L2 (at most 256 copies), so weights come from device memory
     as on the serve path, where 32 layers of weights pass through L2."""
-    copies = max(1, min(64, math.ceil(2 * L2_BYTES / max(1, input_bytes))))
+    copies = max(1, min(256, math.ceil(2 * L2_BYTES / max(1, input_bytes))))
     calls = [make_call() for _ in range(copies)]
     reps = max(reps, copies)
     for c in calls[:2]:
@@ -187,7 +194,11 @@ def _rand(shape, dtype, gen, scale=1.0):
     return (torch.randn(shape, generator=gen, device=DEV) * scale).to(dtype)
 
 
-def check_gemm(label, m, k, n, dtype, out_dtype, scale, tol, seed, main=False):
+def check_gemm(label, m, k, n, dtype, out_dtype, scale, tol, seed, main=False,
+               per_step=None):
+    """gama_gemm against its plain version, timed beside torch.matmul (or
+    torch._int_mm).  The plain version is timed only for weights up to
+    256 MB (it widens B to f32 on every call)."""
     gen = _gen(seed)
     a = _rand((m, k), dtype, gen)
     b = _rand((k, n), dtype, gen, scale=k ** -0.5)
@@ -195,6 +206,7 @@ def check_gemm(label, m, k, n, dtype, out_dtype, scale, tol, seed, main=False):
     want = ops.matmul(a, b, out_dtype=out_dtype, scale=scale, mode="ref")
     torch.cuda.synchronize()
     err = max_err(got, want, tol)
+    del want
     RESULTS["gama_gemm"]["max_abs_err"] = max(
         RESULTS["gama_gemm"]["max_abs_err"], err)
     elt = a.element_size()
@@ -208,24 +220,60 @@ def check_gemm(label, m, k, n, dtype, out_dtype, scale, tol, seed, main=False):
 
     kern = device_ms(mk(lambda x, y: gama_gemm(x, y, out_dtype=out_dtype,
                                               scale=scale)), nbytes)
-    plain = device_ms(mk(lambda x, y: ops.matmul(
-        x, y, out_dtype=out_dtype, scale=scale, mode="ref")), nbytes)
+    plain = None
+    if k * n * elt <= 256 * 2 ** 20:
+        plain = device_ms(mk(lambda x, y: ops.matmul(
+            x, y, out_dtype=out_dtype, scale=scale, mode="ref")), nbytes)
     lib = None
     if dtype != torch.int8 or (out_dtype == torch.int32 and m > 16
                                and k % 8 == 0 and n % 8 == 0):
         lib_fn = (torch.matmul if dtype != torch.int8 else torch._int_mm)
         lib = device_ms(mk(lib_fn), nbytes)
     bms, by = bound(nbytes, 2.0 * m * k * n, dtype)
+    p = gemm_plan(m, k, n, dtype)
     print(f"[kernel] gama_gemm {label} M={m} K={k} N={n} "
-          f"{str(dtype)[6:]}->{str(out_dtype)[6:]} max_abs_err={err:.3e} "
+          f"{str(dtype)[6:]}->{str(out_dtype)[6:]} plan={tuple(p)} "
+          f"blocks={gemm_blocks(p, m, n)} max_abs_err={err:.3e} "
           f"tol={tol:g}*(1+|plain|) kernel_ms={kern:.5f} "
-          f"plain_ms={plain:.5f} "
+          f"plain_ms={'not timed' if plain is None else f'{plain:.5f}'} "
           f"library_ms={'null' if lib is None else f'{lib:.5f}'} "
-          f"bound_ms={bms:.5f} ({by})")
+          f"bound_ms={bms:.5f} ({by}) kernel/library="
+          f"{'n/a' if lib is None else f'{kern / lib:.2f}'} "
+          f"bound/kernel={bms / kern:.3f}"
+          + ("" if per_step is None else f" launches_per_decode_step="
+             f"{per_step}"))
     if main:
         RESULTS["gama_gemm"].update(ms=kern, plain_ms=plain, library_ms=lib,
                                     bound_ms=bms, bound_by=by,
                                     shape=f"M={m} K={k} N={n} {label}")
+
+
+def gemm_rows_independent(cfgs, ms):
+    """Rows independent of the batch (what ``--verify`` needs of the serve
+    path): at every weight GEMM of ``cfgs``, each row of an M-row product
+    must be ``torch.equal`` to the same row computed alone (M = 1)."""
+    checked = 0
+    for cfg in cfgs:
+        for label, (k, n, _) in cfg.gemm_shapes().items():
+            gen = _gen(k + n)
+            a = _rand((max(ms), k), torch.bfloat16, gen)
+            b = _rand((k, n), torch.bfloat16, gen, scale=k ** -0.5)
+            alone = torch.cat([gama_gemm(a[i:i + 1], b)
+                               for i in range(max(ms))])
+            for m in ms:
+                got = gama_gemm(a[:m].contiguous(), b)
+                same = (got == alone[:m]).all(dim=1)
+                if not bool(same.all()):
+                    bad = (~same).nonzero().flatten().tolist()[:8]
+                    raise AssertionError(
+                        f"gama_gemm row-independence: {cfg.name}:{label} "
+                        f"M={m} rows {bad} differ from the row alone")
+                checked += m
+            del a, b, alone
+    torch.cuda.synchronize()
+    print(f"[kernel] gama_gemm row-independence: every row torch.equal to "
+          f"the row computed alone (M=1) at M={list(ms)} on the weight "
+          f"GEMMs of {[c.name for c in cfgs]}: {checked} rows, OK")
 
 
 def _attn_bound(b, hq, hkv, sq, d, elt, keys_per_row, kv_rows):
@@ -436,15 +484,23 @@ def kernel_phase(cfg, max_len):
                    0 if dtype == torch.int8 else bf16_tol, seed=len(name))
     check_gemm("ragged-f32", 257, 129, 127, torch.float32, torch.float32,
                1.0, f32_tol, seed=3)
-    d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
-    qn, kvn = cfg.n_heads * cfg.d_head, cfg.n_kv_heads * cfg.d_head
-    shapes = [("wq", d, qn), ("wk/wv", d, kvn), ("wo", qn, d),
-              ("gate/up", d, f), ("down", f, d), ("lm_head", d, v)]
-    for m in (1, 3, 16):
-        for label, k, n in shapes:
-            check_gemm(f"smollm:{label}", m, k, n, torch.bfloat16,
-                       torch.bfloat16, 1.0, bf16_tol, seed=m + k + n,
-                       main=(m == 3 and label == "lm_head"))
+    # Ragged bf16/int8 shapes: pitches of 16 bytes and not (cp.async or
+    # element loads), K shorter than one chunk.
+    for m, k, n in [(1, 10, 5000), (13, 129, 127), (70, 272, 1000)]:
+        check_gemm("ragged", m, k, n, torch.bfloat16, torch.bfloat16, 1.0,
+                   bf16_tol, seed=m + k)
+        check_gemm("ragged", m, k, n, torch.int8, torch.int8, 0.002, 0,
+                   seed=m + n)
+    qwen = C.get("qwen3_8b")
+    for arch, ms in ((cfg, (1, 3, 8, 16, 512)), (qwen, (3,))):
+        for m in ms:
+            for label, (k, n, per_step) in arch.gemm_shapes().items():
+                check_gemm(f"{arch.name}:{label}", m, k, n, torch.bfloat16,
+                           torch.bfloat16, 1.0, bf16_tol, seed=m + k + n,
+                           main=(arch is cfg and m == 3
+                                 and label == "lm_head"),
+                           per_step=per_step if m <= 16 else None)
+    gemm_rows_independent([cfg, qwen], (3, 8, 16, 512))
     # Attention: bf16 outputs round once from f32 math (<= 1 ulp apart),
     # f32 at the JAX suite's 2e-5.
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
@@ -452,6 +508,9 @@ def kernel_phase(cfg, max_len):
                     torch.bfloat16, 2e-2, seed=11, main=True)
     check_attention("q_offset", 1, hq, hkv, 16, 80, dh, 64, torch.bfloat16,
                     2e-2, seed=12)
+    # The 448-token prompts' prefill (bucket 512), for the next redesign.
+    check_attention("prefill-512", 1, hq, hkv, 512, 512, dh, 0,
+                    torch.bfloat16, 2e-2, seed=15)
     check_attention("d128", 1, 32, 8, 16, 48, 128, 0, torch.bfloat16, 2e-2,
                     seed=13)
     check_attention("f32-ragged", 2, 8, 2, 33, 77, 64, 44, torch.float32,
@@ -549,13 +608,15 @@ def profile_decode(cfg, params, max_len, steps=5):
         wall_ms = sum(walls[kind]) / len(walls[kind])
         with torch.profiler.profile(activities=acts) as prof:
             traced_ms = run(kind)
-        by_name = {}
+        by_name, by_kind = {}, {}
         for e in prof.events():
             if e.device_type == torch.autograd.DeviceType.CUDA:
-                name = e.name.replace("void ", "").replace(
-                    "(anonymous namespace)::", "").split("<")[0].split("(")[0]
-                n, us = by_name.get(name[:60], (0, 0.0))
-                by_name[name[:60]] = (n + 1, us + e.time_range.elapsed_us())
+                name = _kernel_name(e)[:60]
+                us = e.time_range.elapsed_us()
+                n, t = by_name.get(name, (0, 0.0))
+                by_name[name] = (n + 1, t + us)
+                n, t = by_kind.get(_kind(name), (0, 0.0))
+                by_kind[_kind(name)] = (n + 1, t + us)
         if not by_name:
             print(f"[profile] decode step ({kind} KV) wall_ms={wall_ms:.3f}; "
                   f"device time not measured (the profiler saw no CUDA "
@@ -569,9 +630,18 @@ def profile_decode(cfg, params, max_len, steps=5):
               f"device_idle_share={1 - device_ms / wall_ms:.3f} "
               f"kernels_per_step="
               f"{sum(n for n, _ in by_name.values()) // steps}")
+        for group, (n, us) in sorted(by_kind.items(),
+                                     key=lambda kv: -kv[1][1]):
+            print(f"[profile]   by kind: {group}: {n // steps} launches per "
+                  f"step, {us / 1e3 / steps:.3f} ms per step")
         for name, (n, us) in top:
             print(f"[profile]   {name}: {n // steps} per step, "
                   f"{us / 1e3 / steps:.3f} ms per step")
+        gemms = by_kind.get("GEMM (gama_gemm)", (0, 0.0))[0] // steps
+        want = sum(c for _, _, c in cfg.gemm_shapes().values())
+        if gemms != want:
+            raise AssertionError(f"decode step ({kind} KV): {gemms} gama_gemm "
+                                 f"launches, expected {want}")
 
 
 def replay(cfg, params, trace, scfg, label):
@@ -839,6 +909,8 @@ def _kind(name):
     low = name.lower()
     if "wkv6" in low:
         return name
+    if low.startswith("gemm_"):      # csrc/gemm.cu's kernels
+        return "GEMM (gama_gemm)"
     if any(x in low for x in ("gemm", "nvjet", "cutlass", "xmma", "cublas")):
         return "GEMM (torch.matmul)"
     if "multi_tensor_apply" in low or "foreach" in low:

@@ -92,6 +92,16 @@ class ModelConfig:
     def kvdtype(self) -> torch.dtype:
         return torch_dtype(self.cache_dtype)
 
+    def gemm_shapes(self) -> dict:
+        """The weight GEMMs a dense attention decoder runs per forward
+        step: name -> (K, N, launches), the launches summed over the
+        layers (k and v share a shape, as do gate and up) and the head."""
+        d, f, v, n = self.d_model, self.d_ff, self.vocab_size, self.n_layers
+        qn, kvn = self.n_heads * self.d_head, self.n_kv_heads * self.d_head
+        return {"wq": (d, qn, n), "wk/wv": (d, kvn, 2 * n), "wo": (qn, d, n),
+                "gate/up": (d, f, 2 * n), "down": (f, d, n),
+                "lm_head": (d, v, 1)}
+
     def n_params(self) -> int:
         """Total parameter count, as the reference counts it (analytic:
         the rwkv loras at their default ranks, norms and mixing vectors

@@ -21,6 +21,9 @@ except ImportError:
     # The GPU host has no JAX; it runs only this file's cuda-marked tests
     # (python -m pytest -m cuda tests/test_torch_kernels.py).
     jnp = jops = None
+from repro_torch import configs as tconfigs
+from repro_torch.configs.gama_paper import ARRAY_GEMMS
+from repro_torch.kernels import gemm as tgemm
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.decode_attention import (flash_decode,
@@ -121,6 +124,76 @@ def test_requant_rounds_half_to_even(out_dtype):
                       out_dtype=getattr(torch, out_dtype), scale=0.5)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert got[0, :7].tolist() == [2, 4, -2, -4, 0, 0, 4]
+
+
+# The weight GEMMs of the two served decoders, and the paper's Table V.
+_MODEL_GEMMS = {f"{arch}:{name}": (k, n, torch.bfloat16)
+                for arch in ("smollm_360m", "qwen3_8b")
+                for name, (k, n, _) in tconfigs.get(arch).gemm_shapes().items()}
+_TABLE_V_GEMMS = {
+    f"tableV:{name}": (k, n, torch.bfloat16 if name.startswith("bf16")
+                       else torch.int8)
+    for name, (m, k, n) in ARRAY_GEMMS.items()}
+
+
+@pytest.mark.parametrize("label", sorted({**_MODEL_GEMMS, **_TABLE_V_GEMMS}))
+def test_gemm_k_walk_is_the_same_for_every_m(label):
+    """Rows independent of the batch: the K slices (their number and
+    boundaries, the order each output is summed in) do not depend on M,
+    for M = 1..1024; the slices cover [0, K) in order, none empty."""
+    k, n, dtype = {**_MODEL_GEMMS, **_TABLE_V_GEMMS}[label]
+    walks = {tgemm.k_walk(tgemm.plan(m, k, n, dtype), k, dtype)
+             for m in range(1, 1025)}
+    assert len(walks) == 1, walks
+    (walk,) = walks
+    assert walk[0][0] == 0 and walk[-1][1] == k
+    assert all(lo < hi for lo, hi in walk)
+    assert all(a[1] == b[0] for a, b in zip(walk, walk[1:]))
+    assert len(walk) == tgemm.splits_for(k, n, dtype)
+    for m in (1, 16, 17, 512):
+        tgemm.check_plan(tgemm.plan(m, k, n, dtype), k, dtype)
+
+
+@pytest.mark.parametrize("label", sorted(
+    label for label, (k, n, dtype) in _MODEL_GEMMS.items()
+    if k * n * dtype.itemsize > 4 * 2 ** 20))
+def test_gemm_decode_plans_fill_the_card(label):
+    """A decode GEMM whose weight exceeds 4 MiB is bound by its bytes: its
+    plan gives every SM of the H100 at least one block, at M = 1..16.
+    (Smaller weights, SmolLM's attention projections, are bound by
+    latency.)"""
+    k, n, dtype = _MODEL_GEMMS[label]
+    for m in range(1, 17):
+        p = tgemm.plan(m, k, n, dtype)
+        assert p.bm == 16 and tgemm.blocks(p, m, n) >= tgemm.SMS, (m, p)
+
+
+def test_gemm_plan_rejects_what_the_kernel_does_not_take():
+    for dtype in (torch.float16, torch.int16, torch.float64):
+        with pytest.raises(ValueError, match="takes"):
+            tgemm.plan(3, 960, 960, dtype)
+    with pytest.raises(ValueError, match="empty"):
+        tgemm.plan(0, 960, 960, torch.bfloat16)
+    good = tgemm.plan(3, 960, 960, torch.bfloat16)
+    tgemm.check_plan(good, 960, torch.bfloat16)
+    tgemm.check_plan(tgemm.plan(3, 129, 127, torch.float32), 129,
+                     torch.float32)
+    bad = [good._replace(bm=32), good._replace(bn=48),
+           good._replace(splits=0), good._replace(splits=9),
+           good._replace(cluster=2), good._replace(stages=1),
+           good._replace(stages=9), tgemm.Plan(64, 64, 1, 0, 4),
+           tgemm.Plan(128, 128, 1, 0, 8)]      # 280 KB of shared memory
+    for p in bad:
+        with pytest.raises(ValueError, match="does not take"):
+            tgemm.check_plan(p, 960, torch.bfloat16)
+    # More slices than K chunks (K = 100 is two chunks of 64 bf16).
+    with pytest.raises(ValueError, match="does not take"):
+        tgemm.check_plan(good._replace(splits=3), 100, torch.bfloat16)
+    # f32 runs only on the SIMT kernel's tile.
+    with pytest.raises(ValueError, match="does not take"):
+        tgemm.check_plan(good, 960, torch.float32)
+    # K shorter than one chunk: one slice.
+    assert tgemm.plan(3, 10, 5000, torch.bfloat16).splits == 1
 
 
 # ---------------------------------------------------------------------------
@@ -325,6 +398,86 @@ def test_cuda_gemm_matches_plain(dtype, out_dtype, tol):
         torch.cuda.synchronize()
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
+
+
+def _cuda_gemm_inputs(g, m, k, n, dtype):
+    if dtype == torch.int8:
+        return (torch.randint(-128, 128, (m, k), generator=g, device="cuda",
+                              dtype=torch.int8),
+                torch.randint(-128, 128, (k, n), generator=g, device="cuda",
+                              dtype=torch.int8))
+    return (torch.randn((m, k), generator=g, device="cuda").to(dtype),
+            (torch.randn((k, n), generator=g, device="cuda")
+             / k ** 0.5).to(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,out_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.int8, torch.int32),
+    (torch.int8, torch.int16), (torch.int8, torch.int8)])
+def test_cuda_gemm_ragged_shapes(dtype, out_dtype):
+    """M, K and N off every tile multiple, pitches that are and are not 16
+    bytes (cp.async or element loads), K shorter than one chunk and
+    slices of one chunk.  bf16 within 1e-2 * (1 + |plain|): both round one
+    f32 sum to bf16 in another order.  int8 exact, with scales that put
+    part of the int16/int8 outputs in saturation."""
+    _require_cuda()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    scale = {torch.int16: 0.05, torch.int8: 0.002}.get(out_dtype, 1.0)
+    for m, k, n in [(1, 10, 5000), (3, 40, 77), (5, 100, 33),
+                    (7, 136, 200), (13, 129, 127), (17, 333, 250),
+                    (33, 1000, 130), (70, 272, 1000), (257, 129, 127),
+                    (3, 960, 960), (3, 2560, 960)]:
+        a, b = _cuda_gemm_inputs(g, m, k, n, dtype)
+        got = gama_gemm(a, b, out_dtype=out_dtype, scale=scale)
+        want = tops.matmul(a, b, out_dtype=out_dtype, scale=scale,
+                           mode="ref")
+        torch.cuda.synchronize()
+        assert got.dtype == out_dtype and got.shape == (m, n)
+        if dtype == torch.int8:
+            assert torch.equal(got, want), (m, k, n)
+        else:
+            err = (got.double() - want.double()).abs()
+            assert (err <= 1e-2 * (1 + want.double().abs())).all(), (
+                m, k, n, err.max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", sorted(_MODEL_GEMMS))
+def test_cuda_gemm_rows_independent_of_batch(label):
+    """Every row of an M-row product is bit for bit the row computed
+    alone (M = 1), at M = 3, 8, 16 and 512: what the serving engine's
+    --verify needs of a multi-slot batch against a one-slot engine."""
+    _require_cuda()
+    k, n, dtype = _MODEL_GEMMS[label]
+    g = torch.Generator(device="cuda").manual_seed(k + n)
+    a, b = _cuda_gemm_inputs(g, 512, k, n, dtype)
+    alone = torch.cat([gama_gemm(a[i:i + 1], b) for i in range(512)])
+    for m in (3, 8, 16, 512):
+        got = gama_gemm(a[:m].contiguous(), b)
+        torch.cuda.synchronize()
+        same = (got == alone[:m]).all(dim=1)
+        assert same.all(), (m, (~same).nonzero().flatten().tolist()[:8])
+
+
+@pytest.mark.cuda
+def test_cuda_gemm_refuses_a_plan_it_does_not_take():
+    """The kernel checks the plan itself: a plan that check_plan rejects
+    raises from the launch and writes nothing."""
+    _require_cuda()
+    g = torch.Generator(device="cuda").manual_seed(6)
+    a, b = _cuda_gemm_inputs(g, 3, 100, 64, torch.bfloat16)
+    good = tgemm.plan(3, 100, 64, torch.bfloat16)
+    for p in [good._replace(bm=32), good._replace(splits=3),
+              good._replace(splits=9), good._replace(cluster=2),
+              good._replace(stages=9), tgemm.Plan(128, 128, 1, 0, 8)]:
+        with pytest.raises(ValueError):
+            tgemm.check_plan(p, 100, torch.bfloat16)
+        out = torch.zeros((3, 64), dtype=torch.bfloat16, device="cuda")
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            tgemm.launch(a, b, out, p)
+        torch.cuda.synchronize()
+        assert not out.any()
 
 
 @pytest.mark.cuda
