@@ -9,14 +9,21 @@
 3. Kernels: each hand-written kernel against its plain PyTorch version on
    the card at the serve path's shapes (the GEMM at every weight GEMM of
    SmolLM-360M at M = 1, 3, 8, 16 and 512 and of Qwen3-8B at M = 3, the
-   paper's Table V GEMMs and ragged shapes; flash attention also at the
-   512-token prefill; for the paged decode also a long-context Qwen3-8B
-   shape, bf16 and int8 pools in shuffled page order), with the error
-   against a stated tolerance, and timed with CUDA events beside its
-   roofline bound, its plain version and one PyTorch library call
-   computing the same function where there is one (a yardstick the port
-   never calls).  The GEMM's rows must also be bit for bit independent of
-   the batch: every row at M = 3, 8, 16 and 512 equal to the row alone.
+   paper's Table V GEMMs and ragged shapes; flash attention at the
+   prefill shapes the replays run -- the 16-token bucket against the
+   36-row dense and 48-row paged caches, the 488-token bucket against the
+   496-row scratch cache of the 8 x 448 replay -- and at 512 x 512,
+   Qwen3-8B's heads of 128, a kv_len below Sk and f32; for the paged
+   decode also a long-context Qwen3-8B shape, bf16 and int8 pools in
+   shuffled page order), with the error against a stated tolerance, and
+   timed with CUDA events beside its roofline bound, its plain version and
+   one PyTorch library call computing the same function where there is
+   one (a yardstick the port never calls).  Two bit-for-bit checks: the
+   GEMM's rows independent of the batch (every row at M = 3, 8, 16 and
+   512 equal to the row alone), and flash attention's rows independent of
+   how a prompt is split (488 tokens whole equal to [0, 256) + [256, 488)
+   and [0, 200) + [200, 488) at runtime q_offsets, and B = 2 equal to
+   B = 1).
 4. Serve: SmolLM-360M FULL (32 layers, d_model 960, bf16, seeded random
    weights) replays traces through the port's continuous-batching
    ``ServeEngine`` with every GEMM, prefill attention and decode attention
@@ -26,8 +33,11 @@
    Launch counts are reset just before and read just after each measured
    replay and checked per path; each replay ends with ``--verify``'s check
    (bit-identical to a one-slot one-shot engine).  Then a
-   kernel-vs-plain-GEMM logit check and a profile of a decode step (by
-   kernel and by kind, with its 225 ``gama_gemm`` launches checked).
+   kernel-vs-plain-GEMM logit check, a 448-token prompt's prefill logits
+   with the attention kernel against the same prefill with the plain
+   attention, a profile of a decode step (by kernel and by kind, with its
+   225 ``gama_gemm`` launches checked) and one of the 8 x 448 replay (its
+   prefill attention's device time).
 5. Train: the wkv6 forward and backward kernels against their plain
    versions at the training shape, a ragged length and a long one, and
    the head-16 builds the SMOKE config runs (bf16, and f32 at the
@@ -48,6 +58,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -68,7 +79,9 @@ from repro_torch.configs.gama_paper import ARRAY_GEMMS  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     flash_decode, flash_paged_decode)
+from repro_torch.kernels.flash_attention import blocks as attn_blocks  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import plan as attn_plan  # noqa: E402
 from repro_torch.kernels.gemm import gama_gemm  # noqa: E402
 from repro_torch.kernels.gemm import blocks as gemm_blocks  # noqa: E402
 from repro_torch.kernels.gemm import plan as gemm_plan  # noqa: E402
@@ -108,6 +121,11 @@ REPLACES = {"gama_gemm": "src/repro/kernels/gemm.py:113",
             "flash_paged_decode": "src/repro/kernels/decode_attention.py:415",
             "wkv6": "src/repro/kernels/wkv.py:70",
             "wkv6_bwd": "src/repro/kernels/wkv.py:70"}
+# The long replay: 8 requests of 448-token prompts and 32 new tokens on 8
+# slots; max_len = 488 is also its last prefill bucket, and its scratch
+# cache has pages_for(488, 16) * 16 = 496 rows.
+LONG_REQS, LONG_PROMPT, LONG_NEW = 8, 448, 32
+LONG_LEN = LONG_PROMPT + LONG_NEW + 8
 SERVE_KERNELS = ("gama_gemm", "flash_attention", "flash_decode",
                  "flash_paged_decode")
 TRAIN_KERNELS = ("wkv6", "wkv6_bwd")
@@ -284,26 +302,28 @@ def _attn_bound(b, hq, hkv, sq, d, elt, keys_per_row, kv_rows):
 
 
 def check_attention(label, b, hq, hkv, sq, sk, d, q_offset, dtype, tol, seed,
-                    main=False):
+                    main=False, kv_len=None):
     gen = _gen(seed)
     q = _rand((b, hq, sq, d), dtype, gen)
     k = _rand((b, hkv, sk, d), dtype, gen)
     v = _rand((b, hkv, sk, d), dtype, gen)
-    got = flash_attention(q, k, v, causal=True, q_offset=q_offset)
-    want = ops.attention(q, k, v, causal=True, q_offset=q_offset, mode="ref")
+    kv = sk if kv_len is None else kv_len
+    args = dict(causal=True, q_offset=q_offset, kv_len=kv)
+    got = flash_attention(q, k, v, **args)
+    want = ops.attention(q, k, v, mode="ref", **args)
     torch.cuda.synchronize()
     err = max_err(got, want, tol)
     r = RESULTS["flash_attention"]
     r["max_abs_err"] = max(r["max_abs_err"], err)
-    per_row = [min(sk, q_offset + i + 1) for i in range(sq)]
+    per_row = [max(0, min(kv, q_offset + i + 1)) for i in range(sq)]
     nbytes, flops = _attn_bound(b, hq, hkv, sq, d, q.element_size(),
                                 sum(per_row), max(per_row))
-    kern = device_ms(lambda: (lambda: flash_attention(
-        q, k, v, causal=True, q_offset=q_offset)), nbytes)
+    kern = device_ms(lambda: (lambda: flash_attention(q, k, v, **args)),
+                     nbytes)
     plain = device_ms(lambda: (lambda: ops.attention(
-        q, k, v, causal=True, q_offset=q_offset, mode="ref")), nbytes)
+        q, k, v, mode="ref", **args)), nbytes)
     lib = None
-    if q_offset == 0:
+    if q_offset == 0 and kv == sk:
         # SDPA's causal mask is top-left aligned: query i sees keys <= i,
         # the same function as q_offset = 0.  KV expanded to Hq up front.
         kq = k.repeat_interleave(hq // hkv, 1)
@@ -311,17 +331,53 @@ def check_attention(label, b, hq, hkv, sq, sk, d, q_offset, dtype, tol, seed,
         lib = device_ms(lambda: (lambda: F.scaled_dot_product_attention(
             q, kq, vq, is_causal=True)), nbytes)
     bms, by = bound(nbytes, flops, dtype)
+    p = attn_plan(b, hq, hkv, sq, sk, d, dtype)
     print(f"[kernel] flash_attention {label} B={b} Hq={hq} Hkv={hkv} Sq={sq} "
-          f"Sk={sk} D={d} q_offset={q_offset} {str(dtype)[6:]} "
+          f"Sk={sk} D={d} q_offset={q_offset} kv_len={kv} {str(dtype)[6:]} "
+          f"plan={tuple(p)} blocks={attn_blocks(p, b, hq, sq)} "
           f"max_abs_err={err:.3e} tol={tol:g}*(1+|plain|) "
           f"kernel_ms={kern:.5f} "
           f"plain_ms={plain:.5f} library_ms="
           f"{'null' if lib is None else f'{lib:.5f}'} bound_ms={bms:.6f} "
-          f"({by})")
+          f"({by}) kernel/library="
+          f"{'n/a' if lib is None else f'{kern / lib:.2f}'} "
+          f"bound/kernel={bms / kern:.4f}")
     if main:
         r.update(ms=kern, plain_ms=plain, library_ms=lib, bound_ms=bms,
                  bound_by=by, shape=f"B={b} Hq={hq} Hkv={hkv} Sq={sq} "
                                     f"Sk={sk} D={d}")
+
+
+def attention_rows_independent(hq, hkv, d, sq, sk, cuts, seed):
+    """A row's bits do not depend on how the prompt is split (what chunked
+    prefill needs): ``sq`` tokens prefilled whole against an ``sk``-row
+    cache must equal, under torch.equal, the same rows prefilled in two
+    chunks cut at each of ``cuts`` (runtime q_offsets, same cache), and
+    every row of a B=2 call the same row of each B=1 call."""
+    gen = _gen(seed)
+    q = _rand((2, hq, sq, d), torch.bfloat16, gen)
+    k = _rand((2, hkv, sk, d), torch.bfloat16, gen)
+    v = _rand((2, hkv, sk, d), torch.bfloat16, gen)
+    whole = flash_attention(q, k, v, causal=True)
+    for cut in cuts:
+        parts = [flash_attention(q[:, :, lo:hi].contiguous(), k, v,
+                                 causal=True, q_offset=lo)
+                 for lo, hi in ((0, cut), (cut, sq))]
+        if not torch.equal(torch.cat(parts, dim=2), whole):
+            raise AssertionError(f"flash_attention: rows of [0, {cut}) + "
+                                 f"[{cut}, {sq}) differ from the whole "
+                                 f"prefill (Hq={hq} D={d})")
+    for i in range(2):
+        alone = flash_attention(q[i:i + 1].contiguous(),
+                                k[i:i + 1].contiguous(),
+                                v[i:i + 1].contiguous(), causal=True)
+        if not torch.equal(alone, whole[i:i + 1]):
+            raise AssertionError(f"flash_attention: batch row {i} of B=2 "
+                                 f"differs from B=1 (Hq={hq} D={d})")
+    torch.cuda.synchronize()
+    print(f"[kernel] flash_attention rows independent of chunking: Hq={hq} "
+          f"Hkv={hkv} D={d} Sq={sq} Sk={sk}: whole == chunks cut at {cuts} "
+          f"(runtime q_offset) and B=2 == B=1, torch.equal, OK")
 
 
 def check_decode(label, hq, hkv, sk, d, lengths, dtype, tol, seed,
@@ -501,20 +557,36 @@ def kernel_phase(cfg, max_len):
                                  and label == "lm_head"),
                            per_step=per_step if m <= 16 else None)
     gemm_rows_independent([cfg, qwen], (3, 8, 16, 512))
-    # Attention: bf16 outputs round once from f32 math (<= 1 ulp apart),
-    # f32 at the JAX suite's 2e-5.
+    # Attention: bf16 within 2e-2 * (1 + |plain|) (P rounds to bf16 for
+    # P.V and the output once from f32), f32 at the JAX suite's 2e-5.  The
+    # replays' prefill shapes: the 16-token bucket against the dense smoke6
+    # cache (max_len rows) and the paged scratch (48 rows), and the 488
+    # bucket against the long replay's 496-row scratch.
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    long_cache = pages_for(LONG_LEN, 16) * 16
     check_attention("prefill", 1, hq, hkv, 16, max_len, dh, 0,
-                    torch.bfloat16, 2e-2, seed=11, main=True)
+                    torch.bfloat16, 2e-2, seed=11)
+    check_attention("prefill-paged", 1, hq, hkv, 16,
+                    pages_for(max_len, 16) * 16, dh, 0, torch.bfloat16, 2e-2,
+                    seed=16)
+    check_attention(f"prefill-{LONG_LEN}", 1, hq, hkv, LONG_LEN, long_cache,
+                    dh, 0, torch.bfloat16, 2e-2, seed=17, main=True)
     check_attention("q_offset", 1, hq, hkv, 16, 80, dh, 64, torch.bfloat16,
                     2e-2, seed=12)
-    # The 448-token prompts' prefill (bucket 512), for the next redesign.
     check_attention("prefill-512", 1, hq, hkv, 512, 512, dh, 0,
                     torch.bfloat16, 2e-2, seed=15)
+    check_attention("kv_len", 1, hq, hkv, 100, 160, dh, 40, torch.bfloat16,
+                    2e-2, seed=18, kv_len=130)
     check_attention("d128", 1, 32, 8, 16, 48, 128, 0, torch.bfloat16, 2e-2,
                     seed=13)
+    check_attention("d128-512", 1, 32, 8, 512, 512, 128, 0, torch.bfloat16,
+                    2e-2, seed=19)
     check_attention("f32-ragged", 2, 8, 2, 33, 77, 64, 44, torch.float32,
                     2e-5, seed=14)
+    attention_rows_independent(hq, hkv, dh, LONG_LEN, long_cache, (256, 200),
+                               seed=20)
+    attention_rows_independent(32, 8, 128, LONG_LEN, long_cache, (256, 200),
+                               seed=25)
     check_decode("serve", hq, hkv, max_len, dh, [28, 20, 13], torch.bfloat16,
                  2e-2, seed=21, main=True)
     check_decode("zero-length", hq, hkv, max_len, dh, [max_len, 0, 7],
@@ -706,13 +778,131 @@ def replay(cfg, params, trace, scfg, label):
     return counts, rep
 
 
+@contextlib.contextmanager
+def attention_mode(mode):
+    """Route the models' ``ops.attention`` calls through ``mode`` for a
+    while (``"ref"``: the plain version, no kernel)."""
+    orig = ops.attention
+
+    def routed(*args, **kwargs):
+        return orig(*args, mode=mode, **kwargs)
+    ops.attention = routed
+    try:
+        yield
+    finally:
+        ops.attention = orig
+
+
+def prefill_attention_kernel_vs_ref(cfg, params, prompt_len, bucket,
+                                    cache_len, seed=5):
+    """One ``prompt_len``-token prompt (random tokens from ``seed``) padded
+    to its ``bucket`` and prefilled from position 0 against a
+    ``cache_len``-row cache, as the long replay does: its logits with
+    ``flash_attention`` (one launch a layer) against the same prefill with
+    the plain attention (none), the GEMMs on the kernel in both.  Bound:
+    max |logit diff| <= 0.1 over the prompt's positions, the GEMM check's
+    bound: each path rounds an f32 attention output to bf16 in every layer
+    (the kernel also rounds P to bf16 before P.V), so they differ by about
+    one bf16 ulp there, and the difference compounds over the layers."""
+    gen = _gen(seed)
+    toks = torch.zeros((1, bucket), dtype=torch.long, device=DEV)
+    toks[0, :prompt_len] = torch.randint(0, cfg.vocab_size, (prompt_len,),
+                                         generator=gen, device=DEV)
+
+    def run(mode):
+        caches = init_cache(cfg, 1, cache_len, DEV)
+        before = K.launch_counts()["flash_attention"]
+        with attention_mode(mode):
+            lg, _ = forward(params, {"tokens": toks}, cfg, caches=caches,
+                            cache_pos=0)
+        torch.cuda.synchronize()
+        return (lg[0, :prompt_len].float(),
+                K.launch_counts()["flash_attention"] - before)
+    kern, n_kern = run("auto")
+    plain, n_plain = run("ref")
+    if not torch.isfinite(kern).all():
+        raise AssertionError("non-finite prefill logits")
+    diff = (kern - plain).abs()
+    agree = (kern.argmax(-1) == plain.argmax(-1)).float().mean().item()
+    tol = 0.1
+    print(f"[serve] prefill attention kernel vs plain ({cfg.name}, "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}, a "
+          f"{prompt_len}-token prompt in the {bucket} bucket, Sq={bucket} "
+          f"Sk={cache_len}): max |logit diff|={diff.max().item():.4e} "
+          f"mean={diff.mean().item():.4e} (tol {tol}, logit std "
+          f"{plain.std().item():.3f}) over {prompt_len} positions, argmax "
+          f"agreement={agree:.4f}; flash_attention launches {n_kern} "
+          f"(kernel) / {n_plain} (plain)")
+    if n_kern != cfg.n_layers or n_plain != 0:
+        raise AssertionError(f"prefill attention launches: {n_kern} with the "
+                             f"kernel, {n_plain} with the plain version")
+    if diff.max().item() > tol:
+        raise AssertionError(f"prefill attention kernel vs plain logits "
+                             f"differ by {diff.max().item()}")
+
+
+def _device_by_name(prof):
+    """(count, device us) of every CUDA kernel a profile saw, by name."""
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = _kernel_name(e)
+            n, t = by_name.get(name, (0, 0.0))
+            by_name[name] = (n + 1, t + e.time_range.elapsed_us())
+    return by_name
+
+
+def profile_replay(cfg, params, trace, scfg, label):
+    """Where the long replay's device time goes: one more replay (after a
+    warm-up) under ``torch.profiler``, its wall (host clock, synchronised)
+    beside the device time by kind, and the prefill attention's launches
+    and device time."""
+    engine = ServeEngine(cfg, params, scfg)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    try:
+        S.run_trace(engine, trace, log=None)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            S.run_trace(engine, trace, log=None)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        engine.close()
+    by_name = _device_by_name(prof)
+    if not by_name:
+        print(f"[profile] {label}: wall_ms={wall_ms:.3f}; device time not "
+              f"measured (the profiler saw no CUDA events)")
+        return
+    by_kind = {}
+    for name, (n, us) in by_name.items():
+        k, t = by_kind.get(_kind(name), (0, 0.0))
+        by_kind[_kind(name)] = (k + n, t + us)
+    busy = sum(us for _, us in by_name.values()) / 1e3
+    print(f"[profile] {label} replay (traced): wall_ms={wall_ms:.3f} "
+          f"device_busy_ms={busy:.3f} device_idle_share="
+          f"{1 - busy / wall_ms:.3f} kernels="
+          f"{sum(n for n, _ in by_name.values())}")
+    for kind, (n, us) in sorted(by_kind.items(), key=lambda kv: -kv[1][1]):
+        print(f"[profile]   by kind: {kind}: {n} launches, {us / 1e3:.3f} ms")
+    attn = [(name, n, us) for name, (n, us) in by_name.items()
+            if name.startswith("flash_attention")]
+    for name, n, us in attn:
+        print(f"[profile]   prefill attention {name}: {n} launches, "
+              f"{us / 1e3:.3f} ms, {us / n:.2f} us each")
+    if not attn:
+        raise AssertionError(f"{label}: the profile saw no prefill "
+                             f"attention kernel")
+
+
 def serve_phase(cfg, max_len):
     set_gemm_mode("kernel")
     params = init_params(cfg, seed=1, device=DEV)
     smoke6 = S.load_trace(S.resolve_trace_path("smoke6"), cfg.vocab_size,
                           seed=0)
-    long8 = S.synth_trace(8, 448, 32, 3, cfg.vocab_size, seed=0)
-    long_len = 448 + 32 + 8
+    long8 = S.synth_trace(LONG_REQS, LONG_PROMPT, LONG_NEW, 3,
+                          cfg.vocab_size, seed=0)
     paged = dict(kv="paged", page_size=16)
     paths = [
         ("dense smoke6", smoke6, ServeConfig(batch_slots=3, max_len=max_len)),
@@ -724,7 +914,7 @@ def serve_phase(cfg, max_len):
         ("paged-bf16 smoke6 pool_pages=4", smoke6,
          ServeConfig(batch_slots=3, max_len=max_len, pool_pages=4, **paged)),
         ("paged-bf16 synth 8x448+32", long8,
-         ServeConfig(batch_slots=8, max_len=long_len, **paged)),
+         ServeConfig(batch_slots=LONG_REQS, max_len=LONG_LEN, **paged)),
     ]
     total = {n: 0 for n in SERVE_KERNELS}
     for label, trace, scfg in paths:
@@ -750,7 +940,13 @@ def serve_phase(cfg, max_len):
           f"{json.dumps(per_decode)}")
     if diff > tol:
         raise AssertionError(f"kernel vs ref logits differ by {diff}")
+    prefill_attention_kernel_vs_ref(cfg, params, LONG_PROMPT, LONG_LEN,
+                                    pages_for(LONG_LEN, 16) * 16)
+    # The decode step's profile first: it counts every launch of a step,
+    # and one taken after the long replay's profile (140k kernels) missed
+    # 60 of the ~11k kernels of its 5 steps.
     profile_decode(cfg, params, max_len)
+    profile_replay(cfg, params, long8, paths[-1][2], paths[-1][0])
     return total
 
 
@@ -911,6 +1107,10 @@ def _kind(name):
         return name
     if low.startswith("gemm_"):      # csrc/gemm.cu's kernels
         return "GEMM (gama_gemm)"
+    if low.startswith("flash_attention"):
+        return "prefill attention (flash_attention)"
+    if low.startswith(("flash_decode", "paged_decode")):
+        return "decode attention (flash_decode, flash_paged_decode)"
     if any(x in low for x in ("gemm", "nvjet", "cutlass", "xmma", "cublas")):
         return "GEMM (torch.matmul)"
     if "multi_tensor_apply" in low or "foreach" in low:
@@ -927,6 +1127,10 @@ def train_phase(steps=4):
     the measured steps and read just after; then one profiled step."""
     set_gemm_mode("ref")
     cfg = C.get("rwkv6_3b")
+    # The serve phase's engines may sit in reference cycles holding the
+    # SmolLM weights and KV pools (~1 GB): free them, so that the peak is
+    # the training step's own.
+    gc.collect()
     torch.cuda.reset_peak_memory_stats()
     params = init_params(cfg, seed=2, device=DEV, dtype=torch.float32)
     n_params = sum(p.numel() for p in adamw.leaves(params))

@@ -10,6 +10,8 @@ skip without one.  On the GPU host:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels.py
 """
 
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -23,6 +25,7 @@ except ImportError:
     jnp = jops = None
 from repro_torch import configs as tconfigs
 from repro_torch.configs.gama_paper import ARRAY_GEMMS
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import gemm as tgemm
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
@@ -257,6 +260,70 @@ def test_attention_fully_masked_row_is_zero():
     assert torch.equal(out, torch.zeros_like(out))
 
 
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_plan_kv_tile_depends_on_head_dim_and_dtype_only(d, dtype):
+    """The KV tiles a row passes through start at multiples of the tile
+    width from key 0, so the width is fixed by (D, dtype): every B, Sq and
+    Sk of the serve path gives the same one (q_offset and kv_len are not
+    even inputs of the plan), and every plan is one the kernel takes."""
+    widths = set()
+    for b in (1, 2, 8):
+        for hq, hkv in ((15, 5), (32, 8), (8, 8)):
+            for sq in (1, 16, 33, 200, 232, 256, 488, 512, 4096):
+                for sk in (16, 36, 48, 496, 512, 8192):
+                    p = tfa.plan(b, hq, hkv, sq, sk, d, dtype)
+                    tfa.check_plan(p, hq, hkv, d, dtype)
+                    widths.add(p.kv_tile)
+    assert widths == {tfa.kv_tile(d, dtype)}
+    assert set(inspect.signature(tfa.plan).parameters) == {
+        "b", "hq", "hkv", "sq", "sk", "d", "dtype"}
+    for hq, hkv in ((15, 5), (32, 8), (8, 8)):
+        cands = list(tfa.candidates(hq, hkv, d, dtype))
+        for p in cands:
+            tfa.check_plan(p, hq, hkv, d, dtype)
+            assert p.kv_tile == tfa.kv_tile(d, dtype)
+        for sq in (16, 488):
+            assert tfa.plan(1, hq, hkv, sq, 496, d, dtype) in cands
+
+
+def test_attention_plan_routes_by_dtype():
+    """bf16 goes to the tensor cores, f32 to the SIMT kernel, whatever the
+    shape: the route is not a fallback."""
+    for sq, sk in ((16, 36), (488, 496), (512, 512)):
+        assert tfa.plan(1, 15, 5, sq, sk, 64, torch.bfloat16).route == "tc"
+        assert tfa.plan(1, 15, 5, sq, sk, 64, torch.float32) == tfa.Plan(
+            "simt", 16, 1, 1, tfa.SIMT_KV_TILE)
+    assert tfa.kv_tile(64, torch.bfloat16) == 64
+    assert tfa.kv_tile(128, torch.float32) == 32
+
+
+@pytest.mark.parametrize("d", [16, 32, 96, 256])
+def test_attention_plan_raises_for_other_head_dims(d):
+    for dtype in (torch.bfloat16, torch.float32):
+        with pytest.raises(ValueError, match="head dims"):
+            tfa.plan(1, 4, 2, 16, 32, d, dtype)
+
+
+def test_attention_plan_raises_on_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        tfa.plan(1, 4, 2, 16, 32, 64, torch.float16)
+    with pytest.raises(ValueError, match="hq % hkv"):
+        tfa.plan(1, 6, 4, 16, 32, 64, torch.bfloat16)
+    with pytest.raises(ValueError, match="empty"):
+        tfa.plan(1, 4, 2, 0, 32, 64, torch.bfloat16)
+    good = tfa.plan(1, 15, 5, 488, 496, 64, torch.bfloat16)
+    for bad in (good._replace(kv_tile=32), good._replace(rows=48),
+                good._replace(heads=2), good._replace(stages=5),
+                good._replace(route="simt"),
+                tfa.Plan("tc", 64, 3, 2, 64),          # 12 warps
+                tfa.Plan("tc", 16, 1, 1, 64)):         # a 1-tile ring
+        with pytest.raises(ValueError, match="does not take"):
+            tfa.check_plan(bad, 15, 5, 64, torch.bfloat16)
+    with pytest.raises(ValueError, match="does not take"):
+        tfa.check_plan(good, 15, 5, 64, torch.float32)
+
+
 # ---------------------------------------------------------------------------
 # Decode attention
 # ---------------------------------------------------------------------------
@@ -484,11 +551,22 @@ def test_cuda_gemm_refuses_a_plan_it_does_not_take():
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
                                        (torch.float32, 2e-5)])
 def test_cuda_flash_attention_matches_plain(dtype, tol):
+    """The serve path's prefill shapes (SmolLM-360M's 15/5 heads at the
+    16-token bucket against 36- and 48-row caches, the 488-token bucket
+    against the 496-row scratch cache, 512 x 512), a ragged batch at a
+    q_offset, and Qwen3-8B's 32/8 heads of 128.  bf16 within 2e-2 * (1 +
+    |plain|): P is rounded to bf16 for P.V and the output once from f32;
+    f32 at the JAX suite's 2e-5."""
     _require_cuda()
     g = torch.Generator(device="cuda").manual_seed(1)
     for (b, hq, hkv, sq, sk, d, off) in [(1, 15, 5, 16, 36, 64, 0),
+                                          (1, 15, 5, 16, 48, 64, 0),
+                                          (1, 15, 5, 488, 496, 64, 0),
+                                          (1, 15, 5, 512, 512, 64, 0),
                                           (2, 8, 2, 33, 77, 64, 44),
-                                          (1, 32, 8, 16, 40, 128, 0)]:
+                                          (1, 32, 8, 16, 40, 128, 0),
+                                          (1, 32, 8, 16, 48, 128, 0),
+                                          (1, 32, 8, 512, 512, 128, 0)]:
         q = torch.randn((b, hq, sq, d), generator=g, device="cuda").to(dtype)
         k = torch.randn((b, hkv, sk, d), generator=g, device="cuda").to(dtype)
         v = torch.randn((b, hkv, sk, d), generator=g, device="cuda").to(dtype)
@@ -497,6 +575,130 @@ def test_cuda_flash_attention_matches_plain(dtype, tol):
         torch.cuda.synchronize()
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
+
+
+def _cuda_attn_case(g, b, hq, hkv, sq, sk, d, dtype=torch.bfloat16):
+    return (torch.randn((b, hq, sq, d), generator=g, device="cuda").to(dtype),
+            torch.randn((b, hkv, sk, d), generator=g, device="cuda").to(dtype),
+            torch.randn((b, hkv, sk, d), generator=g, device="cuda").to(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 2e-5)])
+def test_cuda_flash_attention_kv_len_and_masked_rows(dtype, tol):
+    """kv_len < Sk, causal and not, with keys past kv_len set to values
+    that would swamp the softmax: they change nothing.  A fully masked row
+    (kv_len = 0, or every key in its future) is exactly 0."""
+    _require_cuda()
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for (hq, hkv, sq, sk, d, off, kv_len, causal) in [
+            (15, 5, 100, 160, 64, 40, 130, True),
+            (15, 5, 70, 200, 64, 0, 93, False),
+            (32, 8, 40, 300, 128, 200, 230, True)]:
+        q, k, v = _cuda_attn_case(g, 1, hq, hkv, sq, sk, d, dtype)
+        k2, v2 = k.clone(), v.clone()
+        k2[:, :, kv_len:], v2[:, :, kv_len:] = 1e4, -1e4
+        got = flash_attention(q, k2, v2, causal=causal, q_offset=off,
+                              kv_len=kv_len)
+        want = tops.attention(q, k, v, causal=causal, q_offset=off,
+                              kv_len=kv_len, mode="ref")
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        assert torch.equal(got, flash_attention(
+            q, k, v, causal=causal, q_offset=off, kv_len=kv_len))
+    q, k, v = _cuda_attn_case(g, 2, 15, 5, 80, 96, 64, dtype)
+    for causal in (True, False):
+        out = flash_attention(q, k, v, causal=causal, kv_len=0)
+        assert torch.equal(out, torch.zeros_like(out))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_flash_attention_rows_independent_of_chunking(d):
+    """A row's bits do not depend on how the prompt is split: 488 tokens
+    prefilled whole against a 496-row cache equal, row for row under
+    torch.equal, the same rows prefilled as [0, 256) + [256, 488) or the
+    unaligned [0, 200) + [200, 488) at runtime q_offsets; and every row of
+    a B=2 call equals the same row of each B=1 call."""
+    _require_cuda()
+    hq, hkv = (15, 5) if d == 64 else (32, 8)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    q, k, v = _cuda_attn_case(g, 2, hq, hkv, 488, 496, d)
+    whole = flash_attention(q, k, v, causal=True)
+    for cut in (256, 200):
+        parts = [flash_attention(q[:, :, lo:hi].contiguous(), k, v,
+                                 causal=True, q_offset=lo)
+                 for lo, hi in ((0, cut), (cut, 488))]
+        assert torch.equal(torch.cat(parts, dim=2), whole), cut
+    for i in range(2):
+        alone = flash_attention(q[i:i + 1].contiguous(), k[i:i + 1].contiguous(),
+                                v[i:i + 1].contiguous(), causal=True)
+        assert torch.equal(alone, whole[i:i + 1]), i
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_every_plan_gives_the_same_bits():
+    """Every plan the kernel takes (query rows, packed GQA heads, ring
+    depth) gives the default plan's bits, at the prefill shapes."""
+    _require_cuda()
+    g = torch.Generator(device="cuda").manual_seed(9)
+    for (hq, hkv, sq, sk, d) in [(15, 5, 16, 48, 64), (15, 5, 488, 496, 64),
+                                 (32, 8, 100, 300, 128)]:
+        q, k, v = _cuda_attn_case(g, 1, hq, hkv, sq, sk, d)
+        want = flash_attention(q, k, v, causal=True, q_offset=sk - sq)
+        n = 0
+        for p in tfa.candidates(hq, hkv, d, torch.bfloat16):
+            got = torch.empty_like(q)
+            tfa.launch(q, k, v, got, p, causal=True, scale=d ** -0.5,
+                       q_offset=sk - sq, kv_len=sk)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), p
+            n += 1
+        assert n >= 12
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_misaligned_operands_are_copied():
+    """cp.async needs 16-byte aligned rows: q, k and v that start 2 bytes
+    off that boundary give the aligned operands' bits."""
+    _require_cuda()
+    g = torch.Generator(device="cuda").manual_seed(10)
+    q, k, v = _cuda_attn_case(g, 1, 15, 5, 40, 64, 64)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16
+        return view
+    want = flash_attention(q, k, v, causal=True, q_offset=24)
+    got = flash_attention(shifted(q), shifted(k), shifted(v), causal=True,
+                          q_offset=24)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_refuses_a_plan_it_does_not_take():
+    """The kernel checks the plan itself: a plan that check_plan rejects
+    raises from the launch and writes nothing."""
+    _require_cuda()
+    g = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v = _cuda_attn_case(g, 1, 15, 5, 40, 64, 64)
+    good = tfa.plan(1, 15, 5, 40, 64, 64, torch.bfloat16)
+    for p in [good._replace(kv_tile=32), good._replace(rows=48),
+              good._replace(heads=2), good._replace(stages=5),
+              good._replace(route="simt"), tfa.Plan("tc", 64, 3, 2, 64)]:
+        with pytest.raises(ValueError):
+            tfa.check_plan(p, 15, 5, 64, torch.bfloat16)
+        out = torch.zeros_like(q)
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            tfa.launch(q, k, v, out, p, causal=True, scale=0.125,
+                       q_offset=0, kv_len=64)
+        torch.cuda.synchronize()
+        assert not out.any()
 
 
 @pytest.mark.cuda
