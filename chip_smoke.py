@@ -13,19 +13,28 @@
    prefill shapes the replays run -- the 16-token bucket against the
    36-row dense and 48-row paged caches, the 488-token bucket against the
    496-row scratch cache of the 8 x 448 replay -- and at 512 x 512,
-   Qwen3-8B's heads of 128, a kv_len below Sk and f32; for the paged
-   decode also a long-context Qwen3-8B shape, bf16 and int8 pools in
-   shuffled page order), with the error against a stated tolerance, and
-   timed with CUDA events beside its roofline bound, its plain version and
-   one PyTorch library call computing the same function where there is
-   one (a yardstick the port never calls).  Two bit-for-bit checks: the
-   GEMM's rows independent of the batch (every row at M = 3, 8, 16 and
-   512 equal to the row alone), and flash attention's rows independent of
-   how a prompt is split (488 tokens whole equal to [0, 256) + [256, 488)
-   and [0, 200) + [200, 488) at runtime q_offsets, and B = 2 equal to
-   B = 1).
-4. Serve: SmolLM-360M FULL (32 layers, d_model 960, bf16, seeded random
-   weights) replays traces through the port's continuous-batching
+   Qwen3-8B's heads of 128, a kv_len below Sk, f32, and the SMOKE
+   configs' heads of 16 in f32; both decode kernels at the smoke6 and
+   the 8 x 448 replay's decode shapes, lengths on and around the chunk
+   boundaries up to 4096 keys, a long-context Qwen3-8B shape, bf16, f32
+   and int8 pools in shuffled page order, and head dim 16 in f32), with
+   the error against a stated tolerance, and timed with CUDA events
+   beside its roofline bound, its plain version and one PyTorch library
+   call computing the same function where there is one (a yardstick the
+   port never calls).  Bit-for-bit checks: the GEMM's rows independent
+   of the batch (every row at M = 3, 8, 16 and 512 equal to the row
+   alone); flash attention's rows independent of how a prompt is split
+   (488 tokens whole equal to [0, 256) + [256, 488) and [0, 200) +
+   [200, 488) at runtime q_offsets, and B = 2 equal to B = 1); a decode
+   slot alone equal to its row of the batch and of a batch with doubled
+   max_pages (paged) or Sk (dense), buffers=1 equal to buffers=2, a
+   float pool equal to flash_decode on the gathered cache, and a NaN
+   null sink page changing nothing.
+4. Serve: the SMOKE config (f32, heads of 16) replays smoke6 on dense
+   KV, f32 pages and int8 pages, then the serve launcher runs with its
+   defaults (dense, then ``--kv paged --page_size 16``), all under
+   ``--verify``.  SmolLM-360M FULL (32 layers, d_model 960, bf16, seeded
+   random weights) replays traces through the port's continuous-batching
    ``ServeEngine`` with every GEMM, prefill attention and decode attention
    on the kernels: ``benchmarks/traces/smoke6.jsonl`` on the dense KV
    cache, then four paged-KV replays (bf16 pages, int8 pages, a 4-page
@@ -37,7 +46,7 @@
    with the attention kernel against the same prefill with the plain
    attention, a profile of a decode step (by kernel and by kind, with its
    225 ``gama_gemm`` launches checked) and one of the 8 x 448 replay (its
-   prefill attention's device time).
+   prefill attention's and paged decode's device time).
 5. Train: the wkv6 forward and backward kernels against their plain
    versions at the training shape, a ragged length and a long one, and
    the head-16 builds the SMOKE config runs (bf16, and f32 at the
@@ -78,7 +87,7 @@ from repro_torch import kernels as K  # noqa: E402
 from repro_torch.configs.gama_paper import ARRAY_GEMMS  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
-    flash_decode, flash_paged_decode)
+    decode_chunk, flash_decode, flash_paged_decode)
 from repro_torch.kernels.flash_attention import blocks as attn_blocks  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import plan as attn_plan  # noqa: E402
@@ -210,6 +219,17 @@ def _rand(shape, dtype, gen, scale=1.0):
         return torch.randint(-128, 128, shape, generator=gen, device=DEV,
                              dtype=torch.int8)
     return (torch.randn(shape, generator=gen, device=DEV) * scale).to(dtype)
+
+
+def decode_bound(b, hq, hkv, d, lengths, q_elt, kv_elt, table_entries=0):
+    """Bytes of a decode call: q and out once; each valid K and V row once
+    per KV head at ``kv_elt`` bytes a value (an int8 row's f32 scale
+    spread over its D values); the block-table entries the lengths need;
+    the lengths.  Operations: 4 * D per (query head, valid key)."""
+    rows = sum(lengths)
+    nbytes = (2 * b * hq * d * q_elt + 2 * hkv * d * rows * kv_elt
+              + 4 * table_entries + 4 * b)
+    return nbytes, 4.0 * d * hq * rows
 
 
 def check_gemm(label, m, k, n, dtype, out_dtype, scale, tol, seed, main=False,
@@ -380,8 +400,26 @@ def attention_rows_independent(hq, hkv, d, sq, sk, cuts, seed):
           f"(runtime q_offset) and B=2 == B=1, torch.equal, OK")
 
 
+def _sdpa_decode(q, kc, vc, length):
+    """SDPA on a dense cache expanded to Hq heads beforehand, keys at or
+    past each slot's length masked: a make() for device_ms (the aside)."""
+    grp = q.shape[1] // kc.shape[1]
+    kq, vq = (x.repeat_interleave(grp, 1) for x in (kc, vc))
+    mask = (torch.arange(kc.shape[2], device=DEV)[None, :]
+            < length[:, None])[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(q[:, :, None], kq, vq,
+                                                  attn_mask=mask)
+
+
 def check_decode(label, hq, hkv, sk, d, lengths, dtype, tol, seed,
                  main=False):
+    """flash_decode against its plain version, timed over copies of the
+    cache that cover twice the L2 (a decode step finds its layer's cache
+    in device memory) beside its bound, the plain version and SDPA on the
+    same cache.  Bit for bit: every slot alone (B=1) equals its row of the
+    batch, and, when no length passes Sk, so does the batch against a
+    cache zero-padded to 2 * Sk (the chunks depend on key positions
+    only)."""
     gen = _gen(seed)
     b = len(lengths)
     q = _rand((b, hq, d), dtype, gen)
@@ -392,42 +430,67 @@ def check_decode(label, hq, hkv, sk, d, lengths, dtype, tol, seed,
     want = ops.decode(q, k, v, length=length, mode="ref")
     torch.cuda.synchronize()
     err = max_err(got, want, tol)
+    alone = all(torch.equal(flash_decode(
+        q[i:i + 1], k[i:i + 1].contiguous(), v[i:i + 1].contiguous(),
+        length=length[i:i + 1]), got[i:i + 1]) for i in range(b))
+    wide = "n/a (a length past Sk)"
+    if max(lengths) <= sk:
+        kw, vw = (torch.cat([x, torch.zeros_like(x)], dim=2) for x in (k, v))
+        wide = torch.equal(flash_decode(q, kw, vw, length=length), got)
+        del kw, vw
+    torch.cuda.synchronize()
+    if not (alone and wide is not False):
+        raise AssertionError(f"flash_decode {label}: B=1 == batch {alone}, "
+                             f"2*Sk == Sk {wide}")
     r = RESULTS["flash_decode"]
     r["max_abs_err"] = max(r["max_abs_err"], err)
-    elt = q.element_size()
-    nbytes = (2 * b * hq * d + 2 * hkv * d * sum(lengths)) * elt + 4 * b
-    flops = 4.0 * d * hq * sum(lengths)
-    kern = device_ms(lambda: (lambda: flash_decode(q, k, v, length=length)),
-                     nbytes)
-    plain = device_ms(lambda: (lambda: ops.decode(q, k, v, length=length,
-                                                  mode="ref")), nbytes)
-    kq = k.repeat_interleave(hq // hkv, 1)
-    vq = v.repeat_interleave(hq // hkv, 1)
-    mask = (torch.arange(sk, device=DEV)[None, :] < length[:, None])
-    mask = mask[:, None, None, :]
-    lib = device_ms(lambda: (lambda: F.scaled_dot_product_attention(
-        q[:, :, None], kq, vq, attn_mask=mask)), nbytes)
+    nbytes, flops = decode_bound(b, hq, hkv, d,
+                                 [min(n, sk) for n in lengths],
+                                 q.element_size(), q.element_size())
+    cache_bytes = 2 * k.numel() * k.element_size()
+
+    def fresh():
+        return _rand(k.shape, dtype, gen), _rand(v.shape, dtype, gen)
+
+    def mk(fn):
+        def make():
+            kc, vc = fresh()
+            return lambda: fn(q, kc, vc, length=length)
+        return make
+
+    kern = device_ms(mk(flash_decode), cache_bytes)
+    plain = device_ms(mk(lambda *a, **kw: ops.decode(*a, mode="ref", **kw)),
+                      cache_bytes)
+    lib = device_ms(lambda: _sdpa_decode(q, *fresh(), length), cache_bytes)
     bms, by = bound(nbytes, flops, dtype)
+    chunk = decode_chunk(d, dtype)
     print(f"[kernel] flash_decode {label} B={b} Hq={hq} Hkv={hkv} Sk={sk} "
-          f"D={d} lengths={lengths} {str(dtype)[6:]} max_abs_err={err:.3e} "
-          f"tol={tol:g}*(1+|plain|) kernel_ms={kern:.5f} "
-          f"plain_ms={plain:.5f} "
-          f"library_ms={lib:.5f} bound_ms={bms:.6f} ({by})")
+          f"D={d} lengths={lengths} {str(dtype)[6:]} chunk={chunk} blocks="
+          f"{b * hkv * -(-sk // chunk)} max_abs_err={err:.3e} "
+          f"tol={tol:g}*(1+|plain|) slot_alone_equal_batch={alone} "
+          f"sk_doubled_equal={wide} kernel_ms={kern:.5f} "
+          f"plain_ms={plain:.5f} library_ms={lib:.5f} (SDPA on the cache "
+          f"expanded to Hq) bound_ms={bms:.6f} ({by}) "
+          f"bound/kernel={bms / kern:.4f}")
     if main:
         r.update(ms=kern, plain_ms=plain, library_ms=lib, bound_ms=bms,
                  bound_by=by, shape=f"B={b} Hq={hq} Hkv={hkv} Sk={sk} D={d} "
-                                    f"lengths={lengths}")
+                                    f"lengths={lengths} {str(dtype)[6:]}")
+    return kern
 
 
 def check_paged_decode(label, hq, hkv, d, ps, lengths, pool, tol, seed,
-                       main=False):
+                       main=False, dtype=torch.bfloat16):
     """flash_paged_decode (both buffering variants) against its plain
-    version, on bf16 q with bf16 or int8 pools whose pages sit in a
-    shuffled order; checks buffers=1 == buffers=2 bit for bit, bf16 pools
-    against flash_decode on the gathered cache bit for bit, and that a NaN
-    null sink page changes nothing."""
+    version, on q in ``dtype`` with pools in q's dtype (``pool="float"``)
+    or int8 whose pages sit in a shuffled order, timed over copies of the
+    pools that cover twice the L2.  Bit for bit: buffers=1 == buffers=2;
+    a NaN null sink page changes nothing; every slot alone (B=1) equals
+    its row of the batch, and so does the batch with max_pages doubled
+    (the extra entries on the null sink); a float pool equals flash_decode
+    on the gathered cache."""
     gen = _gen(seed)
-    b, dtype = len(lengths), torch.bfloat16
+    b = len(lengths)
     slot_pages = [pages_for(n, ps) for n in lengths]
     max_pages, n_pool = max(slot_pages) + 1, sum(slot_pages) + 8
     perm = torch.randperm(n_pool, generator=gen, device=DEV).tolist()
@@ -465,27 +528,32 @@ def check_paged_decode(label, hq, hkv, d, ps, lengths, pool, tol, seed,
     nan_safe = all(torch.equal(flash_paged_decode(
         q, kn, vn, table, length=length, buffers=n, **scn), got[n])
         for n in (1, 2))
+    del kn, vn, scn
+    alone = all(torch.equal(flash_paged_decode(
+        q[i:i + 1], kp, vp, table[i:i + 1], length=length[i:i + 1], **sc),
+        got[2][i:i + 1]) for i in range(b))
+    wide_table = torch.cat([table, torch.full_like(table, n_pool)], dim=1)
+    wide = torch.equal(flash_paged_decode(q, kp, vp, wide_table,
+                                          length=length, **sc), got[2])
     same_dense = "n/a (int8 pool)"
-    if pool == "bf16":
+    if pool == "float":
         dense = flash_decode(q, ref.gather_pages(kp, table).contiguous(),
                              ref.gather_pages(vp, table).contiguous(),
                              length=length)
         same_dense = torch.equal(dense, got[2])
     torch.cuda.synchronize()
-    if not (same_buffers and nan_safe and same_dense is not False):
+    if not (same_buffers and nan_safe and alone and wide
+            and same_dense is not False):
         raise AssertionError(
             f"flash_paged_decode {label} {pool}: buffers1==buffers2 "
-            f"{same_buffers}, NaN sink unreachable {nan_safe}, equal to "
+            f"{same_buffers}, NaN sink unreachable {nan_safe}, B=1 == batch "
+            f"{alone}, 2*max_pages == max_pages {wide}, equal to "
             f"flash_decode on the gathered cache {same_dense}")
     r = RESULTS["flash_paged_decode"]
     r["max_abs_err"] = max(r["max_abs_err"], err)
-    # Bytes: q and out once; each valid K and V row (and int8 scale) once
-    # per KV head; the table entries the lengths need; the lengths.
     kv_elt = kp.element_size() + (4 / d if pool == "int8" else 0)
-    rows = sum(lengths)
-    nbytes = (2 * b * hq * d * q.element_size() + 2 * hkv * d * rows * kv_elt
-              + 4 * sum(slot_pages) + 4 * b)
-    flops = 4.0 * d * hq * rows
+    nbytes, flops = decode_bound(b, hq, hkv, d, lengths, q.element_size(),
+                                 kv_elt, sum(slot_pages))
     pool_bytes = 2 * kp.numel() * kp.element_size()
 
     def mk(**kw):
@@ -501,32 +569,38 @@ def check_paged_decode(label, hq, hkv, d, ps, lengths, pool, tol, seed,
         q, kp, vp, block_tables=table, length=length, mode="ref", **sc)),
         pool_bytes)
     aside = ""
-    if pool == "bf16":
-        kq = ref.gather_pages(kp, table).repeat_interleave(hq // hkv, 1)
-        vq = ref.gather_pages(vp, table).repeat_interleave(hq // hkv, 1)
-        mask = (torch.arange(kq.shape[2], device=DEV)[None, :]
-                < length[:, None])[:, None, None, :]
-        sdpa = device_ms(lambda: (lambda: F.scaled_dot_product_attention(
-            q[:, :, None], kq, vq, attn_mask=mask)), pool_bytes)
+    if pool == "float":
+        def make_sdpa():
+            k2, v2, _ = pools()
+            return _sdpa_decode(q, ref.gather_pages(k2, table),
+                                ref.gather_pages(v2, table), length)
+        sdpa = device_ms(make_sdpa, pool_bytes)
         aside = f" aside_sdpa_on_pregathered_cache_ms={sdpa:.5f}"
     bms, by = bound(nbytes, flops, dtype)
+    chunk = decode_chunk(d, kp.dtype)
     print(f"[kernel] flash_paged_decode {label} B={b} Hq={hq} Hkv={hkv} D={d} "
-          f"ps={ps} lengths={lengths} pool={pool} q=bf16 "
+          f"ps={ps} lengths={lengths} max_pages={max_pages} "
+          f"pool={str(kp.dtype)[6:]} q={str(dtype)[6:]} chunk={chunk} "
+          f"blocks={b * hkv * -(-max_pages * ps // chunk)} "
           f"max_abs_err={err:.3e} tol={tol:g}*(1+|plain|) "
           f"buffers1_equal_buffers2={same_buffers} "
           f"equal_flash_decode_on_gathered_cache={same_dense} "
-          f"nan_null_sink_unreachable={nan_safe} kernel_ms={kern:.5f} "
+          f"nan_null_sink_unreachable={nan_safe} "
+          f"slot_alone_equal_batch={alone} max_pages_doubled_equal={wide} "
+          f"kernel_ms={kern:.5f} "
           f"kernel_buffers1_ms={kern1:.5f} plain_ms={plain:.5f} "
           f"bound_ms={bms:.6f} ({by} at {HBM_BYTES_S / 1e12:g} TB/s) "
+          f"bound/kernel={bms / kern:.4f} "
           f"library_ms=null (no single PyTorch call gathers pages through a "
           f"block table and attends){aside}")
     if main:
         r.update(ms=kern, plain_ms=plain, library_ms=None, bound_ms=bms,
                  bound_by=by, shape=f"B={b} Hq={hq} Hkv={hkv} D={d} ps={ps} "
                                     f"lengths={lengths} pool={pool}")
+    return kern
 
 
-def kernel_phase(cfg, max_len):
+def kernel_phase(cfg, max_len, smoke_len):
     # bf16 GEMMs: both sides sum in f32 in another order and round once to
     # bf16, so they may differ by one bf16 ulp (< 2**-7 relative).
     bf16_tol, f32_tol = 1e-2, 1e-4
@@ -583,26 +657,66 @@ def kernel_phase(cfg, max_len):
                     2e-2, seed=19)
     check_attention("f32-ragged", 2, 8, 2, 33, 77, 64, 44, torch.float32,
                     2e-5, seed=14)
+    # The SMOKE configs' prefill: 6/2 heads of 16 in f32, the 16-token
+    # bucket against the dense smoke6 cache and the paged scratch.
+    check_attention("smoke-d16-prefill", 1, 6, 2, 16, smoke_len, 16, 0,
+                    torch.float32, 2e-5, seed=38)
+    check_attention("smoke-d16-prefill-paged", 1, 6, 2, 16,
+                    pages_for(smoke_len, 16) * 16, 16, 0, torch.float32, 2e-5,
+                    seed=39)
+    check_attention("smoke-d16-ragged", 2, 6, 2, 33, 77, 16, 44,
+                    torch.float32, 2e-5, seed=40)
     attention_rows_independent(hq, hkv, dh, LONG_LEN, long_cache, (256, 200),
                                seed=20)
     attention_rows_independent(32, 8, 128, LONG_LEN, long_cache, (256, 200),
                                seed=25)
+    # Decode: bf16 outputs round once from f32 math (2e-2 * (1 + |plain|)),
+    # f32 at 2e-5.  The long replay's decode step (8 slots at 449-487 keys
+    # against 31 pages of 16 or a 496-row cache) is the kernels line's
+    # shape; lengths on and around the chunk boundaries and up to 4096
+    # keys; Qwen3-8B's heads at long context; the SMOKE head dim 16 in f32.
+    long_lens = [LONG_PROMPT + 1 + (LONG_LEN - LONG_PROMPT - 2) * i // 7
+                 for i in range(8)]
+    c = decode_chunk(dh, torch.bfloat16)
+    edges = [1, c - 1, c, c + 1, 517, 4096]
+    long_ctx = [4096, 3584, 3072, 2560, 2048, 1536, 1024, 517]
     check_decode("serve", hq, hkv, max_len, dh, [28, 20, 13], torch.bfloat16,
-                 2e-2, seed=21, main=True)
+                 2e-2, seed=21)
+    check_decode("long-replay", hq, hkv, long_cache, dh, long_lens,
+                 torch.bfloat16, 2e-2, seed=26, main=True)
     check_decode("zero-length", hq, hkv, max_len, dh, [max_len, 0, 7],
                  torch.bfloat16, 2e-2, seed=22)
+    check_decode("past-sk", hq, hkv, 100, dh, [130, 0, 99], torch.bfloat16,
+                 2e-2, seed=27)
+    check_decode("chunk-edges", hq, hkv, 4096, dh, edges, torch.bfloat16,
+                 2e-2, seed=28)
     check_decode("d128", 32, 8, 100, 128, [100, 13, 0], torch.bfloat16, 2e-2,
                  seed=23)
+    check_decode("long-context-qwen3-8b-heads", 32, 8, 4096, 128, long_ctx,
+                 torch.bfloat16, 2e-2, seed=29)
     check_decode("f32", hq, hkv, 70, dh, [70, 33, 1], torch.float32, 2e-5,
                  seed=24)
-    # Paged decode: bf16 outputs round once from f32 math, as for
-    # flash_decode; int8 pools are dequantized in f32 on both sides.
-    long_ctx = [4096, 3584, 3072, 2560, 2048, 1536, 1024, 517]
-    for pool in ("bf16", "int8"):
+    c16 = decode_chunk(16, torch.float32)
+    check_decode("smoke-d16", 6, 2, smoke_len, 16, [28, 20, 13],
+                 torch.float32, 2e-5, seed=30)
+    check_decode("smoke-d16-chunk-edges", 6, 2, 600, 16,
+                 [1, c16 - 1, c16, c16 + 1, 517, 600], torch.float32, 2e-5,
+                 seed=35)
+    # Paged decode: int8 pools are dequantized in f32 on both sides.
+    for pool in ("float", "int8"):
         check_paged_decode("serve", hq, hkv, dh, 16, [28, 20, 13], pool,
-                           2e-2, seed=31, main=(pool == "bf16"))
+                           2e-2, seed=31)
+        check_paged_decode("long-replay", hq, hkv, dh, 16, long_lens, pool,
+                           2e-2, seed=33, main=(pool == "float"))
+        check_paged_decode("chunk-edges", hq, hkv, dh, 16, edges, pool, 2e-2,
+                           seed=34)
         check_paged_decode("long-context-qwen3-8b-heads", 32, 8, 128, 16,
                            long_ctx, pool, 2e-2, seed=32)
+        check_paged_decode("smoke-d16", 6, 2, 16, 16, [28, 20, 13], pool,
+                           2e-5, seed=36, dtype=torch.float32)
+        check_paged_decode("smoke-d16-chunk-edges", 6, 2, 16, 16,
+                           [1, c16 - 1, c16, c16 + 1, 517], pool, 2e-5,
+                           seed=37, dtype=torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -894,6 +1008,53 @@ def profile_replay(cfg, params, trace, scfg, label):
     if not attn:
         raise AssertionError(f"{label}: the profile saw no prefill "
                              f"attention kernel")
+    dec = [(name, n, us) for name, (n, us) in by_name.items()
+           if name.startswith("paged_decode")]
+    for name, n, us in dec:
+        print(f"[profile]   flash_paged_decode {name}: {n} launches, "
+              f"{us / 1e3:.3f} ms, {us / n:.2f} us each")
+    if not dec:
+        raise AssertionError(f"{label}: the profile saw no paged decode "
+                             f"kernel")
+
+
+def smoke_serve_phase(cfg, trace, max_len):
+    """The SMOKE config (f32, heads of 16) on the card: smoke6 replayed on
+    dense KV, on f32 pages of 16 and on int8 pages, each through
+    ``replay`` (launch counts per path, ``--verify``'s check); then the
+    serve launcher itself with its defaults (SMOKE, a synthetic trace, the
+    card), dense and paged, under ``--verify``.  Returns the replays'
+    launch counts."""
+    set_gemm_mode("kernel")
+    params = init_params(cfg, seed=1, device=DEV)
+    paged = dict(kv="paged", page_size=16)
+    total = {n: 0 for n in SERVE_KERNELS}
+    for label, scfg in (
+            ("SMOKE dense smoke6", ServeConfig(batch_slots=3,
+                                               max_len=max_len)),
+            ("SMOKE paged-f32 smoke6", ServeConfig(batch_slots=3,
+                                                   max_len=max_len, **paged)),
+            ("SMOKE paged-int8 smoke6", ServeConfig(
+                batch_slots=3, max_len=max_len, kv_dtype="int8", **paged))):
+        counts, _ = replay(cfg, params, trace, scfg, label)
+        for n in total:
+            total[n] += counts[n]
+    for argv in (["--verify"],
+                 ["--kv", "paged", "--page_size", "16", "--verify"]):
+        K.reset_launch_counts()
+        S.main(argv)                 # raises unless it prints "verify OK"
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        print(f"[serve] launcher {' '.join(argv)}: launches "
+              f"{json.dumps(counts)}")
+        decode = "flash_paged_decode" if "paged" in argv else "flash_decode"
+        missing = [n for n in ("gama_gemm", "flash_attention", decode)
+                   if counts[n] == 0]
+        if missing:
+            raise AssertionError(f"launcher {argv}: kernels never launched: "
+                                 f"{missing}")
+    del params
+    return total
 
 
 def serve_phase(cfg, max_len):
@@ -1386,9 +1547,15 @@ def main() -> int:
     cfg = C.get("smollm_360m")
     trace = S.load_trace(S.resolve_trace_path("smoke6"), cfg.vocab_size)
     max_len = max(len(t["prompt"]) + t["max_new"] for t in trace) + 8
-    kernel_phase(cfg, max_len)
+    smoke_cfg = C.get_smoke("smollm_360m")
+    smoke_trace = S.load_trace(S.resolve_trace_path("smoke6"),
+                               smoke_cfg.vocab_size)
+    smoke_len = max(len(t["prompt"]) + t["max_new"] for t in smoke_trace) + 8
+    kernel_phase(cfg, max_len, smoke_len)
     wkv_phase()
-    counts = serve_phase(cfg, max_len)
+    counts = smoke_serve_phase(smoke_cfg, smoke_trace, smoke_len)
+    for name, n in serve_phase(cfg, max_len).items():
+        counts[name] += n
     counts.update(train_phase())
     train_kernel_vs_plain()
     trainer_phase()

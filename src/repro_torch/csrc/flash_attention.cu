@@ -26,7 +26,8 @@
 //     block's last visible key are neither loaded nor computed.  Blocks of the
 //     latest (heaviest) query tile are launched first.
 //   * f32: flash_attention_simt_kernel, SIMT FMA (the tensor cores take f32
-//     only as TF32, which would break the f32 check).
+//     only as TF32, which would break the f32 check), at head dims 16 (the
+//     SMOKE configs), 64 and 128; bf16 takes 64 and 128.
 //
 // A row's bits do not depend on how the prompt is split.  The KV tiles start
 // at multiples of BK from key 0 whatever the query tile, Sq, q_offset or B,
@@ -65,12 +66,11 @@ namespace {
 
 constexpr int WARPS = 4, ROWS_PER_WARP = 4, BQ = WARPS * ROWS_PER_WARP;
 
-template <int DPL>
+template <int D>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_attention_simt_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                             float* __restrict__ o, int hq, int hkv, int sq, int sk, float scale, int causal,
                             int q_offset, int kv_len) {
-  constexpr int D = DPL * 32;
   extern __shared__ float smem[];
   float* Qs = smem;                     // BQ x D
   float* Ks = Qs + BQ * D;              // KV_TILE x (D + 1)
@@ -87,7 +87,7 @@ flash_attention_simt_kernel(const float* __restrict__ q, const float* __restrict
   const float* vp = v + (size_t)(b * hkv + hk) * sk * D;
   load_tile<BQ, D, WARPS * 32>(Qs, D, qp, min(BQ, sq - q0));
 
-  RowState<DPL> st[ROWS_PER_WARP];
+  RowState<D> st[ROWS_PER_WARP];
 #pragma unroll
   for (int r = 0; r < ROWS_PER_WARP; ++r) st[r].init();
 
@@ -116,13 +116,12 @@ flash_attention_simt_kernel(const float* __restrict__ q, const float* __restrict
   }
 }
 
-template <int DPL>
+template <int D>
 void launch_simt(const void* q, const void* k, const void* v, void* o, int b, int hq, int hkv, int sq, int sk,
                  float scale, int causal, int q_offset, int kv_len, cudaStream_t s) {
-  constexpr int D = DPL * 32;
   const size_t smem = sizeof(float) * (BQ * D + KV_TILE * (D + 1) + KV_TILE * D);
   const dim3 grid((sq + BQ - 1) / BQ, b * hq);
-  flash_attention_simt_kernel<DPL><<<grid, WARPS * 32, smem, s>>>(
+  flash_attention_simt_kernel<D><<<grid, WARPS * 32, smem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), hq, hkv, sq, sk, scale, causal, q_offset, kv_len);
 }
@@ -407,7 +406,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int b, int h
 // and o 16-byte aligned for bf16.  The plan (route, rows, heads, stages,
 // kv_tile) comes from kernels/flash_attention.py:plan and is checked here:
 // f32 takes only the SIMT plan (route 0, 16 rows, 1 head, 1 stage, 32-key
-// tiles); bf16 only the tensor-core route (route 1, 64-key tiles) with 16,
+// tiles) at D = 16, 64 or 128; bf16 only the tensor-core route (route 1, 64-key tiles) with 16,
 // 32 or 64 rows, 1 head or the whole GQA group, at most 8 warps and 2-4
 // stages that fit in shared memory.  Anything else: cudaErrorInvalidValue,
 // and nothing is launched.
@@ -421,8 +420,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   if (dtype == 0) {
     if (route != 0 || rows != BQ || heads != 1 || stages != 1 || kv_tile != KV_TILE) return (int)cudaErrorInvalidValue;
     switch (d) {
-      case 64: launch_simt<2>(q, k, v, o, b, hq, hkv, sq, sk, scale, causal, q_offset, kv_len, s); break;
-      case 128: launch_simt<4>(q, k, v, o, b, hq, hkv, sq, sk, scale, causal, q_offset, kv_len, s); break;
+      case 16: launch_simt<16>(q, k, v, o, b, hq, hkv, sq, sk, scale, causal, q_offset, kv_len, s); break;
+      case 64: launch_simt<64>(q, k, v, o, b, hq, hkv, sq, sk, scale, causal, q_offset, kv_len, s); break;
+      case 128: launch_simt<128>(q, k, v, o, b, hq, hkv, sq, sk, scale, causal, q_offset, kv_len, s); break;
       default: return (int)cudaErrorInvalidValue;
     }
     return (int)cudaGetLastError();

@@ -8,8 +8,9 @@ KV head h // group), causal masking at an absolute ``q_offset``, a
 zero-denominator guard.  ``q_offset`` and ``kv_len`` are runtime arguments.
 
 bf16 runs on the tensor cores (``mma.sync`` for Q.K^T and P.V, K/V tiles
-of :data:`KV_TILE` keys in a ``cp.async`` ring); f32 runs on a SIMT kernel
-(the tensor cores take f32 only as TF32).  Prefill pads a prompt to a
+of :data:`KV_TILE` keys in a ``cp.async`` ring) at head dims 64 and 128;
+f32 runs on a SIMT kernel (the tensor cores take f32 only as TF32) at 16,
+64 and 128 (:data:`HEAD_DIMS`).  Prefill pads a prompt to a
 power-of-two bucket from 16 tokens up to ``max_len`` (488 in the
 8 x 448-token replay, against a 496-row scratch cache), so Sq runs from 16
 to a few hundred: a few MFLOP per block, bound by latency rather than by
@@ -41,7 +42,9 @@ from repro_torch.kernels.ref import ref_attention as plain
 
 launches = 0
 
-HEAD_DIMS = (64, 128)   # SmolLM (64) and Qwen3 (128)
+# Head dims each route takes: SmolLM (64) and Qwen3 (128) on both, the SMOKE
+# configs' 16 on the f32 SIMT kernel only (they compute in f32).
+HEAD_DIMS = {torch.float32: (16, 64, 128), torch.bfloat16: (64, 128)}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ROUTES = {"simt": 0, "tc": 1}
 
@@ -61,17 +64,21 @@ class Plan(NamedTuple):
     kv_tile: int   # keys per KV tile: kv_tile(D, dtype)
 
 
+def check_head_dim(name: str, d: int, dtype: torch.dtype) -> None:
+    """Raise unless the attention kernels take head dim ``d`` in
+    ``dtype`` (:data:`HEAD_DIMS`)."""
+    if dtype not in HEAD_DIMS:
+        raise ValueError(f"{name} takes f32 or bf16, not {dtype}")
+    if d not in HEAD_DIMS[dtype]:
+        raise ValueError(f"{name} takes head dims {HEAD_DIMS[dtype]} in "
+                         f"{dtype}, got {d}")
+
+
 def kv_tile(d: int, dtype: torch.dtype) -> int:
     """Keys per KV tile: a function of (D, dtype) only, so the tiles a row
     passes through start at the same keys however the prompt is split."""
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention takes head dims {HEAD_DIMS}, "
-                         f"got {d}")
-    if dtype == torch.float32:
-        return SIMT_KV_TILE
-    if dtype == torch.bfloat16:
-        return KV_TILE
-    raise ValueError(f"flash_attention takes f32 or bf16, not {dtype}")
+    check_head_dim("flash_attention", d, dtype)
+    return SIMT_KV_TILE if dtype == torch.float32 else KV_TILE
 
 
 def warps(p: Plan) -> int:

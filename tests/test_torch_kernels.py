@@ -25,6 +25,7 @@ except ImportError:
     jnp = jops = None
 from repro_torch import configs as tconfigs
 from repro_torch.configs.gama_paper import ARRAY_GEMMS
+from repro_torch.kernels import decode_attention as tdec
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import gemm as tgemm
 from repro_torch.kernels import ops as tops
@@ -254,19 +255,35 @@ def test_attention_kv_len_matches_jax_on_unmasked_rows():
     assert torch.equal(same, got)
 
 
+@pytest.mark.parametrize("sq,sk,q_offset", [(16, 36, 0), (33, 77, 44)])
+def test_attention_smoke_head_dim_matches_jax(sq, sk, q_offset):
+    """The SMOKE configs' prefill: 6/2 heads of 16 in f32."""
+    (jq, tq), (jk, tk), (jv, tv) = _attn_inputs(_rng(sq + 16), 2, 6, 2, sq,
+                                                sk, 16)
+    want = jops.attention(jq, jk, jv, causal=True, q_offset=q_offset,
+                          bq=16, bk=32, mode="kernel")
+    got = tops.attention(tq, tk, tv, causal=True, q_offset=q_offset)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=2e-5, atol=2e-5)
+
+
 def test_attention_fully_masked_row_is_zero():
     (_, tq), (_, tk), (_, tv) = _attn_inputs(_rng(6), 1, 2, 1, 4, 8, 32)
     out = tops.attention(tq, tk, tv, causal=False, kv_len=0)
     assert torch.equal(out, torch.zeros_like(out))
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 16])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_attention_plan_kv_tile_depends_on_head_dim_and_dtype_only(d, dtype):
     """The KV tiles a row passes through start at multiples of the tile
     width from key 0, so the width is fixed by (D, dtype): every B, Sq and
     Sk of the serve path gives the same one (q_offset and kv_len are not
-    even inputs of the plan), and every plan is one the kernel takes."""
+    even inputs of the plan), and every plan is one the kernel takes.
+    (The bf16 route takes no head dim 16: its tile width raises.)"""
+    if d not in tfa.HEAD_DIMS[dtype]:
+        with pytest.raises(ValueError, match="head dims"):
+            tfa.kv_tile(d, dtype)
+        return
     widths = set()
     for b in (1, 2, 8):
         for hq, hkv in ((15, 5), (32, 8), (8, 8)):
@@ -300,9 +317,28 @@ def test_attention_plan_routes_by_dtype():
 
 @pytest.mark.parametrize("d", [16, 32, 96, 256])
 def test_attention_plan_raises_for_other_head_dims(d):
+    """16 is the SMOKE configs' head dim: the f32 SIMT route takes it
+    (test_attention_plan_f32_takes_the_smoke_head_dim), bf16 does not."""
     for dtype in (torch.bfloat16, torch.float32):
+        if d in tfa.HEAD_DIMS[dtype]:
+            continue
         with pytest.raises(ValueError, match="head dims"):
             tfa.plan(1, 4, 2, 16, 32, d, dtype)
+    with pytest.raises(ValueError, match="head dims"):
+        tfa.plan(1, 4, 2, 16, 32, d, torch.bfloat16)
+
+
+@pytest.mark.parametrize("sq,sk", [(16, 36), (33, 77), (1, 48)])
+def test_attention_plan_f32_takes_the_smoke_head_dim(sq, sk):
+    """The SMOKE configs (6/2 heads of 16, f32) prefill on the SIMT kernel's
+    one plan; the same shapes in bf16 raise."""
+    assert tfa.HEAD_DIMS[torch.float32] == (16, 64, 128)
+    p = tfa.plan(1, 6, 2, sq, sk, 16, torch.float32)
+    assert p == tfa.Plan("simt", 16, 1, 1, tfa.SIMT_KV_TILE)
+    tfa.check_plan(p, 6, 2, 16, torch.float32)
+    assert list(tfa.candidates(6, 2, 16, torch.float32)) == [p]
+    with pytest.raises(ValueError, match="head dims"):
+        tfa.plan(1, 6, 2, sq, sk, 16, torch.bfloat16)
 
 
 def test_attention_plan_raises_on_what_the_kernel_does_not_take():
@@ -329,17 +365,63 @@ def test_attention_plan_raises_on_what_the_kernel_does_not_take():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("hq,hkv,sk", [(8, 2, 256), (15, 5, 100)])
-def test_decode_matches_jax_flash_decode(hq, hkv, sk):
-    rng = _rng(sk)
-    jq, tq = _both(_normal(rng, (3, hq, 64)))
-    jk, tk = _both(_normal(rng, (3, hkv, sk, 64)))
-    jv, tv = _both(_normal(rng, (3, hkv, sk, 64)))
+@pytest.mark.parametrize("hq,hkv,sk,d", [
+    pytest.param(8, 2, 256, 64, id="8-2-256"),
+    pytest.param(15, 5, 100, 64, id="15-5-100"),
+    (8, 2, 256, 16), (15, 5, 100, 16)])
+def test_decode_matches_jax_flash_decode(hq, hkv, sk, d):
+    rng = _rng(sk + (d != 64) * d)
+    jq, tq = _both(_normal(rng, (3, hq, d)))
+    jk, tk = _both(_normal(rng, (3, hkv, sk, d)))
+    jv, tv = _both(_normal(rng, (3, hkv, sk, d)))
     lengths = np.asarray([sk, sk // 2, 7], np.int32)
     want = jops.decode(jq, jk, jv, length=jnp.asarray(lengths), bk=128,
                        mode="kernel")
     got = tops.decode(tq, tk, tv, length=torch.from_numpy(lengths))
     np.testing.assert_allclose(_f32(got), _f32(want), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16,
+                                      torch.int8])
+def test_decode_chunk_depends_on_head_dim_and_kv_dtype_only(d, kv_dtype):
+    """A slot's keys split into chunks counted from key 0 whose size is
+    fixed by (D, KV dtype) alone -- the function takes nothing else, so no
+    B, length, max_pages or Sk can move a chunk boundary -- and is a
+    multiple of the kernels' 32-key tile."""
+    assert set(inspect.signature(tdec.decode_chunk).parameters) == {
+        "d", "kv_dtype"}
+    c = tdec.decode_chunk(d, kv_dtype)
+    assert c % tfa.SIMT_KV_TILE == 0 and c >= tfa.SIMT_KV_TILE
+    assert tdec.decode_chunk(d, kv_dtype) == c
+
+
+@pytest.mark.parametrize("d", [32, 96, 256])
+def test_decode_chunk_raises_for_other_head_dims(d):
+    with pytest.raises(ValueError, match="head dims"):
+        tdec.decode_chunk(d, torch.bfloat16)
+    with pytest.raises(ValueError, match="KV dtypes"):
+        tdec.decode_chunk(64, torch.float16)
+
+
+def test_decode_wrappers_take_head_dim_16_in_f32_only():
+    """The SMOKE configs decode in f32 at head dim 16 (f32 and int8 pools);
+    the plain versions run it on the CPU, and the CUDA path's checks take
+    it in f32 and refuse it in bf16 with "head dims"."""
+    assert tfa.HEAD_DIMS[torch.float32] == (16, 64, 128)
+    tfa.check_head_dim("flash_decode", 16, torch.float32)
+    with pytest.raises(ValueError, match="head dims"):
+        tfa.check_head_dim("flash_paged_decode", 16, torch.bfloat16)
+    for dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="head dims"):
+            tfa.check_head_dim("flash_decode", 96, dtype)
+    rng = _rng(16)
+    q = torch.from_numpy(_normal(rng, (2, 6, 16)))
+    k = torch.from_numpy(_normal(rng, (2, 2, 40, 16)))
+    v = torch.from_numpy(_normal(rng, (2, 2, 40, 16)))
+    length = torch.tensor([40, 3], dtype=torch.int32)
+    out = flash_decode(q, k, v, length=length)
+    assert torch.equal(out, tref.ref_decode_attention(q, k, v, length=length))
 
 
 def test_decode_length_zero_is_zero_and_over_long_is_clamped():
@@ -554,7 +636,8 @@ def test_cuda_flash_attention_matches_plain(dtype, tol):
     """The serve path's prefill shapes (SmolLM-360M's 15/5 heads at the
     16-token bucket against 36- and 48-row caches, the 488-token bucket
     against the 496-row scratch cache, 512 x 512), a ragged batch at a
-    q_offset, and Qwen3-8B's 32/8 heads of 128.  bf16 within 2e-2 * (1 +
+    q_offset, Qwen3-8B's 32/8 heads of 128, and in f32 the SMOKE configs'
+    6/2 heads of 16.  bf16 within 2e-2 * (1 +
     |plain|): P is rounded to bf16 for P.V and the output once from f32;
     f32 at the JAX suite's 2e-5."""
     _require_cuda()
@@ -566,7 +649,11 @@ def test_cuda_flash_attention_matches_plain(dtype, tol):
                                           (2, 8, 2, 33, 77, 64, 44),
                                           (1, 32, 8, 16, 40, 128, 0),
                                           (1, 32, 8, 16, 48, 128, 0),
-                                          (1, 32, 8, 512, 512, 128, 0)]:
+                                          (1, 32, 8, 512, 512, 128, 0),
+                                          (1, 6, 2, 16, 36, 16, 0),
+                                          (2, 6, 2, 33, 77, 16, 44)]:
+        if d not in tfa.HEAD_DIMS[dtype]:
+            continue           # the SMOKE head dim, 16: f32 only
         q = torch.randn((b, hq, sq, d), generator=g, device="cuda").to(dtype)
         k = torch.randn((b, hkv, sk, d), generator=g, device="cuda").to(dtype)
         v = torch.randn((b, hkv, sk, d), generator=g, device="cuda").to(dtype)
@@ -705,13 +792,23 @@ def test_cuda_flash_attention_refuses_a_plan_it_does_not_take():
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
                                        (torch.float32, 2e-5)])
 def test_cuda_flash_decode_matches_plain(dtype, tol):
+    """The smoke6 shape, Qwen3-8B's heads, slots of 517 and 4096 keys (many
+    chunks, merged) beside a zero-length and a one-key slot, and in f32
+    the SMOKE head dim 16."""
     _require_cuda()
     g = torch.Generator(device="cuda").manual_seed(2)
-    for (hq, hkv, sk, d) in [(15, 5, 36, 64), (32, 8, 100, 128)]:
-        q = torch.randn((3, hq, d), generator=g, device="cuda").to(dtype)
-        k = torch.randn((3, hkv, sk, d), generator=g, device="cuda").to(dtype)
-        v = torch.randn((3, hkv, sk, d), generator=g, device="cuda").to(dtype)
-        length = torch.tensor([sk, 0, 7], dtype=torch.int32, device="cuda")
+    for (hq, hkv, sk, d, lengths) in [(15, 5, 36, 64, [36, 0, 7]),
+                                      (32, 8, 100, 128, [100, 0, 7]),
+                                      (15, 5, 4100, 64, [4096, 517, 0, 1]),
+                                      (32, 8, 4096, 128, [517, 4096, 9]),
+                                      (6, 2, 600, 16, [600, 0, 517, 64])]:
+        if d not in tfa.HEAD_DIMS[dtype]:
+            continue
+        b = len(lengths)
+        q = torch.randn((b, hq, d), generator=g, device="cuda").to(dtype)
+        k = torch.randn((b, hkv, sk, d), generator=g, device="cuda").to(dtype)
+        v = torch.randn((b, hkv, sk, d), generator=g, device="cuda").to(dtype)
+        length = torch.tensor(lengths, dtype=torch.int32, device="cuda")
         got = flash_decode(q, k, v, length=length)
         want = tops.decode(q, k, v, length=length, mode="ref")
         torch.cuda.synchronize()
@@ -745,14 +842,18 @@ def _cuda_paged_case(g, dtype, pool, hq, hkv, d, ps, lengths):
 def test_cuda_flash_paged_decode_matches_plain(dtype, tol, pool):
     """Both buffering variants against the plain version, bit-identical to
     each other; page sizes that straddle the kernel's 32-key tiles; a
-    zero-length slot; a NaN null sink that changes nothing; and a float
-    pool bit-identical to flash_decode on the gathered cache."""
+    zero-length slot; slots of 517 and 4096 keys (many chunks, merged);
+    a NaN null sink that changes nothing; a float pool bit-identical to
+    flash_decode on the gathered cache; and in f32 the SMOKE head dim 16
+    (f32 and int8 pools)."""
     _require_cuda()
     g = torch.Generator(device="cuda").manual_seed(3)
     for (hq, hkv, d, ps) in [(15, 5, 64, 16), (32, 8, 128, 7),
-                             (8, 8, 64, 5)]:
+                             (8, 8, 64, 5), (6, 2, 16, 16)]:
+        if d not in tfa.HEAD_DIMS[dtype]:
+            continue
         q, kp, vp, bt, ln, sc = _cuda_paged_case(
-            g, dtype, pool, hq, hkv, d, ps, [0, 1, 33, 100, 64])
+            g, dtype, pool, hq, hkv, d, ps, [0, 1, 33, 100, 64, 517, 4096])
         one, two = (flash_paged_decode(q, kp, vp, bt, length=ln, buffers=n,
                                        **sc) for n in (1, 2))
         want = tops.decode_paged(q, kp, vp, block_tables=bt, length=ln,
@@ -773,6 +874,134 @@ def test_cuda_flash_paged_decode_matches_plain(dtype, tol, pool):
                                  tref.gather_pages(vp, bt).contiguous(),
                                  length=ln)
             assert torch.equal(dense, two)
+
+
+def _chunk_lengths(c):
+    """Lengths on and around the chunk boundaries, and two long slots."""
+    return [1, c - 1, c, c + 1, 2 * c - 1, 2 * c, 2 * c + 1, 517, 4096]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,pool,d", [
+    (torch.bfloat16, "float", 64), (torch.bfloat16, "int8", 128),
+    (torch.float32, "float", 16), (torch.float32, "int8", 16),
+    (torch.float32, "float", 64)])
+def test_cuda_decode_lengths_across_chunk_boundaries(dtype, pool, d):
+    """Slots that end just before, on and just after a chunk boundary, and
+    long ones, against the plain version; paged == dense on the gathered
+    cache for float pools."""
+    _require_cuda()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    kvd = torch.int8 if pool == "int8" else dtype
+    lengths = _chunk_lengths(tdec.decode_chunk(d, kvd))
+    hq, hkv = (15, 5) if d != 128 else (32, 8)
+    q, kp, vp, bt, ln, sc = _cuda_paged_case(g, dtype, pool, hq, hkv, d, 16,
+                                             lengths)
+    got = flash_paged_decode(q, kp, vp, bt, length=ln, **sc)
+    want = tops.decode_paged(q, kp, vp, block_tables=bt, length=ln,
+                             mode="ref", **sc)
+    # A length past max_pages * ps is clamped to it, as the plain version
+    # reads it.
+    over = ln.clone()
+    over[-1] = 10 ** 6
+    got_over = flash_paged_decode(q, kp, vp, bt, length=over, **sc)
+    want_over = tops.decode_paged(q, kp, vp, block_tables=bt, length=over,
+                                  mode="ref", **sc)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(got_over.float(), want_over.float(), rtol=tol,
+                               atol=tol)
+    assert torch.equal(got_over[:-1], got[:-1])
+    if pool == "float":
+        kc = tref.gather_pages(kp, bt).contiguous()
+        vc = tref.gather_pages(vp, bt).contiguous()
+        dense = flash_decode(q, kc, vc, length=ln)
+        torch.cuda.synchronize()
+        assert torch.equal(dense, got)
+        torch.testing.assert_close(
+            dense.float(), tops.decode(q, kc, vc, length=ln,
+                                       mode="ref").float(),
+            rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,pool,d", [
+    (torch.bfloat16, "float", 64), (torch.bfloat16, "int8", 64),
+    (torch.float32, "float", 16), (torch.float32, "int8", 16)])
+def test_cuda_decode_slot_bits_independent_of_batch_and_cache_size(
+        dtype, pool, d):
+    """A slot's output is bit for bit the same alone (B=1), in a batch of 8,
+    with max_pages doubled (the paged kernel) and with Sk doubled (the dense
+    one): the chunks depend on key positions only."""
+    _require_cuda()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    lengths = [449, 487, 1, 64, 65, 517, 4096, 130]
+    q, kp, vp, bt, ln, sc = _cuda_paged_case(g, dtype, pool, 15, 5, d, 16,
+                                             lengths)
+    batch = flash_paged_decode(q, kp, vp, bt, length=ln, **sc)
+    wide = torch.cat([bt, torch.full_like(bt, kp.shape[0] - 1)], dim=1)
+    doubled = flash_paged_decode(q, kp, vp, wide, length=ln, **sc)
+    assert torch.equal(doubled, batch)
+    for i in range(len(lengths)):
+        alone = flash_paged_decode(q[i:i + 1], kp, vp, bt[i:i + 1],
+                                   length=ln[i:i + 1], **sc)
+        assert torch.equal(alone, batch[i:i + 1]), (pool, i)
+    if pool == "float":
+        kc = tref.gather_pages(kp, bt).contiguous()
+        vc = tref.gather_pages(vp, bt).contiguous()
+        dense = flash_decode(q, kc, vc, length=ln)
+        assert torch.equal(dense, batch)
+        long_k = torch.cat([kc, torch.zeros_like(kc)], dim=2)
+        long_v = torch.cat([vc, torch.zeros_like(vc)], dim=2)
+        assert torch.equal(flash_decode(q, long_k, long_v, length=ln), dense)
+        for i in (0, 6):
+            alone = flash_decode(q[i:i + 1], kc[i:i + 1], vc[i:i + 1],
+                                 length=ln[i:i + 1])
+            assert torch.equal(alone, dense[i:i + 1])
+
+
+@pytest.mark.cuda
+def test_cuda_flash_decode_misaligned_cache_is_copied():
+    """The dense kernel copies 16-byte chunks of K and V: a cache that
+    starts 2 bytes off that boundary is copied first, with the same
+    output."""
+    _require_cuda()
+    g = torch.Generator(device="cuda").manual_seed(8)
+    q = torch.randn((2, 15, 64), generator=g, device="cuda").bfloat16()
+    flat = torch.randn(2 * 5 * 100 * 64 + 1, generator=g,
+                       device="cuda").bfloat16()
+    k = flat[1:].view(2, 5, 100, 64)
+    assert k.data_ptr() % 16 and k.is_contiguous()
+    length = torch.tensor([100, 37], dtype=torch.int32, device="cuda")
+    got = flash_decode(q, k, k, length=length)
+    want = flash_decode(q, k.clone(), k.clone(), length=length)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_refuses_another_chunk_and_bf16_head_dim_16():
+    """The entry points check the chunk size against their own table, and
+    bf16 q takes no head dim 16."""
+    _require_cuda()
+    g = torch.Generator(device="cuda").manual_seed(6)
+    q, kp, vp, bt, ln, _ = _cuda_paged_case(g, torch.float32, "float", 4, 2,
+                                            16, 16, [100, 3])
+    out = torch.empty_like(q)
+    chunk = tdec.decode_chunk(16, torch.float32)
+    for bad in (chunk // 2, chunk * 2):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            tdec.launch_paged(tdec._paged_lib(), bad, q, kp, vp, bt, ln, out,
+                              0.25, None, None, 2)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            tdec.launch(tdec._lib(), bad, q, kp, vp, ln, out, 0.25)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_paged_decode(q.bfloat16(), kp.bfloat16(), vp.bfloat16(), bt,
+                           length=ln)
+    kc = tref.gather_pages(kp, bt).contiguous().bfloat16()
+    with pytest.raises(ValueError, match="head dims"):
+        flash_decode(q.bfloat16(), kc, kc, length=ln)
 
 
 def _cuda_wkv_case(g, b, h, t, n, dtype):

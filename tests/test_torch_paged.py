@@ -149,13 +149,17 @@ def _torch_paged(case, **kw):
 
 
 @pytest.mark.parametrize("pool", ["f32", "int8"])
-@pytest.mark.parametrize("ps,hq,hkv", [(4, 6, 2), (8, 8, 2), (16, 4, 4)],
-                         ids=["ps4-group3", "ps8-group4", "ps16-group1"])
-def test_plain_paged_decode_matches_jax_kernel(ps, hq, hkv, pool):
+@pytest.mark.parametrize("ps,hq,hkv,d", [(4, 6, 2, 64), (8, 8, 2, 64),
+                                         (16, 4, 4, 64), (4, 6, 2, 16),
+                                         (16, 4, 4, 16)],
+                         ids=["ps4-group3", "ps8-group4", "ps16-group1",
+                              "ps4-group3-d16", "ps16-group1-d16"])
+def test_plain_paged_decode_matches_jax_kernel(ps, hq, hkv, d, pool):
     """Lengths 0, one row, a partial last page and whole pages; the JAX
-    kernel's single-buffer and double-buffer variants both."""
-    case = _paged_case(ps * 7 + hq, hq, hkv, ps,
-                       [0, 1, 3 * ps + 1, 2 * ps], pool == "int8")
+    kernel's single-buffer and double-buffer variants both; the FULL head
+    dim 64 and the SMOKE configs' 16."""
+    case = _paged_case(ps * 7 + hq + (d != 64) * d, hq, hkv, ps,
+                       [0, 1, 3 * ps + 1, 2 * ps], pool == "int8", d=d)
     got = _torch_paged(case).numpy()
     for buffers in (1, 2):
         np.testing.assert_allclose(got, _jax_paged(case, buffers),
