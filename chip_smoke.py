@@ -94,6 +94,7 @@ from repro_torch.kernels.flash_attention import plan as attn_plan  # noqa: E402
 from repro_torch.kernels.gemm import gama_gemm  # noqa: E402
 from repro_torch.kernels.gemm import blocks as gemm_blocks  # noqa: E402
 from repro_torch.kernels.gemm import plan as gemm_plan  # noqa: E402
+from repro_torch.kernels import wkv as wkv_mod  # noqa: E402
 from repro_torch.kernels.wkv import wkv6, wkv6_bwd  # noqa: E402
 from repro_torch.launch import serve as S  # noqa: E402
 from repro_torch.launch import train as TL  # noqa: E402
@@ -1153,14 +1154,17 @@ def check_wkv(label, b, h, t, n, seed, main=False, dtype=torch.bfloat16):
     ``dtype``.  Tolerances, of the largest value: with bf16 r/k/v, the bf16
     outputs (y, gr, gk, gv) 1e-2 (one bf16 ulp is 2**-8 of a value) and the
     f32 ones (gw, gu) 1e-3 (f32 sums over up to 4096 steps in another
-    order); with f32 r/k/v (only T=64 here) every output 1e-4.  The
-    backward must also repeat itself bit for bit (no atomics)."""
+    order); with f32 r/k/v (only T=64 here) every output 1e-4.  Both
+    kernels must also repeat themselves bit for bit (no atomics).  Each
+    line names the chunk length (``wkv_chunk``), the blocks of each
+    kernel one call launches and its scratch bytes."""
     gen = _gen(seed)
     r, k, v, w, u, gy = _wkv_inputs(gen, b, h, t, n, dtype)
     f32 = dtype == torch.float32
     tol_act, tol_f32 = (1e-4, 1e-4) if f32 else (1e-2, 1e-3)
     tol_text = "1e-4" if f32 else "1e-2 (bf16) / 1e-3 (f32)"
     y = wkv6(r, k, v, w, u)
+    y_again = wkv6(r, k, v, w, u)
     grads = wkv6_bwd(r, k, v, w, u, gy)
     again = wkv6_bwd(r, k, v, w, u, gy)
     want_y = ref.ref_wkv(r, k, v, w, u)
@@ -1174,7 +1178,9 @@ def check_wkv(label, b, h, t, n, seed, main=False, dtype=torch.bfloat16):
                                  else tol_f32)
     if not all(torch.equal(a, b_) for a, b_ in zip(grads, again)):
         raise AssertionError(f"wkv6_bwd {label}: two runs differ")
-    del want, again
+    if not torch.equal(y, y_again):
+        raise AssertionError(f"wkv6 {label}: two runs differ")
+    del want, again, y_again
     elems = b * h * t * n
     # Bytes: every input read once, every output written once.  Operations:
     # the least the recurrence needs per (b, h, t): 4 N^2 forward (r.S and
@@ -1200,12 +1206,15 @@ def check_wkv(label, b, h, t, n, seed, main=False, dtype=torch.bfloat16):
                           reps=plain_reps)
     bwd_plain = device_ms(mk(ref.ref_wkv_bwd), bwd_bytes, reps=plain_reps)
     out = {}
+    chunk = wkv_mod.wkv_chunk(t, n, dtype)
     for name, ms, plain, nbytes, flops, err in (
             ("wkv6", fwd_ms, fwd_plain, fwd_bytes, 4.0 * n * n * steps,
              errs["y"]),
             ("wkv6_bwd", bwd_ms, bwd_plain, bwd_bytes, 12.0 * n * n * steps,
              max(v_ for k_, v_ in errs.items() if k_ != "y"))):
         bms, by = bound(nbytes, flops, torch.float32)
+        bwd = name == "wkv6_bwd"
+        grid = wkv_mod.blocks(b, h, t, n, chunk, bwd)
         res = RESULTS[name]
         res["max_abs_err"] = max(res["max_abs_err"], err)
         print(f"[kernel] {name} {label} B={b} H={h} T={t} N={n} "
@@ -1215,14 +1224,17 @@ def check_wkv(label, b, h, t, n, seed, main=False, dtype=torch.bfloat16):
               f"bound_ms={bms:.6f} ({by}: {nbytes / 1e6:.2f} MB at "
               f"{HBM_BYTES_S / 1e12:g} TB/s, {flops / 1e9:.3f} GFLOP f32 at "
               f"{PEAK_OPS_S[torch.float32] / 1e12:g} TFLOP/s) library_ms=null "
-              f"(none: no single PyTorch call computes the WKV6 recurrence)")
+              f"(none: no single PyTorch call computes the WKV6 recurrence) "
+              f"chunk={chunk} chunks={wkv_mod.n_chunks(t, chunk)} "
+              f"blocks={sum(grid.values())} {json.dumps(grid)} scratch_bytes="
+              f"{4 * wkv_mod.scratch_floats(b, h, t, n, chunk, bwd)}")
         out[name] = ms
         if main:
             res.update(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bms,
                        bound_by=by, shape=f"B={b} H={h} T={t} N={n}")
     print(f"[kernel] wkv6_bwd {label} per-output max_abs_err "
           f"{json.dumps({k_: float(f'{v_:.3e}') for k_, v_ in errs.items()})}"
-          f" repeatable=True")
+          f" repeatable=True (wkv6 and wkv6_bwd)")
     return out
 
 

@@ -202,3 +202,118 @@ def ref_wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       (("r", r.dtype), ("k", k.dtype), ("v", v.dtype),
                        ("w", w.dtype)))
     return gr, gk, gv, gw, gu.to(u.dtype)
+
+
+# ---------------------------------------------------------------------------
+# wkv6 in chunks of time: the phases of csrc/wkv.cu, in plain torch.  Only
+# the tests run these; they hold the kernels' algorithm against ref_wkv,
+# ref_wkv_bwd and the JAX package on the CPU.
+# ---------------------------------------------------------------------------
+
+
+def _wkv_chunked_inputs(chunk: int, *xs: torch.Tensor):
+    """Each (B, H, T, N) input in f32, T padded to a multiple of ``chunk``
+    and split as (B, H, C, chunk, N).  The last of ``xs`` is w, padded
+    with 1 (padded steps keep the state as it is); the others with 0."""
+    b, h, t, n = xs[0].shape
+    c = -(-t // chunk)
+    out = []
+    for i, x in enumerate(xs):
+        x = x.float()
+        pad = c * chunk - t
+        if pad:
+            fill = 1.0 if i == len(xs) - 1 else 0.0
+            x = torch.cat([x, x.new_full((b, h, pad, n), fill)], dim=2)
+        out.append(x.reshape(b, h, c, chunk, n))
+    return out
+
+
+def _wkv_chunk_states(a: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                      reverse: bool):
+    """Phase A: every chunk's state from zero, X <- diag(w_t) X + a_t x_t^T
+    over its steps (in reverse order for the gradient's recurrence), and
+    the product of its decays.  a, x, w: (B, H, C, L, N)."""
+    steps = range(a.shape[3])
+    xs = torch.zeros(a.shape[:3] + (a.shape[4], a.shape[4]),
+                     dtype=torch.float32, device=a.device)
+    decay = torch.ones_like(a[:, :, :, 0])
+    for i in (reversed(steps) if reverse else steps):
+        xs = w[:, :, :, i, :, None] * xs + a[:, :, :, i, :, None] * \
+            x[:, :, :, i, None, :]
+        decay = decay * w[:, :, :, i]
+    return xs, decay
+
+
+def _wkv_scan(local: torch.Tensor, decay: torch.Tensor, reverse: bool):
+    """Phase B: the state each chunk starts from (forward: S entering chunk
+    c, from S_0 = 0) or ends at (reverse: G leaving chunk c, from G_T = 0):
+    start(c + 1) = diag(W_c) start(c) + local_c, in chunk order."""
+    c = local.shape[2]
+    out = [None] * c
+    x = torch.zeros_like(local[:, :, 0])
+    order = range(c - 1, -1, -1) if reverse else range(c)
+    for i in order:
+        out[i] = x
+        x = decay[:, :, i, :, None] * x + local[:, :, i]
+    return torch.stack(out, dim=2)
+
+
+def ref_wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    w: torch.Tensor, u: torch.Tensor, chunk: int
+                    ) -> torch.Tensor:
+    """:func:`ref_wkv` in the kernel's three phases over chunks of
+    ``chunk`` steps: (A) each chunk's state from zero and its decay
+    product, (B) a scan over the chunks for the state each one starts
+    from, (C) every chunk replays its steps from that state.  No division
+    anywhere: a product of decays that underflows to 0 is the answer."""
+    b, h, t, n = r.shape
+    rc, kc, vc, wc = _wkv_chunked_inputs(chunk, r, k, v, w)
+    start = _wkv_scan(*_wkv_chunk_states(kc, vc, wc, False), False)
+    uf = u.float()[:, None, :, None]                  # (H, 1, N, 1)
+    s, ys = start, []
+    for i in range(chunk):
+        a = kc[:, :, :, i, :, None] * vc[:, :, :, i, None, :]
+        ys.append(torch.einsum("bhcn,bhcnm->bhcm", rc[:, :, :, i],
+                               s + uf * a))
+        s = wc[:, :, :, i, :, None] * s + a
+    y = torch.stack(ys, dim=3).reshape(b, h, -1, n)[:, :, :t]
+    return y.to(r.dtype)
+
+
+def ref_wkv_bwd_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        w: torch.Tensor, u: torch.Tensor, gy: torch.Tensor,
+                        chunk: int):
+    """:func:`ref_wkv_bwd` in the kernel's phases: the forward scan gives
+    the state S each chunk starts from; the same phases run backwards in
+    time over G_{t-1} = diag(w_t) G_t + r_t gy_t^T give the gradient G
+    each chunk ends with; then every chunk replays its own states from its
+    S and walks back from its G.  gu is summed per (b, h, chunk), then
+    over (b, chunk)."""
+    b, h, t, n = r.shape
+    rc, kc, vc, gc, wc = _wkv_chunked_inputs(chunk, r, k, v, gy, w)
+    s = _wkv_scan(*_wkv_chunk_states(kc, vc, wc, False), False)
+    g = _wkv_scan(*_wkv_chunk_states(rc, gc, wc, True), True)
+    uf = u.float()[:, None, :]                        # (H, 1, N)
+    prev = []
+    for i in range(chunk):
+        prev.append(s)
+        s = wc[:, :, :, i, :, None] * s + kc[:, :, :, i, :, None] * \
+            vc[:, :, :, i, None, :]
+    grads = {x: [None] * chunk for x in "rkvw"}
+    gu = torch.zeros_like(rc[:, :, :, 0])             # (B, H, C, N)
+    for i in reversed(range(chunk)):
+        ri, ki, vi, wi, gi = (x[:, :, :, i] for x in (rc, kc, vc, wc, gc))
+        vg = (vi * gi).sum(-1, keepdim=True)
+        m = g + (uf * ri)[..., :, None] * gi[..., None, :]
+        grads["r"][i] = (torch.einsum("bhcnm,bhcm->bhcn", prev[i], gi)
+                         + uf * ki * vg)
+        grads["k"][i] = torch.einsum("bhcnm,bhcm->bhcn", m, vi)
+        grads["v"][i] = torch.einsum("bhcnm,bhcn->bhcm", m, ki)
+        grads["w"][i] = (g * prev[i]).sum(-1)
+        gu = gu + ri * ki * vg
+        g = wi[..., :, None] * g + ri[..., :, None] * gi[..., None, :]
+    gr, gk, gv, gw = (torch.stack(grads[x], dim=3).reshape(b, h, -1, n)
+                      [:, :, :t].to(dt) for x, dt in
+                      (("r", r.dtype), ("k", k.dtype), ("v", v.dtype),
+                       ("w", w.dtype)))
+    return gr, gk, gv, gw, gu.sum((0, 2)).to(u.dtype)

@@ -30,6 +30,7 @@ from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import gemm as tgemm
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import wkv as twkv
 from repro_torch.kernels.decode_attention import (flash_decode,
                                                   flash_paged_decode)
 from repro_torch.kernels.flash_attention import flash_attention
@@ -1027,19 +1028,36 @@ def _close_to_max(got, want, tol):
     assert got.dtype == want.dtype and err <= tol * scale, (err, scale)
 
 
+def _past_chunk_edge(n, dtype):
+    """The shortest T > wkv_chunk(T) that ends one step into a chunk."""
+    return next(t for t in range(2, 4097)
+                if t % twkv.wkv_chunk(t, n, dtype) == 1)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1e-2),
                                        (torch.float32, 1e-4)])
-@pytest.mark.parametrize("b,h,t,n", [(8, 40, 64, 64), (8, 40, 100, 64),
-                                     (2, 4, 37, 16)])
-def test_cuda_wkv6_and_bwd_match_plain(b, h, t, n, dtype, tol):
-    """The training shape, a ragged T and the SMOKE head size.  bf16
-    outputs round once from f32 (one ulp is 2**-8 of the value); f32 at
-    1e-4 of the largest value."""
+@pytest.mark.parametrize("b,h,t,n,w_zero", [
+    (8, 40, 64, 64, False), (8, 40, 100, 64, False), (2, 4, 37, 16, False),
+    (2, 4, 1, 64, False), (2, 4, "edge", 64, False), (1, 40, 4096, 64, False),
+    (2, 4, 100, 16, True)])
+def test_cuda_wkv6_and_bwd_match_plain(b, h, t, n, w_zero, dtype, tol):
+    """The training shape, a ragged T, the SMOKE head size, one step, a T
+    one step past a chunk edge, the long prompt, and decays of exactly 0
+    in places (a chunk's decay product underflows to 0: no division may
+    follow).  bf16 outputs round once from f32 (one ulp is 2**-8 of the
+    value); f32 at 1e-4 of the largest value.  Both kernels repeat their
+    bits (no atomics)."""
     _require_cuda()
+    if t == "edge":
+        t = _past_chunk_edge(n, dtype)
     g = torch.Generator(device="cuda").manual_seed(t + n)
     r, k, v, w, u, gy = _cuda_wkv_case(g, b, h, t, n, dtype)
+    if w_zero:
+        w[:, :, ::7] = 0.0
+        w[:, :, 3::11, : n // 2] = 1.0
     y = wkv6(r, k, v, w, u)
+    y_again = wkv6(r, k, v, w, u)
     grads = wkv6_bwd(r, k, v, w, u, gy)
     again = wkv6_bwd(r, k, v, w, u, gy)
     want_y = tops.wkv(r, k, v, w, u, mode="ref")
@@ -1048,4 +1066,5 @@ def test_cuda_wkv6_and_bwd_match_plain(b, h, t, n, dtype, tol):
     _close_to_max(y, want_y, tol)
     for got_g, want_g in zip(grads, want):
         _close_to_max(got_g, want_g, tol if got_g.dtype == dtype else 1e-4)
+    assert torch.equal(y, y_again)
     assert all(torch.equal(a_, b_) for a_, b_ in zip(grads, again))

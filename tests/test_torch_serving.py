@@ -292,7 +292,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py", REPO / "tools" / "gemm_table.py",
               REPO / "tools" / "attention_table.py",
-              REPO / "tools" / "decode_table.py"]
+              REPO / "tools" / "decode_table.py",
+              REPO / "tools" / "wkv_table.py"]
     assert len(files) > 20 and all(f.exists() for f in files)
     for path in files:
         for mod in _imports(path):
