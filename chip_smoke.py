@@ -29,11 +29,16 @@
    slot alone equal to its row of the batch and of a batch with doubled
    max_pages (paged) or Sk (dense), buffers=1 equal to buffers=2, a
    float pool equal to flash_decode on the gathered cache, and a NaN
-   null sink page changing nothing.
+   null sink page changing nothing.  ``rmsnorm`` (no Pallas counterpart)
+   at SmolLM-360M's d_model 960 in bf16 (8, 128 and 488 rows), the SMOKE
+   configs' 96 in f32 and Qwen3-8B's qk_norm and d_model, every row
+   ``torch.equal`` at M = 1, 3, 8, 488 and 512 and alone.
 4. Serve: the SMOKE config (f32, heads of 16) replays smoke6 on dense
    KV, f32 pages and int8 pages, then the serve launcher runs with its
    defaults (dense, then ``--kv paged --page_size 16``), all under
-   ``--verify``.  SmolLM-360M FULL (32 layers, d_model 960, bf16, seeded
+   ``--verify``, and two more launcher runs: shared16 with the prefix
+   cache, smoke6 in chunks of 16 under a budget of 12.  SmolLM-360M FULL
+   (32 layers, d_model 960, bf16, seeded
    random weights) replays traces through the port's continuous-batching
    ``ServeEngine`` with every GEMM, prefill attention and decode attention
    on the kernels: ``benchmarks/traces/smoke6.jsonl`` on the dense KV
@@ -41,12 +46,21 @@
    pool that forces preemption, and 8 requests of 448-token prompts).
    Launch counts are reset just before and read just after each measured
    replay and checked per path; each replay ends with ``--verify``'s check
-   (bit-identical to a one-slot one-shot engine).  Then a
+   (bit-identical to a one-slot one-shot engine).  Chunked prefill and
+   the prefix cache at full width: the 8 x 448 trace in chunks of 128
+   (budgeted and not, bf16 pages; dense; int8 pages), each stream equal
+   to its monolithic replay's, 32 chunks, attention at q_offset > 0 and
+   the latency rows beside the monolithic run's; shared16 with the prefix
+   cache off and on (bf16 and int8 pages), cached equal to uncached, the
+   hit rate and live page high-waters equal to the JAX engine's.  Then a
    kernel-vs-plain-GEMM logit check, a 448-token prompt's prefill logits
    with the attention kernel against the same prefill with the plain
    attention, a profile of a decode step (by kernel and by kind, with its
-   225 ``gama_gemm`` launches checked) and one of the 8 x 448 replay (its
-   prefill attention's and paged decode's device time).
+   225 ``gama_gemm`` launches checked), the 8-slot decode step with the
+   rmsnorm kernel against the eager plain norm (wall, device time,
+   kernels a step, 65 rmsnorm launches a step checked), and one of the
+   8 x 448 replay (its prefill attention's and paged decode's device
+   time).
 5. Train: the wkv6 forward and backward kernels against their plain
    versions at the training shape, a ragged length and a long one, and
    the head-16 builds the SMOKE config runs (bf16, and f32 at the
@@ -57,8 +71,9 @@
    plain recurrence, in f32 and in bf16 compute, each beside a control;
    the training launcher at SMOKE size; and a restart after an injected
    failure that must resume with the uninterrupted run's losses.
-6. A ``{"kernels": [...]}`` JSON line, the card line, and last the
-   ``{"ok": true, "device": ...}`` line.
+6. A ``[phase]`` line with each phase's seconds, a ``{"kernels":
+   [...]}`` JSON line, the card line, and last the ``{"ok": true,
+   "device": ...}`` line.
 
 Any failure raises and exits non-zero before the last line is printed.
 """
@@ -86,6 +101,8 @@ from repro_torch import configs as C  # noqa: E402
 from repro_torch import kernels as K  # noqa: E402
 from repro_torch.configs.gama_paper import ARRAY_GEMMS  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
+from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_kernel  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_chunk, flash_decode, flash_paged_decode)
 from repro_torch.kernels.flash_attention import blocks as attn_blocks  # noqa: E402
@@ -123,21 +140,33 @@ SOURCES = {"gama_gemm": "src/repro_torch/csrc/gemm.cu",
            "flash_paged_decode":
                "src/repro_torch/csrc/paged_decode_attention.cu",
            "wkv6": "src/repro_torch/csrc/wkv.cu",
-           "wkv6_bwd": "src/repro_torch/csrc/wkv.cu"}
+           "wkv6_bwd": "src/repro_torch/csrc/wkv.cu",
+           "rmsnorm": "src/repro_torch/csrc/rmsnorm.cu"}
 # wkv6_bwd replaces the VJP that JAX derives through the same pallas_call.
 REPLACES = {"gama_gemm": "src/repro/kernels/gemm.py:113",
             "flash_attention": "src/repro/kernels/flash_attention.py:145",
             "flash_decode": "src/repro/kernels/decode_attention.py:127",
             "flash_paged_decode": "src/repro/kernels/decode_attention.py:415",
             "wkv6": "src/repro/kernels/wkv.py:70",
-            "wkv6_bwd": "src/repro/kernels/wkv.py:70"}
+            "wkv6_bwd": "src/repro/kernels/wkv.py:70",
+            "rmsnorm": "none: no Pallas counterpart (jnp rmsnorm at "
+                       "src/repro/models/layers.py:103)"}
 # The long replay: 8 requests of 448-token prompts and 32 new tokens on 8
 # slots; max_len = 488 is also its last prefill bucket, and its scratch
 # cache has pages_for(488, 16) * 16 = 496 rows.
 LONG_REQS, LONG_PROMPT, LONG_NEW = 8, 448, 32
 LONG_LEN = LONG_PROMPT + LONG_NEW + 8
 SERVE_KERNELS = ("gama_gemm", "flash_attention", "flash_decode",
-                 "flash_paged_decode")
+                 "flash_paged_decode", "rmsnorm")
+# The chunked replays of the 8 x 448 trace: chunks of 128 tokens (448 =
+# 128 + 128 + 128 + 64, 32 chunks), and a budget of the 8 decode tokens
+# plus two chunks a step.
+CHUNK, CHUNK_BUDGET = 128, 8 + 2 * 128
+# shared16 on 4 slots, max_len 128, pages of 16: the JAX engine's prefix
+# hit rate and live page high-waters (cached, uncached), as
+# tests/test_torch_prefix.py holds both engines to them on the CPU.
+SHARED16_HIT_RATE = 0.6
+SHARED16_HWM = {True: 11, False: 20}
 TRAIN_KERNELS = ("wkv6", "wkv6_bwd")
 
 
@@ -315,6 +344,60 @@ def gemm_rows_independent(cfgs, ms):
           f"GEMMs of {[c.name for c in cfgs]}: {checked} rows, OK")
 
 
+def check_rmsnorm(label, m, d, dtype, seed, main=False, per_step=None):
+    """The rmsnorm kernel against its plain version (float64 sums): within
+    1e-6 * |plain| in f32 and one bf16 ulp (2**-7 * |plain|) in bf16;
+    timed beside its bound, the plain version and F.rms_norm.  Bit for
+    bit: every row equal at M = 1, 3, 8, 488 and 512 and computed
+    alone."""
+    gen = _gen(seed)
+    x = (torch.randn((max(m, 512), d), generator=gen, device=DEV) * 3
+         ).to(dtype)
+    scale = 1 + 0.1 * torch.randn((d,), generator=gen, device=DEV)
+    whole = rmsnorm_kernel(x, scale)
+    want = ops.rmsnorm(x, scale, mode="ref")
+    torch.cuda.synchronize()
+    tol = 1e-6 if dtype == torch.float32 else 2.0 ** -7
+    g, w = whole.double(), want.double()
+    if not torch.isfinite(g).all():
+        raise AssertionError(f"rmsnorm {label}: non-finite output")
+    err = (g - w).abs()
+    if (err > tol * w.abs()).any():
+        raise AssertionError(f"rmsnorm {label}: max abs err "
+                             f"{err.max().item():.3e} over {tol:g} * |plain|")
+    for rows in (1, 3, 8, 488, 512):
+        if not torch.equal(rmsnorm_kernel(x[:rows].contiguous(), scale),
+                           whole[:rows]):
+            raise AssertionError(f"rmsnorm {label}: rows of an M={rows} "
+                                 f"call differ from the M=512 call")
+    alone = torch.cat([rmsnorm_kernel(x[i:i + 1].contiguous(), scale)
+                       for i in range(16)])
+    if not torch.equal(alone, whole[:16]):
+        raise AssertionError(f"rmsnorm {label}: a row alone differs")
+    r = RESULTS["rmsnorm"]
+    r["max_abs_err"] = max(r["max_abs_err"], err.max().item())
+    xm = x[:m].contiguous()
+    elt = x.element_size()
+    nbytes = 2 * m * d * elt + 4 * d
+    kern = device_ms(lambda: (lambda: rmsnorm_kernel(xm, scale)), nbytes)
+    plain = device_ms(lambda: (lambda: ops.rmsnorm(xm, scale, mode="ref")),
+                      nbytes)
+    lib = device_ms(lambda: (lambda: F.rms_norm(xm, (d,), scale.to(dtype),
+                                                1e-6)), nbytes)
+    bms, by = bound(nbytes, 3.0 * m * d, torch.float32)
+    print(f"[kernel] rmsnorm {label} M={m} d={d} {str(dtype)[6:]} "
+          f"max_abs_err={err.max().item():.3e} tol={tol:g}*|plain| "
+          f"rows torch.equal at M=1,3,8,488,512 and alone, OK "
+          f"kernel_ms={kern:.5f} plain_ms={plain:.5f} "
+          f"library_ms={lib:.5f} (F.rms_norm) bound_ms={bms:.6f} ({by}) "
+          f"bound/kernel={bms / kern:.4f}"
+          + ("" if per_step is None else f" launches_per_decode_step="
+             f"{per_step}"))
+    if main:
+        r.update(ms=kern, plain_ms=plain, library_ms=lib, bound_ms=bms,
+                 bound_by=by, shape=f"M={m} d={d} {str(dtype)[6:]} {label}")
+
+
 def _attn_bound(b, hq, hkv, sq, d, elt, keys_per_row, kv_rows):
     """Bytes: q and out once, K and V rows [0, kv_rows) once per KV head;
     operations: 4 * D per (query row, key it attends to)."""
@@ -343,14 +426,20 @@ def check_attention(label, b, hq, hkv, sq, sk, d, q_offset, dtype, tol, seed,
                      nbytes)
     plain = device_ms(lambda: (lambda: ops.attention(
         q, k, v, mode="ref", **args)), nbytes)
-    lib = None
+    # SDPA's causal mask is top-left aligned: query i sees keys <= i, the
+    # same function as q_offset = 0; at an offset or a kv_len below Sk it
+    # takes the mask as a tensor.  KV expanded to Hq up front.
+    kq = k.repeat_interleave(hq // hkv, 1)
+    vq = v.repeat_interleave(hq // hkv, 1)
     if q_offset == 0 and kv == sk:
-        # SDPA's causal mask is top-left aligned: query i sees keys <= i,
-        # the same function as q_offset = 0.  KV expanded to Hq up front.
-        kq = k.repeat_interleave(hq // hkv, 1)
-        vq = v.repeat_interleave(hq // hkv, 1)
         lib = device_ms(lambda: (lambda: F.scaled_dot_product_attention(
             q, kq, vq, is_causal=True)), nbytes)
+    else:
+        k_pos = torch.arange(sk, device=DEV)[None, :]
+        mask = ((k_pos <= torch.arange(sq, device=DEV)[:, None] + q_offset)
+                & (k_pos < kv))
+        lib = device_ms(lambda: (lambda: F.scaled_dot_product_attention(
+            q, kq, vq, attn_mask=mask)), nbytes)
     bms, by = bound(nbytes, flops, dtype)
     p = attn_plan(b, hq, hkv, sq, sk, d, dtype)
     print(f"[kernel] flash_attention {label} B={b} Hq={hq} Hkv={hkv} Sq={sq} "
@@ -632,6 +721,20 @@ def kernel_phase(cfg, max_len, smoke_len):
                                  and label == "lm_head"),
                            per_step=per_step if m <= 16 else None)
     gemm_rows_independent([cfg, qwen], (3, 8, 16, 512))
+    # rmsnorm at the serve path's shapes: SmolLM-360M's d_model in bf16 at
+    # the 8 x 448 replay's decode batch (the kernels line), a prefill
+    # chunk and the 488 bucket; the SMOKE configs' 96 in f32; Qwen3-8B's
+    # qk_norm (d=128 over 3 tokens x 32 heads) and d_model.
+    norms = 2 * cfg.n_layers + 1
+    check_rmsnorm("decode", LONG_REQS, cfg.d_model, torch.bfloat16, seed=50,
+                  main=True, per_step=norms)
+    check_rmsnorm("chunk", CHUNK, cfg.d_model, torch.bfloat16, seed=51)
+    check_rmsnorm("prefill-488", LONG_LEN, cfg.d_model, torch.bfloat16,
+                  seed=52)
+    check_rmsnorm("smoke", 16, 96, torch.float32, seed=53)
+    check_rmsnorm("qwen3-8b-qk_norm", 3 * qwen.n_heads, qwen.d_head,
+                  torch.bfloat16, seed=54)
+    check_rmsnorm("qwen3-8b", 3, qwen.d_model, torch.bfloat16, seed=55)
     # Attention: bf16 within 2e-2 * (1 + |plain|) (P rounds to bf16 for
     # P.V and the output once from f32), f32 at the JAX suite's 2e-5.  The
     # replays' prefill shapes: the 16-token bucket against the dense smoke6
@@ -648,6 +751,10 @@ def kernel_phase(cfg, max_len, smoke_len):
                     dh, 0, torch.bfloat16, 2e-2, seed=17, main=True)
     check_attention("q_offset", 1, hq, hkv, 16, 80, dh, 64, torch.bfloat16,
                     2e-2, seed=12)
+    # The chunked 8 x 448 replay's last full chunk: 128 rows at q_offset
+    # 384 of the 496-row scratch.
+    check_attention(f"chunk-{CHUNK}", 1, hq, hkv, CHUNK, long_cache, dh,
+                    3 * CHUNK, torch.bfloat16, 2e-2, seed=41)
     check_attention("prefill-512", 1, hq, hkv, 512, 512, dh, 0,
                     torch.bfloat16, 2e-2, seed=15)
     check_attention("kv_len", 1, hq, hkv, 100, 160, dh, 40, torch.bfloat16,
@@ -789,26 +896,21 @@ def profile_decode(cfg, params, max_len, steps=5):
         walls[kind].append(run(kind))
     print(f"[profile] decode step wall_ms in turns (profiler off): "
           f"{json.dumps(walls)}")
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    want = sum(c for _, _, c in cfg.gemm_shapes().values())
     for kind in layouts:
         wall_ms = sum(walls[kind]) / len(walls[kind])
-        with torch.profiler.profile(activities=acts) as prof:
-            traced_ms = run(kind)
-        by_name, by_kind = {}, {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                name = _kernel_name(e)[:60]
-                us = e.time_range.elapsed_us()
-                n, t = by_name.get(name, (0, 0.0))
-                by_name[name] = (n + 1, t + us)
-                n, t = by_kind.get(_kind(name), (0, 0.0))
-                by_kind[_kind(name)] = (n + 1, t + us)
-        if not by_name:
+        traced_ms, by_name, launched, lost = _profiled(
+            lambda: run(kind), f"decode step ({kind} KV)")
+        if launched["gama_gemm"] != want * steps:
+            raise AssertionError(f"decode step ({kind} KV): "
+                                 f"{launched['gama_gemm']} gama_gemm launches "
+                                 f"in {steps} steps, expected {want} a step")
+        if not by_name or lost:
             print(f"[profile] decode step ({kind} KV) wall_ms={wall_ms:.3f}; "
-                  f"device time not measured (the profiler saw no CUDA "
-                  f"events)")
+                  f"device time not measured ({_unmeasured(lost)}); "
+                  f"gama_gemm launches per step {want} (counters)")
             continue
+        by_kind = _by_kind(by_name)
         device_ms = sum(us for _, us in by_name.values()) / 1e3 / steps
         top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
         print(f"[profile] decode step (3 slots, {kind} KV, smollm-360m FULL): "
@@ -822,29 +924,152 @@ def profile_decode(cfg, params, max_len, steps=5):
             print(f"[profile]   by kind: {group}: {n // steps} launches per "
                   f"step, {us / 1e3 / steps:.3f} ms per step")
         for name, (n, us) in top:
-            print(f"[profile]   {name}: {n // steps} per step, "
+            print(f"[profile]   {name[:60]}: {n // steps} per step, "
                   f"{us / 1e3 / steps:.3f} ms per step")
-        gemms = by_kind.get("GEMM (gama_gemm)", (0, 0.0))[0] // steps
-        want = sum(c for _, _, c in cfg.gemm_shapes().values())
-        if gemms != want:
-            raise AssertionError(f"decode step ({kind} KV): {gemms} gama_gemm "
-                                 f"launches, expected {want}")
 
 
-def replay(cfg, params, trace, scfg, label):
-    """One path of the main run: a warm-up replay, then the measured replay
+# A profile is taken again, up to this many times in all, when it saw fewer
+# launches of a counted kernel than its wrapper made: the profiler does not
+# always deliver every device event, and a partial profile's device time is
+# not a measurement.  Each traced run starts and ends this long after the
+# card was idle, so that no event lies at the edge of the profiler's window.
+PROFILE_ATTEMPTS = 3
+PROFILE_MARGIN_S = 0.05
+
+# The profile's kinds that a wrapper's launch counter also counts.
+_COUNTED_KINDS = {
+    "GEMM (gama_gemm)": ("gama_gemm",),
+    "rmsnorm (rmsnorm kernel)": ("rmsnorm",),
+    "prefill attention (flash_attention)": ("flash_attention",),
+    "decode attention (flash_decode, flash_paged_decode)": (
+        "flash_decode", "flash_paged_decode"),
+}
+
+
+def _profiled(fn, label):
+    """``fn()`` under ``torch.profiler``, taken again while the profile saw
+    fewer kernels of a counted kind than the wrappers launched.  Returns
+    (fn's result, (count, device us) by kernel name, the launch counters'
+    increments over the traced run, {kind: [seen, launched]} of what the
+    last profile lost: empty when it is complete)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        before = K.launch_counts()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            time.sleep(PROFILE_MARGIN_S)
+            out = fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_MARGIN_S)
+        launched = {n: c - before[n] for n, c in K.launch_counts().items()}
+        by_name = _device_by_name(prof)
+        lost = {}
+        for kind, names in _COUNTED_KINDS.items():
+            n = sum(launched[x] for x in names)
+            seen = _by_kind(by_name).get(kind, (0, 0.0))[0]
+            if seen < n:
+                lost[kind] = [seen, n]
+        if not lost or not by_name:
+            return out, by_name, launched, {}
+        print(f"[profile] {label}, attempt {attempt}: the profiler saw fewer "
+              f"kernels than the wrappers launched (seen, launched): "
+              f"{json.dumps(lost)}")
+    return out, by_name, launched, lost
+
+
+def _by_kind(by_name):
+    by_kind = {}
+    for name, (n, us) in by_name.items():
+        k, t = by_kind.get(_kind(name), (0, 0.0))
+        by_kind[_kind(name)] = (k + n, t + us)
+    return by_kind
+
+
+def _unmeasured(lost):
+    if lost:
+        return (f"the profiler lost kernel events in each of "
+                f"{PROFILE_ATTEMPTS} attempts: {json.dumps(lost)}")
+    return "the profiler saw no CUDA events"
+
+
+def profile_decode_norms(cfg, params, steps=5):
+    """A decode step with the rmsnorm kernel against the same step with the
+    eager plain rmsnorm: the 8 x 448 replay's decode shape (8 slots at
+    449-487 keys on bf16 pages of 16).  Wall per step (host clock,
+    synchronised, profiler off) in turns plain, kernel, kernel, plain;
+    then one profiled run each: kernels launched a step, device time, and
+    the rmsnorm kernel's launches a step (2 a layer + the final norm)."""
+    b = LONG_REQS
+    max_pages = pages_for(LONG_LEN, 16)
+    tok = torch.zeros(b, dtype=torch.long, device=DEV)
+    pos = torch.tensor([LONG_PROMPT + 1 + (LONG_LEN - LONG_PROMPT - 2) * i
+                        // 7 for i in range(b)], dtype=torch.int32,
+                       device=DEV)
+    caches = init_paged_cache(cfg, b * max_pages, 16, device=DEV)
+    tables = torch.arange(b * max_pages, dtype=torch.int32,
+                          device=DEV).view(b, max_pages)
+
+    def run(mode):
+        with op_mode("rmsnorm", mode):
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                decode_step(params, tok, pos, cfg, caches,
+                            block_tables=tables)
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / steps
+
+    for mode in ("ref", "kernel"):
+        run(mode)                          # warm-up
+    walls = {"ref": [], "kernel": []}
+    for mode in ("ref", "kernel", "kernel", "ref"):
+        walls[mode].append(run(mode))
+    for mode, name in (("ref", "eager plain rmsnorm"),
+                       ("kernel", "rmsnorm kernel")):
+        _, by_name, launched, lost = _profiled(
+            lambda: run(mode), f"decode step, 8 slots, {name}")
+        per_step = launched["rmsnorm"] / steps
+        wall = sum(walls[mode]) / 2
+        if by_name and not lost:
+            busy = sum(us for _, us in by_name.values()) / 1e3 / steps
+            n = sum(c for c, _ in by_name.values()) // steps
+            norm_us = sum(us for k, (_, us) in by_name.items()
+                          if k.startswith("rmsnorm")) / steps
+            dev = (f"device_ms={busy:.3f} kernels_per_step={n} "
+                   f"rmsnorm_kernel_ms_per_step={norm_us / 1e3:.4f}")
+        else:
+            dev = f"device time not measured ({_unmeasured(lost)})"
+        print(f"[profile] decode step, 8 slots, bf16 pages, {name}: "
+              f"wall_ms={wall:.3f} (profiler off, mean of 2; turns "
+              f"{json.dumps(walls)}) {dev} rmsnorm_launches_per_step="
+              f"{per_step:g}")
+        want = 2 * cfg.n_layers + 1 if mode == "kernel" else 0
+        if per_step != want:
+            raise AssertionError(f"decode step ({name}): {per_step} rmsnorm "
+                                 f"launches a step, expected {want}")
+
+
+def replay(cfg, params, trace, scfg, label, verify=True, warm=True):
+    """One path of the main run: a warm-up replay (``warm``; without it the
+    engine is cold, as a prefix cache must be to count its first hits),
+    then the measured replay
     with every launch count set to 0 just before and read just after, its
-    outputs checked, and ``--verify``'s bit-identity check.  Returns the
-    measured replay's launch counts."""
+    outputs checked, and (``verify``) ``--verify``'s bit-identity check
+    against a one-shot engine.  Returns the measured replay's launch
+    counts (``flash_attention`` launches at q_offset > 0 under
+    ``"flash_attention@q_offset>0"``), its report and the closed engine."""
     engine = ServeEngine(cfg, params, scfg)
     try:
-        S.run_trace(engine, trace, log=None)     # warm-up replay
+        if warm:
+            S.run_trace(engine, trace, log=None)     # warm-up replay
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         K.reset_launch_counts()
+        fa_mod.offset_launches = 0
         rep = S.run_trace(engine, trace, log=None)
         torch.cuda.synchronize()
         counts = K.launch_counts()
+        offset = fa_mod.offset_launches
     finally:
         engine.close()
     peak = torch.cuda.max_memory_allocated()
@@ -864,6 +1089,15 @@ def replay(cfg, params, trace, scfg, label):
                  f" preemptions={rep['preemptions']} pages_hwm="
                  f"{rep['pages_hwm']} "
                  f"pages_reclaimed={rep['pages_reclaimed']}")
+    if engine.prefill_chunk:
+        paged += (f" prefill_chunk={engine.prefill_chunk} token_budget="
+                  f"{scfg.token_budget} prefill_chunks={rep['prefill_chunks']}"
+                  f" flash_attention_at_q_offset>0={offset}")
+    if engine.prefix is not None:
+        paged += (f" prefix_hit_rate={rep['prefix_hit_rate']} "
+                  f"prefix_hit_tokens={rep['prefix_hit_tokens']} "
+                  f"cow_copies={rep['cow_copies']} pages_resident="
+                  f"{engine.pool.pages_resident}")
     print(f"[serve] {label}: arch={cfg.name} layers={cfg.n_layers} d_model="
           f"{cfg.d_model} dtype={cfg.compute_dtype} kv={scfg.kv} slots="
           f"{scfg.batch_slots} max_len={scfg.max_len}{paged} "
@@ -872,15 +1106,19 @@ def replay(cfg, params, trace, scfg, label):
           f"itl_p50_ms={rep['p50_ms']:.3f} itl_p99_ms={rep['p99_ms']:.3f} "
           f"ttft_p50_ms={rep['ttft_p50_ms']:.3f} "
           f"ttft_p99_ms={rep['ttft_p99_ms']:.3f} "
+          f"starved_steps={rep['starved_steps']} "
+          f"prefill_ms={rep['prefill_ms']:.3f} "
+          f"decode_ms={rep['decode_ms']:.3f} "
           f"decode_steps={rep['decode_steps']} "
           f"shared_steps={rep['shared_steps']} "
           f"kv_bytes_high_water={rep['kv_bytes_hwm']} "
           f"kv_bytes_reserved={rep['kv_bytes_reserved']} "
           f"max_memory_allocated={peak}")
     print(f"[serve] {label}: launches {json.dumps(counts)}")
-    # Every path runs the GEMM and prefill attention; decode goes through
-    # the dense kernel on the dense cache and the paged one on the pool.
-    must = ["gama_gemm", "flash_attention",
+    # Every path runs the GEMM, prefill attention and the norms; decode
+    # goes through the dense kernel on the dense cache and the paged one
+    # on the pool; a chunked path runs attention at q_offset > 0.
+    must = ["gama_gemm", "flash_attention", "rmsnorm",
             "flash_paged_decode" if scfg.kv == "paged" else "flash_decode"]
     missing = [n for n in must if counts[n] == 0]
     if missing:
@@ -889,23 +1127,28 @@ def replay(cfg, params, trace, scfg, label):
     if scfg.kv == "paged" and counts["flash_decode"]:
         raise AssertionError(f"{label}: the paged path launched the dense "
                              f"flash_decode {counts['flash_decode']} times")
-    S._verify(cfg, params, trace, rep["results"], scfg)
-    return counts, rep
+    if engine.prefill_chunk and not offset:
+        raise AssertionError(f"{label}: no flash_attention launch at "
+                             f"q_offset > 0 on a chunked path")
+    if verify:
+        S._verify(cfg, params, trace, rep["results"], scfg)
+    counts["flash_attention@q_offset>0"] = offset
+    return counts, rep, engine
 
 
 @contextlib.contextmanager
-def attention_mode(mode):
-    """Route the models' ``ops.attention`` calls through ``mode`` for a
-    while (``"ref"``: the plain version, no kernel)."""
-    orig = ops.attention
+def op_mode(name, mode):
+    """Route the models' ``ops.<name>`` calls through ``mode`` for a while
+    (``"ref"``: the plain version, no kernel)."""
+    orig = getattr(ops, name)
 
     def routed(*args, **kwargs):
         return orig(*args, mode=mode, **kwargs)
-    ops.attention = routed
+    setattr(ops, name, routed)
     try:
         yield
     finally:
-        ops.attention = orig
+        setattr(ops, name, orig)
 
 
 def prefill_attention_kernel_vs_ref(cfg, params, prompt_len, bucket,
@@ -927,7 +1170,7 @@ def prefill_attention_kernel_vs_ref(cfg, params, prompt_len, bucket,
     def run(mode):
         caches = init_cache(cfg, 1, cache_len, DEV)
         before = K.launch_counts()["flash_attention"]
-        with attention_mode(mode):
+        with op_mode("attention", mode):
             lg, _ = forward(params, {"tokens": toks}, cfg, caches=caches,
                             cache_pos=0)
         torch.cuda.synchronize()
@@ -973,27 +1216,27 @@ def profile_replay(cfg, params, trace, scfg, label):
     beside the device time by kind, and the prefill attention's launches
     and device time."""
     engine = ServeEngine(cfg, params, scfg)
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    try:
+
+    def traced():
+        t0 = time.perf_counter()
         S.run_trace(engine, trace, log=None)
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            S.run_trace(engine, trace, log=None)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        return (time.perf_counter() - t0) * 1e3
+
+    try:
+        S.run_trace(engine, trace, log=None)
+        wall_ms, by_name, launched, lost = _profiled(traced, label)
     finally:
         engine.close()
-    by_name = _device_by_name(prof)
-    if not by_name:
+    for n in ("flash_attention", "flash_paged_decode"):
+        if not launched[n]:
+            raise AssertionError(f"{label}: the profiled replay launched no "
+                                 f"{n}")
+    if not by_name or lost:
         print(f"[profile] {label}: wall_ms={wall_ms:.3f}; device time not "
-              f"measured (the profiler saw no CUDA events)")
+              f"measured ({_unmeasured(lost)})")
         return
-    by_kind = {}
-    for name, (n, us) in by_name.items():
-        k, t = by_kind.get(_kind(name), (0, 0.0))
-        by_kind[_kind(name)] = (k + n, t + us)
+    by_kind = _by_kind(by_name)
     busy = sum(us for _, us in by_name.values()) / 1e3
     print(f"[profile] {label} replay (traced): wall_ms={wall_ms:.3f} "
           f"device_busy_ms={busy:.3f} device_idle_share="
@@ -1001,22 +1244,13 @@ def profile_replay(cfg, params, trace, scfg, label):
           f"{sum(n for n, _ in by_name.values())}")
     for kind, (n, us) in sorted(by_kind.items(), key=lambda kv: -kv[1][1]):
         print(f"[profile]   by kind: {kind}: {n} launches, {us / 1e3:.3f} ms")
-    attn = [(name, n, us) for name, (n, us) in by_name.items()
-            if name.startswith("flash_attention")]
-    for name, n, us in attn:
-        print(f"[profile]   prefill attention {name}: {n} launches, "
-              f"{us / 1e3:.3f} ms, {us / n:.2f} us each")
-    if not attn:
-        raise AssertionError(f"{label}: the profile saw no prefill "
-                             f"attention kernel")
-    dec = [(name, n, us) for name, (n, us) in by_name.items()
-           if name.startswith("paged_decode")]
-    for name, n, us in dec:
-        print(f"[profile]   flash_paged_decode {name}: {n} launches, "
-              f"{us / 1e3:.3f} ms, {us / n:.2f} us each")
-    if not dec:
-        raise AssertionError(f"{label}: the profile saw no paged decode "
-                             f"kernel")
+    for name, (n, us) in by_name.items():
+        if name.startswith("flash_attention"):
+            print(f"[profile]   prefill attention {name}: {n} launches, "
+                  f"{us / 1e3:.3f} ms, {us / n:.2f} us each")
+        if name.startswith("paged_decode"):
+            print(f"[profile]   flash_paged_decode {name}: {n} launches, "
+                  f"{us / 1e3:.3f} ms, {us / n:.2f} us each")
 
 
 def smoke_serve_phase(cfg, trace, max_len):
@@ -1037,11 +1271,15 @@ def smoke_serve_phase(cfg, trace, max_len):
                                                    max_len=max_len, **paged)),
             ("SMOKE paged-int8 smoke6", ServeConfig(
                 batch_slots=3, max_len=max_len, kv_dtype="int8", **paged))):
-        counts, _ = replay(cfg, params, trace, scfg, label)
+        counts, _, _ = replay(cfg, params, trace, scfg, label)
         for n in total:
             total[n] += counts[n]
     for argv in (["--verify"],
-                 ["--kv", "paged", "--page_size", "16", "--verify"]):
+                 ["--kv", "paged", "--page_size", "16", "--verify"],
+                 ["--trace", "shared16", "--kv", "paged", "--page_size", "16",
+                  "--prefix-cache", "--verify"],
+                 ["--trace", "smoke6", "--prefill-chunk", "16",
+                  "--token-budget", "12", "--verify"]):
         K.reset_launch_counts()
         S.main(argv)                 # raises unless it prints "verify OK"
         torch.cuda.synchronize()
@@ -1049,12 +1287,134 @@ def smoke_serve_phase(cfg, trace, max_len):
         print(f"[serve] launcher {' '.join(argv)}: launches "
               f"{json.dumps(counts)}")
         decode = "flash_paged_decode" if "paged" in argv else "flash_decode"
-        missing = [n for n in ("gama_gemm", "flash_attention", decode)
-                   if counts[n] == 0]
+        missing = [n for n in ("gama_gemm", "flash_attention", "rmsnorm",
+                               decode) if counts[n] == 0]
         if missing:
             raise AssertionError(f"launcher {argv}: kernels never launched: "
                                  f"{missing}")
     del params
+    return total
+
+
+def same_streams(label, rep, want, want_label):
+    """Every stream of ``rep`` equal to ``want``'s, token for token."""
+    bad = sorted(tid for tid, toks in want["results"].items()
+                 if tid not in rep["results"]
+                 or rep["results"][tid].tolist() != toks.tolist())
+    if bad or set(rep["results"]) != set(want["results"]):
+        raise AssertionError(f"{label}: streams {bad} differ from "
+                             f"{want_label}")
+    print(f"[serve] {label}: all {len(want['results'])} streams equal "
+          f"{want_label} token for token")
+
+
+def latency_in_turns(cfg, params, trace, configs, order):
+    """Host-clock latency of replays that differ in one option, taken in
+    turns in one process (a replay's wall moves by tens of percent from
+    one replay to the next on the same card): one warm engine per config,
+    then measured replays in ``order``.  Prints each config's values in
+    the order taken and their mean."""
+    engines = {name: ServeEngine(cfg, params, scfg)
+               for name, scfg in configs.items()}
+    reps = {name: [] for name in configs}
+    try:
+        for eng in engines.values():
+            S.run_trace(eng, trace, log=None)
+        for name in order:
+            torch.cuda.synchronize()
+            reps[name].append(S.run_trace(engines[name], trace, log=None))
+    finally:
+        for eng in engines.values():
+            eng.close()
+    keys = ("ttft_p50_ms", "ttft_p99_ms", "p50_ms", "p99_ms",
+            "starved_steps", "prefill_ms", "decode_ms", "wall_s")
+    print(f"[serve] in turns {' '.join(order)}: {trace[0]['prompt'].size}"
+          f"-token prompts, {len(trace)} requests")
+    for name, rs in reps.items():
+        cols = " ".join(
+            f"{k}={sum(r[k] for r in rs) / len(rs):.3f} "
+            f"{[round(r[k], 3) for r in rs]}" for k in keys)
+        print(f"[serve] in turns {name}: {cols}")
+
+
+def chunked_serve_phase(cfg, params, long8, mono):
+    """Chunked prefill and the prefix cache at full width, SmolLM-360M FULL
+    on the kernels.  (a) The 8 x 448 trace on bf16 pages of 16, in chunks
+    of 128 under a budget of 8 decode tokens plus two chunks, and
+    unbudgeted: every stream equal to the monolithic replay ``mono``, 32
+    chunks, attention at q_offset > 0; then the three replayed in turns
+    for their latency.  (b) The same on dense KV and (c) on int8 pages,
+    each against its own monolithic replay.  (d) shared16 on 4 slots
+    with the prefix cache off and on, bf16 and int8 pages, cold engines:
+    cached streams equal uncached ones, and the hit rate and the live page
+    high-waters equal the JAX engine's.  Returns the replays' launch
+    counts."""
+    total = {n: 0 for n in SERVE_KERNELS}
+
+    def run(label, trace, scfg, **kw):
+        counts, rep, eng = replay(cfg, params, trace, scfg, label, **kw)
+        for n in total:
+            total[n] += counts[n]
+        return rep, eng
+
+    paged = dict(kv="paged", page_size=16)
+    long_cfg = dict(batch_slots=LONG_REQS, max_len=LONG_LEN)
+    chunks = LONG_REQS * -(-LONG_PROMPT // CHUNK)
+    mono_label = "paged-bf16 synth 8x448+32"
+    for tag, kw in ((f"budget={CHUNK_BUDGET}", dict(token_budget=CHUNK_BUDGET)),
+                    ("unbudgeted", {})):
+        label = f"{mono_label} chunk={CHUNK} {tag}"
+        rep, _ = run(label, long8, ServeConfig(
+            **long_cfg, **paged, prefill_chunk=CHUNK, **kw), verify=False)
+        if rep["prefill_chunks"] != chunks:
+            raise AssertionError(f"{label}: {rep['prefill_chunks']} chunks, "
+                                 f"expected {chunks}")
+        same_streams(label, rep, mono, "the monolithic replay")
+    latency_in_turns(cfg, params, long8, {
+        "monolithic": ServeConfig(**long_cfg, **paged),
+        "budget": ServeConfig(**long_cfg, **paged, prefill_chunk=CHUNK,
+                              token_budget=CHUNK_BUDGET),
+        "unbudgeted": ServeConfig(**long_cfg, **paged, prefill_chunk=CHUNK),
+    }, ("monolithic", "budget", "unbudgeted", "unbudgeted", "budget",
+        "monolithic"))
+    for label, kw in (("dense synth 8x448+32", dict(kv="dense")),
+                      ("paged-int8 synth 8x448+32",
+                       dict(kv_dtype="int8", **paged))):
+        whole, _ = run(label, long8, ServeConfig(**long_cfg, **kw))
+        rep, _ = run(f"{label} chunk={CHUNK}", long8, ServeConfig(
+            **long_cfg, prefill_chunk=CHUNK, **kw), verify=False)
+        if rep["prefill_chunks"] != chunks:
+            raise AssertionError(f"{label}: {rep['prefill_chunks']} chunks")
+        same_streams(f"{label} chunk={CHUNK}", rep, whole,
+                     "its monolithic replay")
+    shared16 = S.load_trace(S.resolve_trace_path("shared16"), cfg.vocab_size)
+    for kv_dtype in (None, "int8"):
+        reps = {}
+        for cached in (False, True):
+            label = (f"paged-{kv_dtype or 'bf16'} shared16 prefix_cache="
+                     f"{cached}")
+            rep, eng = run(label, shared16, ServeConfig(
+                batch_slots=4, max_len=128, kv_dtype=kv_dtype,
+                prefix_cache=cached, **paged), verify=not cached, warm=False)
+            if eng.pool.pages_in_use != 0:
+                raise AssertionError(f"{label}: {eng.pool.pages_in_use} "
+                                     f"pages still in use")
+            eng.pool.check()
+            if eng.pool.high_water != SHARED16_HWM[cached]:
+                raise AssertionError(
+                    f"{label}: live page high-water {eng.pool.high_water}, "
+                    f"the JAX engine's is {SHARED16_HWM[cached]}")
+            reps[cached] = rep
+        if reps[True]["prefix_hit_rate"] != SHARED16_HIT_RATE:
+            raise AssertionError(f"shared16: hit rate "
+                                 f"{reps[True]['prefix_hit_rate']}, the JAX "
+                                 f"engine's is {SHARED16_HIT_RATE}")
+        same_streams(f"paged-{kv_dtype or 'bf16'} shared16 cached",
+                     reps[True], reps[False], "the uncached replay")
+        print(f"[serve] shared16 ({kv_dtype or 'bf16'} pages): prefix hit "
+              f"rate {reps[True]['prefix_hit_rate']} and live page "
+              f"high-water {SHARED16_HWM[True]} cached / "
+              f"{SHARED16_HWM[False]} uncached, equal to the JAX engine's")
     return total
 
 
@@ -1079,12 +1439,17 @@ def serve_phase(cfg, max_len):
          ServeConfig(batch_slots=LONG_REQS, max_len=LONG_LEN, **paged)),
     ]
     total = {n: 0 for n in SERVE_KERNELS}
+    reps = {}
     for label, trace, scfg in paths:
-        counts, rep = replay(cfg, params, trace, scfg, label)
+        counts, rep, _ = replay(cfg, params, trace, scfg, label)
         if "pool_pages=4" in label and rep["preemptions"] < 1:
             raise AssertionError(f"{label}: no preemption in a 4-page pool")
         for n in total:
             total[n] += counts[n]
+        reps[label] = rep
+    for n, c in chunked_serve_phase(cfg, params, long8,
+                                    reps[paths[-1][0]]).items():
+        total[n] += c
 
     kern, ref_lg, per_prefill, per_decode = logits_kernel_vs_ref(
         cfg, params, smoke6[0]["prompt"], max_len)
@@ -1108,6 +1473,7 @@ def serve_phase(cfg, max_len):
     # and one taken after the long replay's profile (140k kernels) missed
     # 60 of the ~11k kernels of its 5 steps.
     profile_decode(cfg, params, max_len)
+    profile_decode_norms(cfg, params)
     profile_replay(cfg, params, long8, paths[-1][2], paths[-1][0])
     return total
 
@@ -1280,6 +1646,8 @@ def _kind(name):
         return name
     if low.startswith("gemm_"):      # csrc/gemm.cu's kernels
         return "GEMM (gama_gemm)"
+    if low.startswith("rmsnorm"):
+        return "rmsnorm (rmsnorm kernel)"
     if low.startswith("flash_attention"):
         return "prefill attention (flash_attention)"
     if low.startswith(("flash_decode", "paged_decode")):
@@ -1563,14 +1931,22 @@ def main() -> int:
     smoke_trace = S.load_trace(S.resolve_trace_path("smoke6"),
                                smoke_cfg.vocab_size)
     smoke_len = max(len(t["prompt"]) + t["max_new"] for t in smoke_trace) + 8
-    kernel_phase(cfg, max_len, smoke_len)
-    wkv_phase()
-    counts = smoke_serve_phase(smoke_cfg, smoke_trace, smoke_len)
-    for name, n in serve_phase(cfg, max_len).items():
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        print(f"[phase] {name}: {time.perf_counter() - t:.1f} s")
+        return out
+
+    timed("kernels", kernel_phase, cfg, max_len, smoke_len)
+    timed("wkv kernels", wkv_phase)
+    counts = timed("serve SMOKE", smoke_serve_phase, smoke_cfg, smoke_trace,
+                   smoke_len)
+    for name, n in timed("serve FULL", serve_phase, cfg, max_len).items():
         counts[name] += n
-    counts.update(train_phase())
-    train_kernel_vs_plain()
-    trainer_phase()
+    counts.update(timed("train", train_phase))
+    timed("train kernels vs plain", train_kernel_vs_plain)
+    timed("trainer", trainer_phase)
+    print(f"[phase] total: {time.perf_counter() - t0:.1f} s")
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     line = {"kernels": [dict(

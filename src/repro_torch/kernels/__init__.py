@@ -1,7 +1,8 @@
 """The port's kernels: hand-written CUDA for Hopper beside their plain
 PyTorch versions, and the ``ops`` dispatch wrappers over them."""
 
-from repro_torch.kernels import decode_attention, flash_attention, gemm, wkv
+from repro_torch.kernels import (decode_attention, flash_attention, gemm,
+                                 rmsnorm, wkv)
 
 # Every ported kernel: its wrapper's module and the name of the launch
 # counter there (flash_decode and flash_paged_decode share a module and
@@ -13,6 +14,7 @@ KERNEL_COUNTERS = {
     "flash_paged_decode": (decode_attention, "paged_launches"),
     "wkv6": (wkv, "launches"),
     "wkv6_bwd": (wkv, "bwd_launches"),
+    "rmsnorm": (rmsnorm, "launches"),
 }
 
 

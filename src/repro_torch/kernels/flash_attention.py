@@ -26,7 +26,8 @@ runtime offsets gives the same rows.
 
 :func:`flash_attention` runs the plain version (``ref.ref_attention``,
 :data:`plain`) for CPU tensors only; for CUDA tensors it launches the
-kernel or raises.  :data:`launches` counts kernel launches.
+kernel or raises.  :data:`launches` counts kernel launches,
+:data:`offset_launches` those at ``q_offset > 0``.
 """
 
 from __future__ import annotations
@@ -41,6 +42,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import ref_attention as plain
 
 launches = 0
+# Launches at q_offset > 0: chunked prefill's chunks after the first, and
+# suffixes after a cached prefix.
+offset_launches = 0
 
 # Head dims each route takes: SmolLM (64) and Qwen3 (128) on both, the SMOKE
 # configs' 16 on the f32 SIMT kernel only (they compute in f32).
@@ -193,7 +197,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            q_offset: int, kv_len: int) -> None:
     """Launch the kernel with plan ``p`` into ``out`` (no checks beyond the
     kernel's own, which refuses a plan it does not take)."""
-    global launches
+    global launches, offset_launches
     b, hq, sq, d = q.shape
     lib = _lib()
     err = lib.flash_attention_launch(
@@ -204,6 +208,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, "flash_attention", err)
     launches += 1
+    offset_launches += int(q_offset > 0)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -29,6 +29,7 @@ from repro_torch.kernels.decode_attention import (flash_decode,
                                                   flash_paged_decode)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gemm import gama_gemm
+from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_kernel
 from repro_torch.kernels.wkv import WKV6
 
 MODES = ("auto", "kernel", "ref")
@@ -72,10 +73,25 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Flash attention.  q: (B, Hq, Sq, D); k/v: (B, Hkv, Sk, D)."""
     _check_gqa(q.shape[1], k.shape[1])
     if not _use_kernel(mode, q, k, v):
-        return ref.ref_attention(q, k, v, causal=causal, scale=scale,
-                                 q_offset=q_offset, kv_len=kv_len)
+        # Past 2048 keys the plain path takes the online-softmax form, so
+        # it never holds the (Sq, Sk) logits (ops.py:145-147 of the
+        # reference).
+        plain = (ref.chunked_attention if k.shape[2] > 2048
+                 else ref.ref_attention)
+        return plain(q, k, v, causal=causal, scale=scale, q_offset=q_offset,
+                     kv_len=kv_len)
     return flash_attention(q, k, v, causal=causal, scale=scale,
                            q_offset=q_offset, kv_len=kv_len)
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6,
+            mode: str = "auto") -> torch.Tensor:
+    """RMSNorm over the last dim in f32, output in x's dtype: the
+    fixed-order kernel for CUDA tensors (a row's bits do not depend on the
+    rows beside it), the plain version for CPU tensors."""
+    if not _use_kernel(mode, x, scale):
+        return ref.rmsnorm(x, scale, eps)
+    return rmsnorm_kernel(x, scale, eps)
 
 
 def decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -46,6 +46,22 @@ def ref_gemm(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None,
     return requantize(acc, out_dtype, scale)
 
 
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    """Plain rmsnorm over the last dim, in f32 as the reference, output in
+    x's dtype.  The mean of squares is summed in float64 and rounded once
+    to f32: torch's reduction kernels pick their thread layout from the
+    number of rows in a call, so an f32 sum over one row may round
+    differently in a batch of 1 and of 3; in float64 the order (almost
+    never) reaches the f32 result, which keeps a row's output independent
+    of its batch on the CPU.  The kernel (``csrc/rmsnorm.cu``) gets that
+    property from a fixed f32 summation order instead."""
+    xf = x.float()
+    var = xf.double().square().mean(-1, keepdim=True).float()
+    out = xf * torch.rsqrt(var + eps) * scale.float()
+    return out.to(x.dtype)
+
+
 def _softmax_av(s: torch.Tensor, valid: torch.Tensor,
                 v: torch.Tensor) -> torch.Tensor:
     """Masked softmax(s) @ v with the kernels' guards: masked logits at
@@ -78,6 +94,51 @@ def ref_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q_pos = torch.arange(sq, device=q.device) + q_offset
         valid = valid & (q_pos[:, None] >= k_pos[None, :])
     return _softmax_av(s, valid, vf).to(q.dtype)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, scale: Optional[float] = None,
+                      q_offset: int = 0, kv_len: Optional[int] = None,
+                      q_chunk: int = 1024,
+                      kv_chunk: int = 1024) -> torch.Tensor:
+    """The flash-attention algorithm in plain torch ops (the reference's
+    ``chunked_attention``): an online softmax over ``kv_chunk``-key
+    blocks for each ``q_chunk``-row block of queries, so memory is
+    O(B * H * q_chunk * kv_chunk) instead of the O(Sq * Sk) logits of
+    :func:`ref_attention`, whose function it computes (masked logits at
+    -1e30, a row with no valid key gives zeros).  ``ops.attention``'s
+    plain path takes it past 2048 keys, as the reference's does."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = d ** -0.5 if scale is None else scale
+    kv_len = sk if kv_len is None else kv_len
+    out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
+    for q0 in range(0, sq, q_chunk):
+        qf = q[:, :, q0:q0 + q_chunk].float()
+        rows = qf.shape[2]
+        q_pos = torch.arange(rows, device=q.device) + q_offset + q0
+        m = torch.full((b, hq, rows), NEG_INF, device=q.device)
+        l = torch.zeros((b, hq, rows), device=q.device)
+        acc = torch.zeros((b, hq, rows, d), device=q.device)
+        for k0 in range(0, sk, kv_chunk):
+            kf = k[:, :, k0:k0 + kv_chunk].float().repeat_interleave(group, 1)
+            vf = v[:, :, k0:k0 + kv_chunk].float().repeat_interleave(group, 1)
+            s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+            k_pos = torch.arange(kf.shape[2], device=q.device) + k0
+            valid = (k_pos < kv_len)[None, :]
+            if causal:
+                valid = valid & (q_pos[:, None] >= k_pos[None, :])
+            s = torch.where(valid, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.where(valid, torch.exp(s - m_new[..., None]), 0.0)
+            alpha = torch.exp(m - m_new)
+            l = alpha * l + p.sum(-1)
+            acc = acc * alpha[..., None] + p @ vf
+            m = m_new
+        safe_l = torch.where(l > 0, l, 1.0)
+        out[:, :, q0:q0 + rows] = (acc / safe_l[..., None]).to(q.dtype)
+    return out
 
 
 def ref_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

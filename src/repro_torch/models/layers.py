@@ -98,17 +98,11 @@ def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm in f32, as the reference.  The mean of squares is summed
-    in float64 and rounded once to f32.  torch's reduction kernels pick
-    their thread layout from the number of rows in a call, so an f32 sum
-    over one row may round differently in a batch of 1 and of 3; summed
-    in float64, the order (almost never) reaches the f32 result.  That
-    keeps a row's output independent of its batch, which the
-    3-slot-vs-1-slot greedy bit-identity needs."""
-    xf = x.float()
-    var = xf.double().square().mean(-1, keepdim=True).float()
-    out = xf * torch.rsqrt(var + eps) * p["scale"].float()
-    return out.to(x.dtype)
+    """RMSNorm in f32, as the reference: ``ops.rmsnorm``, the fixed-order
+    kernel on the card and the plain version (float64 sums) on the CPU;
+    both keep a row's output independent of the rows beside it, which
+    batched decode and chunked prefill need for their bit-identity."""
+    return ops.rmsnorm(x, p["scale"], eps=eps)
 
 
 def layernorm_init(d: int, dtype=torch.float32, device="cpu") -> Params:

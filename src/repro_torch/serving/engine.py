@@ -1,34 +1,53 @@
-"""Continuous-batching serving engine: a dense or paged KV cache + scheduler
-(the dense and paged subset of ``repro/serving/engine.py``).
+"""Continuous-batching serving engine: a dense or paged KV cache, a
+scheduler, chunked prefill under a per-step token budget and a prefix
+cache (counterpart of ``repro/serving/engine.py``).
 
 One persistent KV-cache allocation lives for the engine's lifetime.  A
 :class:`~repro_torch.serving.scheduler.Scheduler` admits queued requests
-into free slots *mid-decode*: an admission is prefilled into its slot (one
-request at a time, its prompt padded to a power-of-two bucket, against a
-fresh single-slot dense cache that is then copied into the persistent
-cache in place) and joins the very next batched decode step alongside
-every older in-flight request.
+into free slots *mid-decode*, and every admission joins a batched decode
+step beside the older in-flight requests.
 
-``ServeConfig(kv="dense")`` reserves ``batch_slots`` rows of ``max_len``.
-``kv="paged"`` swaps that for the ``repro_torch.serving.kvpool`` page pool:
-prefill scatters the prompt's pages into the pool along the slot's block
-table, decode appends rows (allocating pages on demand and preempting the
-youngest admission when the pool is exhausted; the victim is requeued at
-the head and regenerated), and completion, EOS and cancellation return a
-request's pages the same step.  ``kv_dtype="int8"`` stores quantized pages
-with per-row scales (``serving.quant``).
+* **Monolithic prefill** (``prefill_chunk=0``, the default): an admission
+  is prefilled whole, its prompt padded to a power-of-two bucket, against
+  a fresh single-slot dense cache that is then copied into the slot's row
+  (dense) or scattered into its pages (paged); it joins the very next
+  decode.
+* **Chunked prefill** (``prefill_chunk=N``): the prompt is cut into
+  N-token chunks (paged: rounded up to a page multiple), and the slot sits
+  in ``PREFILLING`` with a prompt cursor, its chunks running against its
+  own dense scratch at the cursor's offset, in the same steps as every
+  in-flight request's decode.  ``token_budget`` caps the tokens a step
+  spends: decode takes one a slot first, chunks the rest (at least one
+  chunk a step).  Greedy outputs are bit-identical to monolithic prefill:
+  every op on the path computes a row independently of the rows beside it
+  (the GEMM, attention and rmsnorm kernels by construction).
+* ``kv="paged"`` swaps the dense ``slots x max_len`` reservation for the
+  ``repro_torch.serving.kvpool`` page pool: pages are allocated on demand,
+  the youngest admission is preempted when the pool is exhausted (and
+  regenerated from the head of the queue), and completion, EOS and
+  cancellation return pages the same step.  ``kv_dtype="int8"`` stores
+  quantized pages with per-row scales (``serving.quant``).
+* ``prefix_cache=True`` (paged only) maps each prompt's page-aligned
+  prefix to resident pages through a radix tree behind per-page
+  refcounts: admission charges only the unshared suffix, the chunk cursor
+  starts at the first uncached page, and a write into a shared page
+  copies it first.  Cached pages keep a sidecar of their scratch rows at
+  full precision, so cached and uncached runs give the same tokens for
+  every page dtype.
 
 API: :meth:`ServeEngine.submit` queues a request (optionally with a
-streaming per-token callback), :meth:`step` runs one engine step
-(admissions + one batched decode), :meth:`cancel` drops a request,
-:meth:`drain` steps until idle and returns finished outputs, and the
-one-shot :meth:`generate` admits a uniform batch at step 0.
+streaming per-token callback), :meth:`step` runs one engine step,
+:meth:`cancel` drops a request wherever it is, :meth:`drain` steps until
+idle and returns finished outputs, and the one-shot :meth:`generate`
+admits a uniform batch at step 0.
 
-The engine runs on the device its parameters live on.  The reference's
-chunked prefill, prefix cache, weight-only quantization, pack mesh and
-tuner-resolved sizes raise ``NotImplementedError`` naming the ROADMAP item
-that brings them; none of them falls back to another path.  The ``obs``
-hooks (tracer spans, step profiler, SLO monitor, flight recorder) wait
+The engine runs on the device its parameters live on.  ``pretune`` is
+accepted and does nothing: the port's kernel plans are fixed functions of
+the shape, with nothing to resolve ahead.  Weight-only quantization,
+enc-dec encoders, the pack mesh and the tuner-resolved sizes raise
+``NotImplementedError`` naming the ROADMAP item that brings them; none
+falls back to another path.  The ``obs`` hooks (tracer spans, step
+profiler, SLO monitor, flight recorder, the ``prefix.*`` counters) wait
 for ROADMAP Queue A item 8.
 """
 
@@ -44,17 +63,22 @@ import torch
 from repro_torch.models import (decode_step, forward, init_cache,
                                 init_paged_cache)
 from repro_torch.models.config import ModelConfig, torch_dtype
-from repro_torch.serving.kvpool import BlockTables, PagePool, pages_for
+from repro_torch.serving.kvpool import (BlockTables, PagePool, PrefixCache,
+                                        pages_for)
 from repro_torch.serving.quant import KV_PAGE_DTYPES, quantize_kv_row
-from repro_torch.serving.scheduler import DECODE, Request, Scheduler, Slot
+from repro_torch.serving.scheduler import (DECODE, PREFILLING, Request,
+                                           Scheduler, Slot)
 
 
 @dataclasses.dataclass
 class ServeConfig:
     batch_slots: int = 8      # KV-cache slots (0 = tuner: not ported yet)
     max_len: int = 1024
+    enc_len: int = 0          # encoder length of enc-dec models
     temperature: float = 0.0  # 0 = greedy
     seed: int = 0             # torch.Generator seed for sampled decoding
+    quantize: bool = False    # int8 weight-only
+    pretune: bool = True      # accepted; the port has nothing to pre-resolve
     eos_id: Optional[int] = None  # sampled EOS ends the request early
     # KV layout: "dense" per-slot max_len rows, or "paged" (kvpool).
     kv: str = "dense"
@@ -65,14 +89,23 @@ class ServeConfig:
     page_size: Optional[int] = None
     pool_pages: int = 0
     kv_dtype: Optional[str] = None
-    # Options of the reference that later slices bring; each non-default
-    # value raises NotImplementedError (see _UNSUPPORTED).
-    quantize: bool = False
+    # Paged only: share page-aligned prompt prefixes through a radix tree
+    # behind per-page refcounts, copy-on-write on shared writes.  Forces
+    # the chunked path (prefill_chunk=0 then means one chunk over the
+    # whole uncached suffix).
     prefix_cache: bool = False
-    prefill_chunk: Optional[int] = 0  # None asks the tuner
-    token_budget: int = 0     # read by the latency policy's signals
+    # 0 = monolithic prefill; N > 0 = N-token chunks (paged: rounded up to
+    # a page multiple) interleaved with decode; None asks the tuner.
+    prefill_chunk: Optional[int] = 0
+    # Tokens a step may spend: decode takes one a slot first, prefill
+    # chunks the rest, oldest admission first.  0 = unbudgeted: every
+    # prefilling slot advances one chunk a step.
+    token_budget: int = 0
     policy: Any = "fifo"      # a scheduler Policy name or instance
+    # The multi-device pack GEMM and its options.
     pack_mesh: Any = None
+    pack_data_axis: Optional[str] = None
+    pack_min_flops: float = 2.0 * 1024 ** 3
 
 
 # (field, predicate on the value that the port cannot serve yet, the
@@ -81,14 +114,16 @@ _UNSUPPORTED = (
     ("page_size", lambda v: v == 0,
      "the tuner-resolved page size of paged KV (ROADMAP Queue A items 6.2 "
      "and 9)"),
-    ("prefix_cache", bool, "prefix caching (ROADMAP Queue A item 6.5)"),
-    ("prefill_chunk", lambda v: v != 0,
-     "chunked prefill and its tuner-resolved chunk (ROADMAP Queue A items "
-     "6.4 and 9)"),
+    ("prefill_chunk", lambda v: v is None,
+     "the tuner-resolved prefill chunk (ROADMAP Queue A item 9)"),
     ("quantize", bool,
      "int8 weight-only quantization (ROADMAP Queue A item 3)"),
+    ("enc_len", lambda v: v > 0,
+     "the enc-dec architectures' encoder (ROADMAP Queue A item 10)"),
     ("pack_mesh", lambda v: v is not None,
      "the multi-device pack GEMM (ROADMAP Queue A item 12)"),
+    ("pack_data_axis", lambda v: v is not None,
+     "the multi-device pack GEMM's data axis (ROADMAP Queue A item 12)"),
     ("batch_slots", lambda v: v == 0,
      "the tuner-resolved slot count (ROADMAP Queue A item 9)"),
 )
@@ -146,6 +181,11 @@ class ServeEngine:
                     f"ServeConfig.kv_dtype={scfg.kv_dtype!r} requires "
                     f"kv='paged' — the dense layout has no page pool to "
                     f"retype (got kv={scfg.kv!r})")
+        if scfg.prefix_cache and scfg.kv != "paged":
+            raise ValueError(
+                f"ServeConfig.prefix_cache requires kv='paged' — the dense "
+                f"layout has no page pool to share prefixes through (got "
+                f"kv={scfg.kv!r})")
         if scfg.kv == "paged" and scfg.page_size is None:
             raise NotImplementedError(
                 "ServeConfig.page_size=None with kv='paged' asks the tuner "
@@ -164,6 +204,7 @@ class ServeEngine:
         self.sched.signals = self._admission_signals
         self.caches = None            # allocated at first step
         self.paged = scfg.kv == "paged"
+        self.prefix = None
         if self.paged:
             ps = scfg.page_size
             self._max_pages = pages_for(scfg.max_len, ps)
@@ -174,12 +215,32 @@ class ServeEngine:
             # The dense scratch each prefill runs against is page-aligned,
             # so whole pages scatter into the pool.
             self._fresh_len = self._max_pages * ps
+            if scfg.prefix_cache:
+                self.prefix = PrefixCache(self.pool)
+                # A pool shortfall evicts LRU cache-only pages before alloc
+                # fails: cache eviction always precedes preemption.
+                self.pool.reclaimer = self.prefix.evict
         else:
             self.pool = self.blocks = None
             self._fresh_len = scfg.max_len
+        chunk = int(scfg.prefill_chunk)
+        if chunk < 0:
+            raise ValueError(f"ServeConfig.prefill_chunk must be >= 0 (or "
+                             f"None = tuner), got {chunk}")
+        if self.prefix is not None and chunk == 0:
+            # A prefix hit moves the chunk cursor: with no chunk size, one
+            # chunk covers the whole uncached suffix.
+            chunk = self._fresh_len
+        if chunk and self.paged:
+            # Page-aligned chunks: each chunk's scatter writes whole pages.
+            chunk = pages_for(chunk, scfg.page_size) * scfg.page_size
+        self.prefill_chunk = min(chunk, self._fresh_len)
         self._slot_req: Dict[int, Request] = {}  # slot -> its request
+        self._scratch: Dict[int, List] = {}       # slot -> chunk scratch
         self._streamed: Dict[int, int] = {}       # rid -> tokens streamed
         self._kv_tokens_hwm = 0
+        self._prefix_hit_tokens = 0
+        self._prefix_prompt_tokens = 0
         self.step_count = 0
         self._next_rid = 0
         self._tok = np.zeros((scfg.batch_slots,), np.int64)
@@ -190,8 +251,12 @@ class ServeEngine:
         self._on_token: Dict[int, Callable] = {}  # rid -> stream callback
         self._cancel_log: List[int] = []          # cancels since last step
         self.stats = {"admitted": 0, "finished": 0, "prefills": 0,
-                      "decode_steps": 0, "shared_steps": 0,
-                      "eos_exits": 0, "cancelled": 0, "preemptions": 0}
+                      "prefill_chunks": 0, "decode_steps": 0,
+                      "shared_steps": 0, "preemptions": 0,
+                      "eos_exits": 0, "cancelled": 0,
+                      "starved_steps": 0, "prefix_hits": 0,
+                      "prefix_hit_tokens": 0, "prefix_prompt_tokens": 0,
+                      "cow_copies": 0}
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -246,9 +311,10 @@ class ServeEngine:
         return rows * self.token_kv_bytes()
 
     def kv_bytes_high_water(self) -> int:
-        """Peak attention-KV bytes bound to live requests: the pool's
-        ``pages_in_use`` high-water x page bytes (paged), or the live-token
-        high-water x token bytes (dense)."""
+        """Peak attention-KV bytes bound to live requests: the pool's live
+        high-water (pages a slot references; cache-only pages are idle) x
+        page bytes (paged), or the live-token high-water x token bytes
+        (dense)."""
         if self.paged:
             rows = self.pool.high_water * self.pool.page_size
         else:
@@ -267,17 +333,18 @@ class ServeEngine:
             for key in ("k", "v"):
                 full["attn"][key][slot].copy_(fresh["attn"][key][0])
 
-    def _insert_slot_pages(self, one: List, slot: int) -> None:
-        """Scatter a freshly prefilled single-slot dense cache into the page
-        pools along the slot's block table, in place: the scratch's first
-        pages go to the slot's pages, one page per pool row.  int8 pools
-        quantize each token row on the way in and write its scale."""
-        pages = self.blocks.slot_pages(slot)
+    def _insert_pages(self, one: List, pages: List[int], first: int) -> None:
+        """Scatter pages ``first, first + 1, ...`` of a single-slot dense
+        scratch into the pool pages ``pages``, every layer, in place.  int8
+        pools quantize each token row on the way in and write its scale
+        (per row, so a page's bits do not depend on the call that wrote
+        it)."""
         ids = torch.tensor(pages, dtype=torch.long, device=self.device)
         ps = self.pool.page_size
+        lo, hi = first * ps, (first + len(pages)) * ps
         for full, fresh in zip(self.caches, one):
             for key in ("k", "v"):
-                dense = fresh["attn"][key][0, :, :len(pages) * ps]
+                dense = fresh["attn"][key][0, :, lo:hi]
                 hkv, _, d = dense.shape
                 rows = dense.reshape(hkv, len(pages), ps, d).transpose(0, 1)
                 pool = full["attn"][f"{key}_pages"]
@@ -287,6 +354,75 @@ class ServeEngine:
                     full["attn"][f"{key}_scale"][ids] = scale
                 else:
                     pool[ids] = rows.to(pool.dtype)
+
+    def _insert_slot_pages(self, one: List, slot: int) -> None:
+        """Scatter a freshly prefilled single-slot dense cache into the page
+        pools along the slot's block table: the scratch's first pages go to
+        the slot's pages."""
+        self._insert_pages(one, self.blocks.slot_pages(slot), 0)
+
+    def _insert_chunk_pages(self, one: List, slot: int, c0: int,
+                            rows: int) -> None:
+        """Scatter one prefill chunk's pages, scratch rows [c0, c0 + rows)
+        (page-aligned), into the slot's pages that hold them: O(chunk)
+        pages a call, not O(max_len)."""
+        ps = self.pool.page_size
+        p_lo = c0 // ps
+        pages = self.blocks.slot_pages(slot)[p_lo:p_lo + rows // ps]
+        self._insert_pages(one, pages, p_lo)
+
+    # -- prefix cache (kvpool.PrefixCache) ----------------------------------
+
+    def prefix_hit_rate(self) -> float:
+        """Cumulative prefix-cache hit rate: cached prompt tokens over all
+        prompt tokens admitted (0.0 when the cache is off)."""
+        return self._prefix_hit_tokens / max(1, self._prefix_prompt_tokens)
+
+    def _note_prefix(self, req: Request, hit_pages: int) -> None:
+        """Account one admission's lookup, once per admission (not per
+        fits() probe, so deferred requests do not skew the rate)."""
+        hit = hit_pages * self.pool.page_size
+        self._prefix_prompt_tokens += req.prompt_len
+        self.stats["prefix_prompt_tokens"] = self._prefix_prompt_tokens
+        if hit:
+            self._prefix_hit_tokens += hit
+            self.stats["prefix_hits"] += 1
+            self.stats["prefix_hit_tokens"] = self._prefix_hit_tokens
+
+    def _slice_prefix_page(self, scratch: List, page_idx: int) -> List:
+        """One full page of a slot's dense-scratch KV rows, every layer: the
+        radix node's sidecar, copied out at the scratch's dtype (whatever
+        the page dtype), so a later hit restores exactly the rows this
+        prefill computed and the scratch itself can be freed."""
+        lo = page_idx * self.pool.page_size
+        hi = lo + self.pool.page_size
+        return [{k: lc["attn"][k][:, :, lo:hi].clone() for k in ("k", "v")}
+                for lc in scratch]
+
+    def _restore_prefix(self, scratch: List, payloads: List) -> None:
+        """Write a hit's sidecar pages into a fresh scratch's leading rows,
+        in place."""
+        ps = self.pool.page_size
+        for i, page in enumerate(payloads):
+            for lc, rows in zip(scratch, page):
+                for k in ("k", "v"):
+                    lc["attn"][k][:, :, i * ps:(i + 1) * ps] = rows[k]
+
+    def _cache_prefix(self, slot: Slot, req: Request) -> None:
+        """At prefill completion, insert the prompt's full pages (and their
+        scratch-row sidecars) into the radix tree, which takes its own
+        reference on each newly cached page.  Decode appends land after
+        the full-page prefix, so cached pages are never written again
+        (the copy-on-write guard holds the invariant anyway)."""
+        ps = self.pool.page_size
+        full = req.prompt_len // ps
+        if full == 0:
+            return
+        scratch = self._scratch[slot.index]
+        payloads = [self._slice_prefix_page(scratch, i) for i in range(full)]
+        self.prefix.insert(req.prompt[:full * ps],
+                           self.blocks.slot_pages(slot.index)[:full],
+                           payloads)
 
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
         """Greedy: argmax, first index on ties (torch.argmax's rule, as
@@ -299,12 +435,19 @@ class ServeEngine:
         return torch.multinomial(probs, 1, generator=self._gen)[:, 0]
 
     def _admission_signals(self) -> Dict[str, Any]:
-        """Load picture the scheduler policy decides from.  Without
-        chunked prefill no slot holds pending prompt chunks, so the
-        backlog is 0."""
+        """Load picture the scheduler policy decides from: the token
+        budget, the decode tokens in flight, and the prompt tokens the
+        prefilling slots' next chunks hold."""
+        backlog = 0
+        if self.prefill_chunk:
+            for s in self.sched.slots:
+                req = self._slot_req.get(s.index)
+                if s.state == PREFILLING and req is not None:
+                    backlog += min(self.prefill_chunk,
+                                   req.prompt_len - s.prefill_pos)
         return {"token_budget": self.scfg.token_budget,
                 "decode_tokens": len(self.sched.active_slots()),
-                "prefill_backlog": 0}
+                "prefill_backlog": backlog}
 
     # -- continuous-batching API --------------------------------------------
 
@@ -346,17 +489,27 @@ class ServeEngine:
             self._runnable_at[rid] = time.perf_counter()
         return rid
 
-    def step(self) -> Dict[str, Any]:
-        """One engine step: admit arrived requests into free slots (each
-        prefilled and seeded with its first token); (paged) grow every
-        active slot's block table for the row its next token writes,
-        preempting the youngest admission while the pool is exhausted; run
-        one batched decode over every active slot at per-slot positions;
-        then a second admission pass so slots and pages freed this step
-        (EOS, completion, cancel, preemption) are reused at once.  Returns
-        the step's events: {admitted, decoded, finished, preempted,
-        cancelled} request ids, per-request ``ttft_ms`` for first tokens,
-        per-stream ``itl_ms`` gaps, and ``timings``."""
+    def step(self, token_budget: Optional[int] = None) -> Dict[str, Any]:
+        """One engine step under a token budget, in the reference's order:
+
+        1. admit arrived requests into free slots (the policy's call):
+           monolithic admissions prefill whole and emit their first token,
+           chunked ones enter ``PREFILLING`` with the cursor at 0 (or past
+           their cached prefix);
+        2. advance chunked prefills (budget permitting): a slot whose
+           cursor reaches the prompt's end emits its first token and joins
+           this step's decode;
+        3. (paged) grow every decoding slot's block table for the row its
+           next token writes, copying a shared page first and preempting
+           the youngest admission while the pool is exhausted; then one
+           batched decode over every decoding slot at per-slot positions;
+        4. a second admission pass, so slots and pages freed this step
+           (EOS, completion, cancel, preemption) are reused at once.
+
+        ``token_budget`` overrides ``ServeConfig.token_budget`` for this
+        step.  Returns the step's events: {admitted, decoded, finished,
+        preempted, cancelled} request ids, per-request ``ttft_ms`` for
+        first tokens, per-stream ``itl_ms`` gaps, and ``timings``."""
         self._check_open("step")
         if self.caches is None:
             self.caches = self.new_cache()
@@ -366,6 +519,8 @@ class ServeEngine:
             if r.arrival <= self.step_count and r.rid not in self._runnable_at:
                 self._runnable_at[r.rid] = t_step
         holdover = [s.rid for s in self.sched.active_slots()]
+        budget = (self.scfg.token_budget if token_budget is None
+                  else int(token_budget))
         events: Dict[str, Any] = {"admitted": [], "decoded": [],
                                   "finished": [], "preempted": [],
                                   "cancelled": list(self._cancel_log),
@@ -373,6 +528,11 @@ class ServeEngine:
         self._cancel_log.clear()
         self._admit(events)
         admit_ms = (time.perf_counter() - t_step) * 1e3
+        t_pf = time.perf_counter()
+        prefill_ms = 0.0
+        if any(s.state == PREFILLING for s in self.sched.slots):
+            self._advance_prefills(events, budget)
+            prefill_ms = (time.perf_counter() - t_pf) * 1e3
         if self.paged:
             self._grow_pages(events)
         active = self.sched.active_slots()
@@ -384,7 +544,7 @@ class ServeEngine:
                 # (dense: replaced wholesale on re-admission; paged: the
                 # null sink page); the clamp only guards the bound.
                 pos[s.index] = min(s.length, self._fresh_len - 1)
-            tables = (torch.from_numpy(self.blocks.table).to(self.device)
+            tables = (torch.from_numpy(self._decode_table()).to(self.device)
                       if self.paged else None)
             t_dec = time.perf_counter()
             logits, self.caches = decode_step(
@@ -410,21 +570,42 @@ class ServeEngine:
         if self._cancel_log:
             events["cancelled"].extend(self._cancel_log)
             self._cancel_log.clear()
+        if holdover and active and admit_ms + prefill_ms > decode_ms:
+            # In-flight streams waited longer on prefill work than on
+            # their own batched decode: what chunking exists to bound.
+            self.stats["starved_steps"] += 1
         if events["finished"] or events["preempted"] or events["cancelled"]:
             self._admit(events)
+        self._note_kv_tokens(sum(s.length for s in self.sched.active_slots()))
         self.step_count += 1
         events["timings"] = {
-            "admit_ms": admit_ms, "decode_ms": decode_ms,
+            "admit_ms": admit_ms, "prefill_ms": prefill_ms,
+            "decode_ms": decode_ms,
             "step_ms": (time.perf_counter() - t_step) * 1e3,
         }
         return events
 
+    def _decode_table(self) -> np.ndarray:
+        """Block tables as the decode step sees them: a slot in the middle
+        of its chunked prefill gets an all-sink row, so the garbage token
+        its inactive lane writes cannot land on a page its chunks were
+        already scattered into."""
+        pre = [s.index for s in self.sched.slots if s.state == PREFILLING]
+        if not pre:
+            return self.blocks.table
+        table = self.blocks.table.copy()
+        table[pre] = self.pool.null_page
+        return table
+
     def _admit(self, events: Dict[str, Any]) -> None:
-        """Admission pass: prefill every admitted request into its slot
-        without a host sync, then read the first tokens back.  Paged, a
-        strict-FIFO gate admits a request only while the free pages cover
-        its prompt and its first decode row, reserving cumulatively."""
+        """Admission pass: free slots and (paged) enough free pages for each
+        prompt, reserved cumulatively in FIFO order.  With the prefix cache,
+        each candidate's cached prefix is pinned by a pool reference and
+        only its unshared suffix is charged, against free pages plus the
+        evictable cache-only ones.  Monolithic admissions prefill without a
+        host sync; their first tokens are read back after the pass."""
         fits = None
+        pins: Dict[int, tuple] = {}     # rid -> pinned (pages, payloads)
         if self.paged:
             budget, ps = self.pool.free_pages, self.pool.page_size
             reserved = 0
@@ -436,20 +617,57 @@ class ServeEngine:
                 # itself in _grow_pages the same step.
                 nonlocal reserved
                 need = pages_for(req.prompt_len + 1, ps)
-                if reserved + need > budget:
+                headroom = budget
+                if self.prefix is not None:
+                    if req.rid not in pins:
+                        # Only full pages strictly before the last prompt
+                        # token can come from the cache: that token is
+                        # always forwarded, its logits seed decode.
+                        hit = self.prefix.lookup(
+                            req.prompt, max_pages=(req.prompt_len - 1) // ps)
+                        if hit[0]:
+                            # Pinned: out of evictable() and the evictor.
+                            self.pool.share(hit[0])
+                        pins[req.rid] = hit
+                    need -= len(pins[req.rid][0])
+                    headroom = self.pool.free_pages + self.prefix.evictable()
+                if reserved + need > headroom:
                     return False
                 reserved += need
                 return True
         inflight = []
         for req in self.sched.pop_admissible(self.step_count, fits=fits):
-            slot = self.sched.admit(req)
+            slot = self.sched.admit(
+                req, state=PREFILLING if self.prefill_chunk else DECODE)
+            hit_pages, hit_payloads = pins.pop(req.rid, ([], []))
             if self.paged:
-                pages = self.blocks.assign(slot.index, req.prompt_len)
+                # The slot takes over the pinned prefix's references and
+                # allocates only the unshared suffix.
+                pages = self.blocks.assign(slot.index, req.prompt_len,
+                                           shared=hit_pages)
                 assert pages is not None, "admission fits() reserved these"
+                if self.prefix is not None:
+                    self._note_prefix(req, len(hit_pages))
             self._slot_req[slot.index] = req
-            inflight.append((slot, self._prefill_slot(slot, req)))
+            if self.prefill_chunk:
+                scratch = init_cache(self.cfg, 1, self._fresh_len,
+                                     self.device)
+                if hit_pages:
+                    # Cached tokens are never forwarded again: their rows
+                    # come back from the sidecar at full precision and the
+                    # cursor starts at the first uncached page.
+                    self._restore_prefix(scratch, hit_payloads)
+                    slot.prefill_pos = len(hit_pages) * self.pool.page_size
+                self._scratch[slot.index] = scratch
+            else:
+                inflight.append((slot, self._prefill_slot(slot, req)))
             self.stats["admitted"] += 1
             events["admitted"].append(req.rid)
+        # Unpin what fits() approved but the policy did not take (it stays
+        # queued; the next pass pins again).
+        for hit_pages, _ in pins.values():
+            if hit_pages:
+                self.pool.release(hit_pages)
         for slot, tok0 in inflight:
             tok = int(tok0)
             self._tok[slot.index] = tok
@@ -479,11 +697,81 @@ class ServeEngine:
         slot.length = plen
         return torch.argmax(logits[0, plen - 1])
 
+    def _advance_prefills(self, events: Dict[str, Any], budget: int) -> None:
+        """Spend the step's prefill tokens on prompt chunks, oldest
+        admission first.  Decode claims one budget token per active slot up
+        front; what is left buys chunks.  Unbudgeted (``budget <= 0``)
+        every prefilling slot advances exactly one chunk.  The first chunk
+        always runs, so prefill cannot starve behind a saturated decode."""
+        chunk = self.prefill_chunk
+        avail = (budget - len(self.sched.active_slots()) if budget > 0
+                 else None)
+        advanced = 0
+        for slot in self.sched.prefilling_slots():
+            while slot.state == PREFILLING:
+                if advanced and avail is not None and avail < chunk:
+                    return
+                self._prefill_chunk_step(slot, events)
+                advanced += 1
+                if avail is None:
+                    break       # unbudgeted: one chunk a slot a step
+                avail -= chunk
+
+    def _prefill_chunk_step(self, slot: Slot, events: Dict[str, Any]) -> None:
+        """Advance one slot's prefill by one chunk: prompt tokens [c0, c0 +
+        take) run against the slot's dense scratch at offset c0 (the KV
+        write offset and RoPE base; attention is causal over the scratch's
+        prefix), then (paged) exactly that chunk's pages scatter into the
+        pool.  The last chunk seeds the first token from its last row's
+        logits, as monolithic prefill does, and flips the slot to DECODE so
+        it joins this step's decode."""
+        req = self._slot_req[slot.index]
+        chunk, plen = self.prefill_chunk, req.prompt_len
+        c0 = slot.prefill_pos
+        take = min(chunk, plen - c0)
+        # The buffer is sized to the page-aligned take, never the full
+        # chunk: a full-chunk buffer on a tail chunk (or a cursor moved
+        # past cached pages) would run past the scratch's end.  Aligned,
+        # c0 + buf <= ceil(plen / ps) * ps <= the scratch's rows.
+        if self.paged:
+            ps = self.pool.page_size
+            buf = pages_for(take, ps) * ps
+        else:
+            buf = min(chunk, self._fresh_len - c0)
+        toks = np.zeros((1, buf), np.int64)
+        toks[0, :take] = req.prompt[c0:c0 + take]
+        scratch = self._scratch[slot.index]
+        logits, _ = forward(
+            self.params, {"tokens": torch.from_numpy(toks).to(self.device)},
+            self.cfg, caches=scratch, cache_pos=c0)
+        if self.paged:
+            self._insert_chunk_pages(scratch, slot.index, c0, buf)
+        self.stats["prefill_chunks"] += 1
+        slot.prefill_pos = c0 + take
+        if slot.prefill_pos < plen:
+            return
+        # Last chunk: dense copies the whole scratch into the slot's row
+        # (leak-free, as monolithic); paged scattered every page already.
+        if not self.paged:
+            self._insert_slot(scratch, slot.index)
+        if self.prefix is not None:
+            # Cache the prompt's full pages while the scratch still holds
+            # their full-precision rows.
+            self._cache_prefix(slot, req)
+        self._scratch.pop(slot.index, None)
+        tok0 = int(torch.argmax(logits[0, take - 1]))
+        slot.state = DECODE
+        slot.length = plen
+        self.stats["prefills"] += 1
+        self._tok[slot.index] = tok0
+        self._emit(slot, tok0, events)
+
     def cancel(self, rid: int) -> bool:
-        """Drop a request wherever it is — queued or mid-decode — freeing
-        its slot (and, paged, its pages) the same step.  Partial output is
-        discarded.  Safe from an ``on_token`` callback.  False when ``rid``
-        is unknown or already finished."""
+        """Drop a request wherever it is — queued, in the middle of its
+        chunked prefill, or mid-decode — freeing its slot, its scratch and
+        (paged) its pages the same step.  Partial output is discarded.
+        Safe from an ``on_token`` callback.  False when ``rid`` is unknown
+        or already finished."""
         self._check_open("cancel")
         req = self.sched.cancel(rid)
         self._streamed.pop(rid, None)
@@ -494,8 +782,9 @@ class ServeEngine:
             self._cancel_log.append(rid)
             return True
         for slot in self.sched.slots:
-            if slot.rid == rid and slot.state == DECODE:
+            if slot.rid == rid and slot.state in (DECODE, PREFILLING):
                 self._out.pop(rid, None)
+                self._scratch.pop(slot.index, None)
                 self._slot_req.pop(slot.index, None)
                 if self.paged:
                     self.blocks.release(slot.index)
@@ -576,6 +865,8 @@ class ServeEngine:
         for s in sorted(self.sched.active_slots(), key=lambda s: s.admit_seq):
             if s.state != DECODE:
                 continue            # preempted by an earlier iteration
+            if self.prefix is not None and not self._cow_guard(s, events):
+                continue            # s preempted itself paying for a copy
             while not self.blocks.extend_to(s.index, s.length + 1):
                 victim = max(self.sched.active_slots(),
                              key=lambda v: v.admit_seq)
@@ -583,13 +874,44 @@ class ServeEngine:
                 if victim is s:
                     break           # s yielded its own pages
 
+    def _cow_guard(self, s: Slot, events: Dict[str, Any]) -> bool:
+        """Copy-on-write before a decode write lands in a shared page: if
+        the page holding position ``length`` has other referents, copy it
+        into a fresh page of the slot's own first (every layer's k and v
+        pools, and an int8 pool's scales), so the sharers keep the original
+        bits.  Cached pages sit strictly before the first decode position,
+        so this guards an invariant rather than a hot path.  False when
+        the slot preempted itself paying for the copy."""
+        idx = s.length // self.pool.page_size
+        spages = self.blocks.slot_pages(s.index)
+        if idx >= len(spages) or self.pool.refcount(spages[idx]) <= 1:
+            return True
+        res = self.blocks.cow(s.index, idx)
+        while res is None:          # pool exhausted even after eviction
+            victim = max(self.sched.active_slots(),
+                         key=lambda v: v.admit_seq)
+            self._preempt(victim, events)
+            if victim is s:
+                return False
+            res = self.blocks.cow(s.index, idx)
+        src, dst = res
+        if src != dst:
+            for layer in self.caches:
+                for pool in layer["attn"].values():
+                    pool[dst] = pool[src]
+            self.stats["cow_copies"] += 1
+        return True
+
     def _preempt(self, slot: Slot, events: Dict[str, Any]) -> None:
         """Evict a mid-decode request to reclaim its pages: its partial
         output is discarded and the request returns to the head of the
-        queue (greedy decoding regenerates the identical stream)."""
+        queue (greedy decoding regenerates the identical stream).  Only the
+        slot's own page references go; pages it shares survive for the
+        other referents."""
         rid = slot.rid
         self._out.pop(rid, None)
         self._last_emit.pop(rid, None)
+        self._scratch.pop(slot.index, None)
         self.blocks.release(slot.index)
         req = self._slot_req.pop(slot.index)
         self.sched.release(slot)

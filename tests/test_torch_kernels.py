@@ -35,6 +35,7 @@ from repro_torch.kernels.decode_attention import (flash_decode,
                                                   flash_paged_decode)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gemm import gama_gemm
+from repro_torch.kernels.rmsnorm import rmsnorm, vec_width
 from repro_torch.kernels.wkv import wkv6, wkv6_bwd
 from repro_torch.serving import quant as tquant
 
@@ -478,6 +479,8 @@ def test_kernel_mode_on_cpu_tensors_raises():
     with pytest.raises(ValueError, match="CUDA"):
         tops.decode(q[:, :, 0], q, q, length=torch.tensor([3]),
                     mode="kernel")
+    with pytest.raises(ValueError, match="CUDA"):
+        tops.rmsnorm(a, torch.ones(16), mode="kernel")
 
 
 def _kernel_calls(dev, grad):
@@ -499,6 +502,7 @@ def _kernel_calls(dev, grad):
             q3, pool, pool, table, length=length),
         "wkv6": lambda: wkv6(x, x, x, x, u),
         "wkv6_bwd": lambda: wkv6_bwd(x, x, x, x, u, x),
+        "rmsnorm": lambda: rmsnorm(x, u[0]),
     }
 
 
@@ -1068,3 +1072,39 @@ def test_cuda_wkv6_and_bwd_match_plain(b, h, t, n, w_zero, dtype, tol):
         _close_to_max(got_g, want_g, tol if got_g.dtype == dtype else 1e-4)
     assert torch.equal(y, y_again)
     assert all(torch.equal(a_, b_) for a_, b_ in zip(grads, again))
+
+
+# The norms of the serve path: SmolLM-360M (960 bf16), the SMOKE configs
+# (96 f32), Qwen3-8B's qk_norm (128 bf16) and d_model (4096 bf16), and rows
+# that are not a whole number of 16-byte vectors.
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype", [
+    (960, torch.bfloat16), (96, torch.float32), (128, torch.bfloat16),
+    (4096, torch.bfloat16), (100, torch.bfloat16), (35, torch.float32)])
+def test_cuda_rmsnorm_matches_plain_and_rows_do_not_depend_on_the_call(
+        d, dtype):
+    """Within 1e-6 relative of the plain version (float64 sums) in f32 and
+    one bf16 ulp in bf16; every row torch.equal at M = 1, 3, 8, 488 and
+    512 and computed alone."""
+    _require_cuda()
+    g = torch.Generator(device="cuda").manual_seed(d)
+    x = (torch.randn((512, d), generator=g, device="cuda") * 3).to(dtype)
+    scale = 1 + 0.1 * torch.randn((d,), generator=g, device="cuda")
+    whole = rmsnorm(x, scale)
+    want = tops.rmsnorm(x, scale, mode="ref")
+    torch.cuda.synchronize()
+    assert whole.dtype == dtype and torch.isfinite(whole.float()).all()
+    tol = 1e-6 if dtype == torch.float32 else 2.0 ** -7
+    err = (whole.double() - want.double()).abs()
+    assert bool((err <= tol * want.double().abs() + 1e-30).all()), \
+        err.max().item()
+    for m in (1, 3, 8, 488):
+        assert torch.equal(rmsnorm(x[:m].contiguous(), scale), whole[:m]), m
+    alone = torch.cat([rmsnorm(x[i:i + 1].contiguous(), scale)
+                       for i in range(16)])
+    assert torch.equal(alone, whole[:16])
+    # A view off the 16-byte boundary is copied, not read misaligned.
+    if vec_width(d, dtype) > 1:
+        odd = torch.empty(512 * d + 1, dtype=dtype, device="cuda")[1:]
+        odd = odd.view(512, d).copy_(x)
+        assert torch.equal(rmsnorm(odd, scale), whole)

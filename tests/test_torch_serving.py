@@ -237,8 +237,8 @@ def test_submit_validation_and_close_as_reference():
 
 
 @pytest.mark.parametrize("option,value,item", [
-    ("prefix_cache", True, "6.5"), ("prefill_chunk", 8, "6.4"),
-    ("prefill_chunk", None, "6.4"), ("quantize", True, "item 3"),
+    ("enc_len", 16, "item 10"), ("pack_data_axis", "data", "item 12"),
+    ("prefill_chunk", None, "item 9"), ("quantize", True, "item 3"),
     ("pack_mesh", object(), "item 12"), ("batch_slots", 0, "item 9"),
     ("page_size", 0, "6.2 and 9")])
 def test_unported_options_raise(option, value, item):
@@ -251,16 +251,30 @@ def test_unported_options_raise(option, value, item):
 
 @pytest.mark.parametrize("option,value,item", [
     ("page_size", 0, "items 6.2 and 9"), ("page_size", None, "item 9"),
-    ("prefix_cache", True, "6.5"), ("prefill_chunk", 8, "6.4")])
+    ("prefill_chunk", None, "item 9"), ("enc_len", 16, "item 10")])
 def test_unported_paged_options_raise(option, value, item):
-    """Paged KV and int8 pages are served; the tuner's page size, the
-    prefix cache and chunked prefill on top of them still raise."""
+    """Paged KV, int8 pages, chunked prefill and the prefix cache are
+    served; the tuner's page size and chunk and an encoder still raise."""
     _, tcfg, _, tparams = _setup()
     scfg = dataclasses.replace(ServeConfig(batch_slots=2, max_len=32,
                                            kv="paged", page_size=16),
                                **{option: value})
     with pytest.raises(NotImplementedError, match=item):
         ServeEngine(tcfg, tparams, scfg)
+
+
+@pytest.mark.parametrize("pretune", [False, True])
+def test_pretune_is_accepted(pretune):
+    """A caller shaped like the reference passes ``pretune``: the port's
+    kernel plans are fixed functions of the shape, so both values serve
+    the same tokens."""
+    eng = _engine(1, pretune=pretune)
+    try:
+        got = eng.generate(np.arange(5, dtype=np.int32)[None], 3)
+    finally:
+        eng.close()
+    np.testing.assert_array_equal(got[0],
+                                  _oneshot(np.arange(5, dtype=np.int32), 3))
 
 
 def test_kv_options_validated_as_reference():
