@@ -34,33 +34,48 @@
    configs' 96 in f32 and Qwen3-8B's qk_norm and d_model, every row
    ``torch.equal`` at M = 1, 3, 8, 488 and 512 and alone.
 4. Serve: the SMOKE config (f32, heads of 16) replays smoke6 on dense
-   KV, f32 pages and int8 pages, then the serve launcher runs with its
-   defaults (dense, then ``--kv paged --page_size 16``), all under
-   ``--verify``, and two more launcher runs: shared16 with the prefix
-   cache, smoke6 in chunks of 16 under a budget of 12.  SmolLM-360M FULL
+   KV, f32 pages and int8 pages, an impossible ITL target trips the
+   flight recorder (its file written with reason ``slo_breach``), then
+   the serve launcher runs with its defaults (dense, then ``--kv paged
+   --page_size 16``), all under ``--verify``, and three more launcher
+   runs: shared16 with the prefix cache, smoke6 in chunks of 16 under a
+   budget of 12, bursty24 on the wall clock in chunks of 16; and
+   ``--arrivals pareto --rate 16 --dump-trace`` writes a trace that
+   ``load_trace`` reads back.  SmolLM-360M FULL
    (32 layers, d_model 960, bf16, seeded
    random weights) replays traces through the port's continuous-batching
    ``ServeEngine`` with every GEMM, prefill attention and decode attention
    on the kernels: ``benchmarks/traces/smoke6.jsonl`` on the dense KV
    cache, then four paged-KV replays (bf16 pages, int8 pages, a 4-page
    pool that forces preemption, and 8 requests of 448-token prompts).
-   Launch counts are reset just before and read just after each measured
-   replay and checked per path; each replay ends with ``--verify``'s check
+   Launch counts, the metrics registry and the tracer are reset just
+   before and read just after each measured replay and checked per path
+   (every ``ops.*.ref`` route counter 0, each ``.kernel`` counter equal
+   to its kernel's launches); each replay ends with ``--verify``'s check
    (bit-identical to a one-slot one-shot engine).  Chunked prefill and
    the prefix cache at full width: the 8 x 448 trace in chunks of 128
    (budgeted and not, bf16 pages; dense; int8 pages), each stream equal
    to its monolithic replay's, 32 chunks, attention at q_offset > 0 and
    the latency rows beside the monolithic run's; shared16 with the prefix
    cache off and on (bf16 and int8 pages), cached equal to uncached, the
-   hit rate and live page high-waters equal to the JAX engine's.  Then a
+   hit rate and live page high-waters equal to the JAX engine's.  The
+   observability layer at full width: bursty24 on the wall clock (speed
+   1) in chunks of 32 under a budget of 8 + 2 x 32, each stream equal to
+   its one-shot engine's; the 8 x 448 replay with the tracer on, its
+   snapshot, Chrome trace and flight record written, validated and
+   rendered by ``tools/obs_report.py``, ``flash_paged_decode`` placed on
+   the H100 roofline, its streams equal to the untraced replay's.  Then a
    kernel-vs-plain-GEMM logit check, a 448-token prompt's prefill logits
    with the attention kernel against the same prefill with the plain
    attention, a profile of a decode step (by kernel and by kind, with its
    225 ``gama_gemm`` launches checked), the 8-slot decode step with the
    rmsnorm kernel against the eager plain norm (wall, device time,
-   kernels a step, 65 rmsnorm launches a step checked), and one of the
-   8 x 448 replay (its prefill attention's and paged decode's device
-   time).
+   kernels a step, 65 rmsnorm launches a step checked), the engine's
+   own step attribution (``device_ms``, ``bubble_ms``,
+   ``bubble_fraction``) beside ``torch.profiler``'s device-busy time and
+   idle share for the same 8-slot decode steps, and the step's wall with
+   the metrics registry on and off, in turns; and a profile of the 8 x
+   448 replay (its prefill attention's and paged decode's device time).
 5. Train: the wkv6 forward and backward kernels against their plain
    versions at the training shape, a ragged length and a long one, and
    the head-16 builds the SMOKE config runs (bf16, and f32 at the
@@ -89,6 +104,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -99,6 +115,8 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch import configs as C  # noqa: E402
 from repro_torch import kernels as K  # noqa: E402
+from repro_torch import obs  # noqa: E402
+from repro_torch.core import hw  # noqa: E402
 from repro_torch.configs.gama_paper import ARRAY_GEMMS  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
@@ -126,12 +144,14 @@ from repro_torch.serving.engine import ServeConfig, ServeEngine  # noqa: E402
 from repro_torch.serving.kvpool import pages_for  # noqa: E402
 from repro_torch.serving.quant import quantize_kv_pages  # noqa: E402
 
-# Published H100 SXM peaks (NVIDIA data sheet; dense, 700 W): device
-# memory bytes/s, and operations/s by input type.
-HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {torch.bfloat16: 989e12, torch.float32: 67e12,
-              torch.int8: 1979e12}
-L2_BYTES = 50 * 2 ** 20
+# Published H100 SXM peaks (NVIDIA data sheet; dense, 700 W), from the
+# port's hardware model: device memory bytes/s, operations/s by input type,
+# and the L2 a timed working set must exceed.
+HBM_BYTES_S = hw.H100_SXM.hbm_bw
+PEAK_OPS_S = {torch.bfloat16: hw.H100_SXM.peak_bf16_flops,
+              torch.float32: hw.H100_SXM.peak_f32_flops,
+              torch.int8: hw.H100_SXM.peak_int8_ops}
+L2_BYTES = hw.H100_SXM.l2_bytes
 DEV = "cuda"
 
 SOURCES = {"gama_gemm": "src/repro_torch/csrc/gemm.cu",
@@ -1049,16 +1069,26 @@ def profile_decode_norms(cfg, params, steps=5):
                                  f"launches a step, expected {want}")
 
 
+# The ops wrappers' route counters and the kernel launch counters they
+# must equal on a path (every ``.ref`` counter reads 0 there).
+ROUTES = {"ops.matmul": "gama_gemm", "ops.decode": "flash_decode",
+          "ops.decode_paged": "flash_paged_decode"}
+
+
 def replay(cfg, params, trace, scfg, label, verify=True, warm=True):
     """One path of the main run: a warm-up replay (``warm``; without it the
     engine is cold, as a prefix cache must be to count its first hits),
-    then the measured replay
-    with every launch count set to 0 just before and read just after, its
-    outputs checked, and (``verify``) ``--verify``'s bit-identity check
-    against a one-shot engine.  Returns the measured replay's launch
-    counts (``flash_attention`` launches at q_offset > 0 under
-    ``"flash_attention@q_offset>0"``), its report and the closed engine."""
+    then the measured replay with every launch count, the metrics registry
+    and the tracer set to 0 just before and read just after, its outputs
+    checked, the route counters held to the launch counts (no ``.ref``
+    route taken), and (``verify``) ``--verify``'s bit-identity check
+    against a one-shot engine.  A trace with ``arrival_s`` replays on the
+    wall clock.  Returns the measured replay's launch counts
+    (``flash_attention`` launches at q_offset > 0 under
+    ``"flash_attention@q_offset>0"``), its report (the registry's snapshot
+    under ``"metrics"``) and the closed engine."""
     engine = ServeEngine(cfg, params, scfg)
+    bundle = obs.get_obs()
     try:
         if warm:
             S.run_trace(engine, trace, log=None)     # warm-up replay
@@ -1066,12 +1096,23 @@ def replay(cfg, params, trace, scfg, label, verify=True, warm=True):
         torch.cuda.reset_peak_memory_stats()
         K.reset_launch_counts()
         fa_mod.offset_launches = 0
+        bundle.registry.reset_values()
+        bundle.tracer.clear()
         rep = S.run_trace(engine, trace, log=None)
         torch.cuda.synchronize()
         counts = K.launch_counts()
         offset = fa_mod.offset_launches
+        rep["metrics"] = bundle.registry.snapshot()
     finally:
         engine.close()
+    routes = {name: rep["metrics"]["counters"].get(name, 0.0)
+              for op in ROUTES for name in (f"{op}.kernel", f"{op}.ref")}
+    bad = {op: [routes[f"{op}.kernel"], routes[f"{op}.ref"], counts[k]]
+           for op, k in ROUTES.items()
+           if routes[f"{op}.ref"] or routes[f"{op}.kernel"] != counts[k]}
+    if bad:
+        raise AssertionError(f"{label}: route counters [kernel, ref] and "
+                             f"launches disagree: {json.dumps(bad)}")
     peak = torch.cuda.max_memory_allocated()
     if len(rep["results"]) != len(trace):
         raise AssertionError(f"{label}: {len(rep['results'])}/{len(trace)} "
@@ -1111,10 +1152,13 @@ def replay(cfg, params, trace, scfg, label, verify=True, warm=True):
           f"decode_ms={rep['decode_ms']:.3f} "
           f"decode_steps={rep['decode_steps']} "
           f"shared_steps={rep['shared_steps']} "
+          f"bubble_fraction={rep['bubble_fraction']:.4f} "
+          f"slo_breaches={rep['slo_breaches']} "
           f"kv_bytes_high_water={rep['kv_bytes_hwm']} "
           f"kv_bytes_reserved={rep['kv_bytes_reserved']} "
           f"max_memory_allocated={peak}")
-    print(f"[serve] {label}: launches {json.dumps(counts)}")
+    print(f"[serve] {label}: launches {json.dumps(counts)} routes "
+          f"{json.dumps(routes)}")
     # Every path runs the GEMM, prefill attention and the norms; decode
     # goes through the dense kernel on the dense cache and the paged one
     # on the pool; a chunked path runs attention at q_offset > 0.
@@ -1256,10 +1300,12 @@ def profile_replay(cfg, params, trace, scfg, label):
 def smoke_serve_phase(cfg, trace, max_len):
     """The SMOKE config (f32, heads of 16) on the card: smoke6 replayed on
     dense KV, on f32 pages of 16 and on int8 pages, each through
-    ``replay`` (launch counts per path, ``--verify``'s check); then the
-    serve launcher itself with its defaults (SMOKE, a synthetic trace, the
-    card), dense and paged, under ``--verify``.  Returns the replays'
-    launch counts."""
+    ``replay`` (launch counts per path, ``--verify``'s check); an SLO trip;
+    then the serve launcher itself with its defaults (SMOKE, a synthetic
+    trace, the card), dense and paged, shared16 with the prefix cache,
+    smoke6 chunked and bursty24 on the wall clock, chunked, all under
+    ``--verify``, and a Pareto trace dumped and read back.  Returns the
+    replays' launch counts."""
     set_gemm_mode("kernel")
     params = init_params(cfg, seed=1, device=DEV)
     paged = dict(kv="paged", page_size=16)
@@ -1274,12 +1320,15 @@ def smoke_serve_phase(cfg, trace, max_len):
         counts, _, _ = replay(cfg, params, trace, scfg, label)
         for n in total:
             total[n] += counts[n]
+    slo_trip(cfg, params, trace, max_len)
     for argv in (["--verify"],
                  ["--kv", "paged", "--page_size", "16", "--verify"],
                  ["--trace", "shared16", "--kv", "paged", "--page_size", "16",
                   "--prefix-cache", "--verify"],
                  ["--trace", "smoke6", "--prefill-chunk", "16",
-                  "--token-budget", "12", "--verify"]):
+                  "--token-budget", "12", "--verify"],
+                 ["--trace", "bursty24", "--kv", "paged", "--page_size", "16",
+                  "--prefill-chunk", "16", "--verify"]):
         K.reset_launch_counts()
         S.main(argv)                 # raises unless it prints "verify OK"
         torch.cuda.synchronize()
@@ -1292,8 +1341,59 @@ def smoke_serve_phase(cfg, trace, max_len):
         if missing:
             raise AssertionError(f"launcher {argv}: kernels never launched: "
                                  f"{missing}")
+    launcher_dump_trace(cfg)
     del params
     return total
+
+
+def slo_trip(cfg, params, trace, max_len):
+    """An impossible ITL target (1e-6 ms) armed on a smoke6 replay: the
+    SLO monitor must fire and its first breach trip the flight recorder,
+    which writes its file with ``reason == "slo_breach"``."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_slo_")
+    engine = ServeEngine(cfg, params, ServeConfig(batch_slots=3,
+                                                  max_len=max_len))
+    try:
+        engine.slo.set_targets(itl_ms=1e-6)
+        engine.flight.path = os.path.join(tmp, "flight.json")
+        rep = S.run_trace(engine, trace, log=None)
+        with open(engine.flight.path) as f:
+            doc = json.load(f)
+        breaches = engine.slo.breaches("itl")
+    finally:
+        engine.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[serve] SLO trip (SMOKE smoke6, itl target 1e-6 ms): "
+          f"itl_breaches={breaches} slo_breaches={rep['slo_breaches']} "
+          f"flight reason={doc['reason']} trips={len(doc['trips'])} "
+          f"steps={len(doc['steps'])} requests={len(doc['requests'])}")
+    if not breaches or doc["reason"] != "slo_breach" or not doc["trips"]:
+        raise AssertionError("an impossible ITL target did not trip the "
+                             "flight recorder")
+
+
+def launcher_dump_trace(cfg):
+    """``--arrivals pareto --rate 16 --dump-trace``: the launcher replays
+    a synthesized wall-clock trace and writes it, and ``load_trace`` reads
+    back the same requests (ids, arrivals, sizes and prompt tokens)."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dump_")
+    path = os.path.join(tmp, "pareto.jsonl")
+    try:
+        S.main(["--arrivals", "pareto", "--rate", "16", "--dump-trace",
+                path])
+        back = S.load_trace(path, cfg.vocab_size)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    want = S.bursty_trace(8, 16, 24, "pareto", 16.0, cfg.vocab_size)
+    same = [(b["id"], b["arrival_s"], b["max_new"]) == (
+        w["id"], w["arrival_s"], w["max_new"]) and
+        b["prompt"].tolist() == w["prompt"].tolist()
+        for b, w in zip(back, want)]
+    print(f"[serve] launcher --arrivals pareto --rate 16 --dump-trace: "
+          f"{len(back)} requests read back, equal={all(same)}, arrival_s "
+          f"{[b['arrival_s'] for b in back]}")
+    if len(back) != len(want) or not all(same):
+        raise AssertionError("the dumped trace does not read back")
 
 
 def same_streams(label, rep, want, want_label):
@@ -1418,6 +1518,197 @@ def chunked_serve_phase(cfg, params, long8, mono):
     return total
 
 
+# bursty24 at full width: bf16 pages of 16, chunks of 32 under a budget of
+# the 8 decoding slots plus two chunks; 128-token prompts + 12 new + 8.
+BURSTY_SLOTS, BURSTY_CHUNK = 8, 32
+BURSTY_BUDGET = BURSTY_SLOTS + 2 * BURSTY_CHUNK
+# The series an instrumented replay's snapshot must hold.
+ENGINE_SERIES = dict(
+    required_counters=("serve.tokens_out", "sched.submitted",
+                       "kvpool.pages_reclaimed", "prefix.lookup",
+                       "ops.matmul.kernel", "ops.decode_paged.kernel"),
+    required_gauges=("kvpool.pages_in_use", "serve.kv_tokens",
+                     "serve.active_slots", "serve.bubble_fraction",
+                     "serve.efficiency", "sched.queue_depth",
+                     "prefix.hit_rate"),
+    required_histograms=("serve.ttft_ms", "serve.inter_token_ms",
+                         "step.device_ms", "step.bubble_ms"))
+
+
+def obs_serve_phase(cfg, params, long8, quiet):
+    """The observability layer at full width, SmolLM-360M FULL on the
+    kernels.  (a) bursty24 on the wall clock (speed 1: Pareto arrivals at
+    12 req/s), chunked under a budget, every stream equal to its one-shot
+    engine's.  (b) The 8 x 448 paged replay with the tracer on: the
+    snapshot, trace and flight record written as ``--metrics-out``,
+    ``--trace-out`` and ``--flight-out`` write them, validated, rendered by
+    ``tools/obs_report.py``; the profiler's kernel table placing
+    ``flash_paged_decode`` on the H100's roofline; every stream equal to
+    ``quiet``, the same replay with the tracer off.  Returns the replays'
+    launch counts."""
+    total = {n: 0 for n in SERVE_KERNELS}
+    bursty = S.load_trace(S.resolve_trace_path("bursty24"), cfg.vocab_size)
+    label = (f"paged-bf16 bursty24 wall-clock chunk={BURSTY_CHUNK} "
+             f"budget={BURSTY_BUDGET}")
+    counts, rep, _ = replay(cfg, params, bursty, ServeConfig(
+        batch_slots=BURSTY_SLOTS,
+        max_len=max(len(t["prompt"]) + t["max_new"] for t in bursty) + 8,
+        kv="paged", page_size=16, prefill_chunk=BURSTY_CHUNK,
+        token_budget=BURSTY_BUDGET), label)
+    for n in total:
+        total[n] += counts[n]
+    print(f"[serve] {label}: ttft_p50_ms={rep['ttft_p50_ms']:.3f} "
+          f"ttft_p99_ms={rep['ttft_p99_ms']:.3f} itl_p50_ms="
+          f"{rep['p50_ms']:.3f} itl_p99_ms={rep['p99_ms']:.3f} "
+          f"bubble_fraction={rep['bubble_fraction']:.4f} starved_steps="
+          f"{rep['starved_steps']} prefill_chunks={rep['prefill_chunks']}")
+
+    bundle = obs.configure(registry=obs.Registry(),
+                           tracer=obs.Tracer(enabled=True))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    files = {k: os.path.join(tmp, f"{k}.json")
+             for k in ("metrics", "trace", "flight")}
+    label = "paged-bf16 synth 8x448+32 traced"
+    try:
+        counts, rep, eng = replay(cfg, params, long8, ServeConfig(
+            batch_slots=LONG_REQS, max_len=LONG_LEN, kv="paged",
+            page_size=16), label, verify=False)
+        for n in total:
+            total[n] += counts[n]
+        same_streams(label, rep, quiet, "the replay with the tracer off")
+        bundle.registry.gauge(
+            "serve.efficiency",
+            "achieved decode throughput / analytic peak").set(
+                obs.efficiency.serve_efficiency(cfg, rep["tok_s"], "cuda"))
+        run = {k: v for k, v in rep.items()
+               if k not in ("results", "metrics")}
+        run.update(arch=cfg.name, kv_mode="paged", prefill_chunk=0,
+                   device=torch.cuda.get_device_name(0))
+        obs.write_metrics(files["metrics"], bundle.registry,
+                          extra={"run": run}, **ENGINE_SERIES)
+        n_events = bundle.tracer.write(files["trace"])
+        with open(files["trace"]) as f:
+            obs.validate_chrome_trace(json.load(f))
+        flight = eng.flight.write(files["flight"], reason="end_of_run")
+        report = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "tools", "obs_report.py"),
+             "--metrics", files["metrics"], "--trace", files["trace"],
+             "--flight", files["flight"]], capture_output=True, text=True,
+            timeout=120)
+    finally:
+        obs.reset()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if report.returncode != 0:
+        raise AssertionError(f"tools/obs_report.py exited "
+                             f"{report.returncode}: {report.stderr}")
+    table = {k.name: k for k in eng.profiler.kernel_table()}
+    row = table.get("flash_paged_decode")
+    ridge = obs.ridge_intensity(cfg.compute_dtype, "cuda")
+    if (row is None or eng.profiler.backend != "cuda"
+            or row.ridge != ridge):
+        raise AssertionError(f"{label}: no flash_paged_decode row on the "
+                             f"H100 roofline: {list(table)}")
+    print(f"[serve] {label}: {n_events} trace events, flight steps="
+          f"{len(flight['steps'])} requests={len(flight['requests'])}; "
+          f"wall_s={rep['wall_s']:.4f} traced vs {quiet['wall_s']:.4f} "
+          f"untraced; flash_paged_decode on the H100 roofline: "
+          f"{json.dumps(row.as_dict())}; tools/obs_report.py exit 0:")
+    for line in report.stdout.strip().splitlines():
+        print(f"[obs_report] {line}")
+    return total
+
+
+def attribution_vs_profiler(cfg, params, steps=5, turn=3):
+    """The engine's step attribution beside ``torch.profiler`` for the
+    8 x 448 replay's decode step (8 slots at 449-487 keys on bf16 pages of
+    16), and the metrics registry's cost.  One engine on an enabled
+    registry and one on ``Registry(enabled=False)`` each hold 8 decoding
+    requests.  ``steps`` decode steps of the first give the engine's
+    ``device_ms`` (its section probes: CUDA event spans), ``bubble_ms``
+    and ``bubble_fraction``; then both engines' walls, ``turn`` steps a
+    turn, in turns on, off, off, on, on, off, off, on; then ``steps``
+    more steps under the profiler, whose device-busy time and idle share
+    stand beside the engine's own figures for the same steps.  Last, the
+    host time of one route-counter tick, on and off, beside the ticks a
+    step.  The bubble is host time outside the probed sections, the idle
+    share is device time without a kernel: two metrics, printed under
+    their own names."""
+    prompts = S.synth_trace(LONG_REQS, LONG_PROMPT, 1, 0, cfg.vocab_size)
+    max_new = LONG_LEN - LONG_PROMPT
+    regs = {"on": obs.Registry(), "off": obs.Registry(enabled=False)}
+    engines = {}
+    try:
+        for name, reg in regs.items():
+            obs.configure(registry=reg)
+            eng = engines[name] = ServeEngine(cfg, params, ServeConfig(
+                batch_slots=LONG_REQS, max_len=LONG_LEN, kv="paged",
+                page_size=16))
+            for t in prompts:
+                eng.submit(t["prompt"], max_new)
+            for _ in range(3):                    # admit all 8, warm up
+                eng.step()
+
+        def run(name, n):
+            obs.configure(registry=regs[name])
+            eng = engines[name]
+            profs = []
+            t0 = time.perf_counter()
+            for _ in range(n):
+                ev = eng.step()
+                if len(ev["decoded"]) != LONG_REQS:
+                    raise AssertionError(f"decode step of {len(ev['decoded'])}"
+                                         f" slots, expected {LONG_REQS}")
+                profs.append(ev["profile"])
+            return (time.perf_counter() - t0) * 1e3 / n, profs
+
+        def attribution(profs):
+            dev = sum(p["device_ms"] for p in profs) / len(profs)
+            bub = sum(p["bubble_ms"] for p in profs) / len(profs)
+            return (f"device_ms={dev:.3f} bubble_ms={bub:.3f} "
+                    f"bubble_fraction={bub / (dev + bub):.4f}")
+        counters = regs["on"].counters
+        before = sum(counters[f"{op}.kernel"].value
+                     for op in ("ops.matmul", "ops.decode_paged"))
+        wall, profs = run("on", steps)
+        ticks = (sum(counters[f"{op}.kernel"].value
+                     for op in ("ops.matmul", "ops.decode_paged"))
+                 - before) / steps
+        walls = {"on": [], "off": []}
+        for name in ("on", "off", "off", "on") * 2:
+            walls[name].append(run(name, turn)[0])
+        (traced, tprofs), by_name, launched, lost = _profiled(
+            lambda: run("on", steps), "decode step, 8 slots, engine")
+        if by_name and not lost:
+            busy = sum(us for _, us in by_name.values()) / 1e3 / steps
+            prof_line = (f"device_busy_ms={busy:.3f} device_idle_share="
+                         f"{1 - busy / traced:.4f}")
+        else:
+            prof_line = f"device time not measured ({_unmeasured(lost)})"
+        tick_us = {}
+        for name in ("on", "off"):
+            obs.configure(registry=regs[name])
+            t0 = time.perf_counter()
+            for _ in range(100000):
+                ops._count("ops.matmul.kernel")
+            tick_us[name] = (time.perf_counter() - t0) * 1e6 / 100000
+    finally:
+        obs.reset()
+        for eng in engines.values():
+            eng.close()
+    print(f"[attribution] decode step, {LONG_REQS} slots, bf16 pages, "
+          f"{cfg.name}: engine wall_ms={wall:.3f} {attribution(profs)} "
+          f"(mean of {steps} steps, profiler off); same engine under "
+          f"torch.profiler: wall_ms={traced:.3f} engine "
+          f"{attribution(tprofs)} | profiler {prof_line}")
+    on, off = (sum(walls[k]) / len(walls[k]) for k in ("on", "off"))
+    print(f"[attribution] registry on vs Registry(enabled=False), wall_ms "
+          f"per decode step ({turn} steps a turn) in turns on, off, off, on "
+          f"x2: {json.dumps(walls)} mean on={on:.4f} off={off:.4f} (on - "
+          f"off = {(on - off) * 1e3:.1f} us a step); one route-counter tick "
+          f"{tick_us['on']:.4f} us on, {tick_us['off']:.4f} us off, "
+          f"{ticks:g} ticks a step")
+
+
 def serve_phase(cfg, max_len):
     set_gemm_mode("kernel")
     params = init_params(cfg, seed=1, device=DEV)
@@ -1450,6 +1741,9 @@ def serve_phase(cfg, max_len):
     for n, c in chunked_serve_phase(cfg, params, long8,
                                     reps[paths[-1][0]]).items():
         total[n] += c
+    for n, c in obs_serve_phase(cfg, params, long8,
+                                reps[paths[-1][0]]).items():
+        total[n] += c
 
     kern, ref_lg, per_prefill, per_decode = logits_kernel_vs_ref(
         cfg, params, smoke6[0]["prompt"], max_len)
@@ -1474,6 +1768,7 @@ def serve_phase(cfg, max_len):
     # 60 of the ~11k kernels of its 5 steps.
     profile_decode(cfg, params, max_len)
     profile_decode_norms(cfg, params)
+    attribution_vs_profiler(cfg, params)
     profile_replay(cfg, params, long8, paths[-1][2], paths[-1][0])
     return total
 

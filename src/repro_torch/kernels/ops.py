@@ -16,6 +16,13 @@ GEMM, ``repro/kernels/ops.py:99-109``) is left out until the multi-device
 slice (ROADMAP Queue A item 12), and so is ``wkv``'s ``chunk`` (a TPU grid
 step with no counterpart here; the tuner slice, item 9, decides whether it
 gets one).
+
+``matmul``, ``decode`` and ``decode_paged`` tick the reference's route
+counters ``ops.<op>.kernel`` or ``ops.<op>.ref`` on the process registry
+(``repro_torch.obs``).  The reference ticks them once per compiled program
+(at trace time); the port has no tracing, so it ticks them once per call:
+on the card each ``.kernel`` count equals its kernel's launch count, and
+every ``.ref`` count reads 0 on the main path.
 """
 
 from __future__ import annotations
@@ -31,8 +38,27 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gemm import gama_gemm
 from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_kernel
 from repro_torch.kernels.wkv import WKV6
+from repro_torch.obs import get_obs
 
 MODES = ("auto", "kernel", "ref")
+
+# The route counters' handles, looked up once per registry: `count` runs on
+# every op call (225 GEMMs a SmolLM-360M decode step), and an entry point
+# may swap the registry (`obs.configure`) between runs.
+_route_registry = None
+_route_counters: dict = {}
+
+
+def _count(name: str) -> None:
+    global _route_registry
+    registry = get_obs().registry
+    if registry is not _route_registry:
+        _route_registry = registry
+        _route_counters.clear()
+    counter = _route_counters.get(name)
+    if counter is None:
+        counter = _route_counters[name] = registry.counter(name)
+    counter.inc()
 
 
 def _use_kernel(mode: str, *tensors: torch.Tensor) -> bool:
@@ -62,7 +88,9 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
            mode: str = "auto") -> torch.Tensor:
     """GAMA GEMM.  a: (M, K); b: (K, N)."""
     if not _use_kernel(mode, a, b):
+        _count("ops.matmul.ref")
         return ref.ref_gemm(a, b, out_dtype=out_dtype, scale=scale)
+    _count("ops.matmul.kernel")
     return gama_gemm(a, b, out_dtype=out_dtype, scale=scale)
 
 
@@ -117,7 +145,9 @@ def decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         # the cache as valid history.
         length = torch.clamp(length, max=sk)
     if not _use_kernel(mode, q, k, v):
+        _count("ops.decode.ref")
         return ref.ref_decode_attention(q, k, v, length=length, scale=scale)
+    _count("ops.decode.kernel")
     return flash_decode(q, k, v, length=length.contiguous(), scale=scale)
 
 
@@ -158,9 +188,11 @@ def decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
     length = torch.clamp(length, max=block_tables.shape[1] * page_size)
     block_tables = block_tables.to(device=q.device, dtype=torch.int32)
     if not _use_kernel(mode, q, k_pages, v_pages):
+        _count("ops.decode_paged.ref")
         return ref.ref_paged_decode_attention(
             q, k_pages, v_pages, block_tables, length=length, scale=scale,
             k_scale=k_scale, v_scale=v_scale)
+    _count("ops.decode_paged.kernel")
     return flash_paged_decode(q, k_pages, v_pages, block_tables.contiguous(),
                               length=length.contiguous(), scale=scale,
                               k_scale=k_scale, v_scale=v_scale,
@@ -185,3 +217,46 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         _use_kernel(mode, r, k, v, w, u)
         return WKV6.apply(*(t.contiguous() for t in (r, k, v, w, u)))
     return ref.ref_wkv(r, k, v, w, u)
+
+
+def op_cost_model(op: str, *, m: int = 0, k: int = 0, n: int = 0,
+                  batch: int = 0, heads: int = 0, kv_heads: int = 0,
+                  seq: int = 0, d_head: int = 0,
+                  dtype_bytes: float = 2.0,
+                  kv_bytes: float = 2.0,
+                  weight_flops: float = 0.0,
+                  weight_bytes: float = 0.0,
+                  chunk_tokens: int = 0,
+                  layers: int = 1) -> tuple[float, float]:
+    """Analytic (flops, bytes_moved) for the hot ops' roofline placement
+    (a copy of the reference's; the port's engine always takes it, having
+    no compiled executable to ask), counting the dominant terms only:
+
+    * ``matmul``: 2mkn FLOPs; A + B + C once each through the memory
+      system;
+    * ``flash_decode`` / ``flash_paged_decode``: one query token per
+      lane — 4·B·H·T·d FLOPs (QK^T + PV), traffic dominated by the KV
+      read (T rows per kv head) plus the per-step weight stream
+      (``weight_flops``/``weight_bytes``, from
+      ``efficiency.model_flops_per_token``-style accounting, since the
+      engine's decode step runs the whole model);
+    * ``prefill_chunk``: the chunk forward (``weight_flops``/
+      ``weight_bytes``, caller-scaled to the chunk's tokens) plus the
+      chunk's KV page scatter — read scratch + write pool, zero MACs.
+    """
+    if op == "matmul":
+        flops = 2.0 * m * k * n
+        nbytes = (m * k + k * n) * dtype_bytes + m * n * dtype_bytes
+        return flops, nbytes
+    if op in ("flash_decode", "flash_paged_decode"):
+        kvh = kv_heads or heads
+        flops = layers * 4.0 * batch * heads * seq * d_head + weight_flops
+        kv_read = layers * 2.0 * batch * kvh * seq * d_head * kv_bytes
+        io = layers * 2.0 * batch * heads * d_head * dtype_bytes  # q/o
+        return flops, kv_read + io + weight_bytes
+    if op == "prefill_chunk":
+        kvh = kv_heads or heads
+        moved = (layers * 2.0 * 2.0 * chunk_tokens
+                 * kvh * d_head * kv_bytes)
+        return weight_flops, weight_bytes + moved
+    raise ValueError(f"op_cost_model: unknown op {op!r}")

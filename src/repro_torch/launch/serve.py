@@ -1,14 +1,26 @@
 """Serving launcher: continuous batching over a request-trace workload
-(counterpart of ``repro/launch/serve.py``, step-indexed replay).
+(counterpart of ``repro/launch/serve.py``).
 
-Replays a trace through the port's ``ServeEngine``: arrivals are measured
-in engine steps, every request is submitted up front and the scheduler
-releases each as the step counter passes its arrival — deterministic.
-Wall-clock replay (``arrival_s``) and trace-driven cancellation
-(``cancel_after``) are not ported yet (ROADMAP Queue A item 7).
+Replays a trace through the port's ``ServeEngine``.  Two replay modes:
+
+* **step-indexed** (default): arrivals are measured in engine steps
+  (``arrival``), every request is submitted up front and the scheduler
+  releases each as the step counter passes its arrival — deterministic.
+* **wall-clock**: arrivals are seconds (``arrival_s``); the launcher
+  submits each request the moment the clock reaches it, as a serving
+  frontend would.  Selected when the trace carries ``arrival_s``, or by
+  synthesizing arrivals with ``--arrivals {uniform,poisson,pareto}``
+  (seedable; ``--rate`` sets the mean request rate, ``--speed`` replays
+  faster).  Greedy tokens per request do not depend on the schedule;
+  the steps that admit each request do.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm_360m \\
         --full --trace smoke6 --batch_slots 3 --verify
+
+    # bursty wall-clock replay, chunked prefill, every output file
+    PYTHONPATH=src python -m repro_torch.launch.serve --trace bursty24 \\
+        --kv paged --page_size 16 --prefill-chunk 16 --verify \\
+        --metrics-out m.json --trace-out t.json --flight-out f.json
 
 Trace file (``--trace``, JSON lines; a bare name resolves to
 ``benchmarks/traces/<name>.jsonl``)::
@@ -17,15 +29,24 @@ Trace file (``--trace``, JSON lines; a bare name resolves to
     {"id": 1, "arrival": 3, "prompt": [17, 3, 99], "max_new": 8}
     {"id": 2, "arrival": 4, "prompt_len": 60, "max_new": 8,
      "group": 1, "prefix_len": 48}
+    {"id": 3, "arrival_s": 0.25, "prompt_len": 40, "max_new": 8,
+     "cancel_after": 3}
 
 A record with ``group`` and ``prefix_len`` shares its first
 ``prefix_len`` tokens with its group (a system prompt, seeded per group).
+``cancel_after: N`` cancels the request after its Nth streamed token
+(``engine.cancel`` frees its slot and pages the same step).
 
 ``--kv paged --page_size N`` serves from the page pool (``--pool_pages``
 caps it; ``--kv-dtype int8`` stores quantized pages; ``--prefix-cache``
-shares page-aligned prompt prefixes).  ``--prefill-chunk N`` prefills in
-N-token chunks interleaved with decode, ``--token-budget B`` caps the
+shares page-aligned prompt prefixes; ``--arrivals shared`` synthesizes
+the matching shared-system-prompt trace).  ``--prefill-chunk N`` prefills
+in N-token chunks interleaved with decode, ``--token-budget B`` caps the
 tokens a step spends, ``--policy`` picks the admission policy.
+``--trace-out``, ``--metrics-out``, ``--prom-out`` and ``--flight-out``
+write the Chrome trace, the schema-1 metrics snapshot, its Prometheus
+text and the flight record (``tools/obs_report.py`` renders them);
+``--slo-ttft-ms``/``--slo-itl-ms`` arm the SLO monitor.
 ``--verify`` re-runs every completed request through a one-slot one-shot
 engine that prefills monolithically and shares no pages, and checks the
 continuous outputs are bit-identical: a dense one for full-precision runs
@@ -68,12 +89,6 @@ def load_trace(path: str, vocab_size: int, seed: int = 0) -> List[dict]:
             if not line or line.startswith("#"):
                 continue
             rec = json.loads(line)
-            later = {"arrival_s", "cancel_after"} & set(rec)
-            if later:
-                raise NotImplementedError(
-                    f"trace fields {sorted(later)} (wall-clock replay, "
-                    f"cancellation) come with the launcher's wall-clock "
-                    f"replay (ROADMAP Queue A item 7)")
             if "prompt" in rec:
                 prompt = np.asarray(rec["prompt"], np.int32)
             else:
@@ -93,8 +108,13 @@ def load_trace(path: str, vocab_size: int, seed: int = 0) -> List[dict]:
             if "group" in rec:
                 item["group"] = int(rec["group"])
                 item["prefix_len"] = int(rec.get("prefix_len", 0))
+            if "arrival_s" in rec:
+                item["arrival_s"] = float(rec["arrival_s"])
+            if "cancel_after" in rec:
+                item["cancel_after"] = int(rec["cancel_after"])
             out.append(item)
-    return sorted(out, key=lambda r: (r["arrival"], r["id"]))
+    return sorted(out, key=lambda r: (r.get("arrival_s", 0.0),
+                                      r["arrival"], r["id"]))
 
 
 def resolve_trace_path(name: str) -> str:
@@ -124,40 +144,200 @@ def synth_trace(requests: int, prompt_len: int, max_new: int,
             for i in range(requests)]
 
 
+def gen_arrivals(kind: str, n: int, rate: float, seed: int = 0
+                 ) -> np.ndarray:
+    """Seedable arrival times (seconds, first at 0) for ``n`` requests
+    at a mean rate of ``rate`` req/s (the reference's times for the same
+    seed):
+
+    * ``uniform`` — evenly spaced, gap 1/rate;
+    * ``poisson`` — exponential inter-arrivals (memoryless load);
+    * ``pareto``  — Lomax(alpha=1.5) inter-arrivals scaled to mean
+      1/rate: heavy-tailed, so requests cluster into bursts separated
+      by long quiet gaps (the adversarial case for monolithic prefill).
+
+    >>> a = gen_arrivals("uniform", 4, 2.0)
+    >>> [round(float(x), 2) for x in a]
+    [0.0, 0.5, 1.0, 1.5]
+    >>> b = gen_arrivals("pareto", 100, 8.0, seed=1)
+    >>> (bool(b[0] == 0.0), bool(np.all(np.diff(b) >= 0)))
+    (True, True)
+    """
+    if rate <= 0:
+        raise ValueError(f"rate must be > 0, got {rate}")
+    rng = np.random.default_rng(seed)
+    if kind == "uniform":
+        gaps = np.full(n, 1.0 / rate)
+    elif kind == "poisson":
+        gaps = rng.exponential(1.0 / rate, size=n)
+    elif kind == "pareto":
+        alpha = 1.5
+        gaps = rng.pareto(alpha, size=n) * (alpha - 1.0) / rate
+    else:
+        raise ValueError(f"unknown arrival kind {kind!r}")
+    return np.cumsum(gaps) - gaps[0]
+
+
+def bursty_trace(requests: int, prompt_len: int, max_new: int,
+                 kind: str, rate: float, vocab_size: int, seed: int = 0
+                 ) -> List[dict]:
+    """Wall-clock trace with ``kind`` arrivals and heterogeneous sizes:
+    prompt lengths drawn from [prompt_len/2, 2*prompt_len], max_new from
+    [max_new/2, max_new].  Prompts use the per-id rng of
+    :func:`load_trace`, so a trace dumped with ``--dump-trace`` (which
+    stores only ``prompt_len``) reloads to identical prompts."""
+    rng = np.random.default_rng(seed)
+    arrivals = gen_arrivals(kind, requests, rate, seed)
+    out = []
+    for i in range(requests):
+        plen = int(rng.integers(max(1, prompt_len // 2),
+                                2 * prompt_len + 1))
+        mnew = int(rng.integers(max(1, max_new // 2), max_new + 1))
+        prompt = np.random.default_rng(seed + i).integers(
+            0, vocab_size, size=(plen,)).astype(np.int32)
+        out.append({"id": i, "arrival": 0,
+                    "arrival_s": round(float(arrivals[i]), 3),
+                    "prompt": prompt, "max_new": mnew})
+    return out
+
+
+def shared_trace(requests: int, prompt_len: int, max_new: int,
+                 groups: int, stagger: int, vocab_size: int,
+                 seed: int = 0) -> List[dict]:
+    """Shared-system-prompt trace (the prefix cache's workload):
+    ``requests`` requests over ``groups`` share groups, each reusing one
+    seeded system prompt of ``3 * prompt_len // 4`` tokens followed by a
+    per-request suffix of ``prompt_len//8 .. prompt_len//4`` tokens.
+    Arrivals are group-blocked and staggered one request per ``stagger``
+    steps, consecutive groups an extra ``max_new`` steps apart, so a
+    group's first request populates the radix tree before its siblings
+    are admitted.  Prompts use the group/per-id rngs of
+    :func:`load_trace`."""
+    rng = np.random.default_rng(seed)
+    prefix_len = max(1, (3 * prompt_len) // 4)
+    out = []
+    for i in range(requests):
+        g = i * groups // max(1, requests)     # group-blocked order
+        pfx = shared_prefix_tokens(g, prefix_len, vocab_size, seed)
+        slen = int(rng.integers(max(1, prompt_len // 8),
+                                max(2, prompt_len // 4) + 1))
+        sfx = np.random.default_rng(seed + i).integers(
+            0, vocab_size, size=(slen,)).astype(np.int32)
+        out.append({"id": i, "arrival": i * stagger + g * max_new,
+                    "group": g, "prefix_len": prefix_len,
+                    "prompt": np.concatenate([pfx, sfx]),
+                    "max_new": max_new})
+    return out
+
+
+def dump_trace(path: str, trace: List[dict]) -> None:
+    """Write ``trace`` as JSONL, storing ``prompt_len`` instead of the
+    tokens (``load_trace`` re-synthesizes them per id; shared-prefix
+    records keep ``group``/``prefix_len`` so the group rng rebuilds the
+    common system prompt)."""
+    with open(path, "w") as f:
+        for t in trace:
+            rec: Dict[str, object] = {"id": t["id"]}
+            if "arrival_s" in t:
+                rec["arrival_s"] = t["arrival_s"]
+            elif t.get("arrival"):
+                rec["arrival"] = t["arrival"]
+            if "group" in t:
+                rec["group"] = t["group"]
+                rec["prefix_len"] = t["prefix_len"]
+            rec["prompt_len"] = int(len(t["prompt"]))
+            rec["max_new"] = t["max_new"]
+            if "cancel_after" in t:
+                rec["cancel_after"] = t["cancel_after"]
+            f.write(json.dumps(rec) + "\n")
+
+
 def _pct(xs: List[float], q: float) -> float:
     return float(np.percentile(xs, q)) if xs else float("nan")
 
 
 def run_trace(engine, trace: List[dict],
-              log: Optional[Callable[[str], None]] = print) -> dict:
-    """Replay ``trace`` (step-indexed).  Returns {results: {trace_id:
-    tokens}, wall_s, tokens, tok_s, p50_ms, p99_ms, ttft_p50_ms,
+              log: Optional[Callable[[str], None]] = print, *,
+              wallclock: Optional[bool] = None, speed: float = 1.0,
+              stream: Optional[Callable[[int, int, bool], None]] = None
+              ) -> dict:
+    """Replay ``trace``.  Returns {results: {trace_id: tokens},
+    cancelled_ids, wall_s, tokens, tok_s, p50_ms, p99_ms, ttft_p50_ms,
     ttft_p99_ms, shared_steps, decode_steps, prefill_chunks,
-    starved_steps, prefill_ms, decode_ms, kv_bytes_hwm,
-    kv_bytes_reserved}, for a paged engine pages_hwm, pages_reclaimed and
-    preemptions, and with the prefix cache prefix_hit_tokens,
-    prefix_hit_rate and cow_copies (all but the high-waters counted over
-    this replay; ``prefill_ms``/``decode_ms`` sum the steps' phases).
+    starved_steps, prefill_ms, decode_ms, kv_bytes_hwm, kv_bytes_reserved,
+    bubble_ms_total, bubble_fraction, slo_breaches}, for a paged engine
+    pages_hwm, pages_reclaimed and preemptions, and with the prefix cache
+    prefix_hit_tokens, prefix_hit_rate and cow_copies (all but the
+    high-waters counted over this replay; ``prefill_ms``/``decode_ms``
+    sum the steps' section probes, ``bubble_*`` the profiler's host time
+    outside them).
+
+    Replay mode: ``wallclock=None`` auto-selects — wall-clock when any
+    record carries ``arrival_s`` (each request is submitted when the
+    clock, scaled by ``speed``, reaches it), step-indexed otherwise (all
+    submitted up front with their step arrivals, relative to the engine's
+    current step, so a warm engine replays the same schedule).
 
     ``p50/p99_ms`` are per-stream inter-token gaps (the engine's
-    ``itl_ms`` events); ``ttft_*`` cover runnable -> first token.  Arrivals
-    are relative to the engine's current step, so a warm engine replays
-    the same schedule."""
+    ``itl_ms`` events); ``ttft_*`` cover runnable -> first token.
+    ``stream(trace_id, token, done)`` is invoked per emitted token; trace
+    records with ``cancel_after: N`` are cancelled from the stream
+    callback after their Nth token (mid-step, same-step page reclaim)."""
     log = log or (lambda s: None)
     rid_to_tid: Dict[int, int] = {}
-    base = engine.step_count
-    for t in trace:
-        rid = engine.submit(t["prompt"], t["max_new"],
-                            arrival=base + t["arrival"])
+    counts: Dict[int, int] = {}
+    cancelled_tids: List[int] = []
+    if wallclock is None:
+        wallclock = any("arrival_s" in t for t in trace)
+
+    def _cb(t):
+        limit = t.get("cancel_after")
+        tid = t["id"]
+
+        def cb(rid, tok, done):
+            if stream is not None:
+                stream(tid, tok, done)
+            counts[rid] = counts.get(rid, 0) + 1
+            if limit is not None and counts[rid] >= limit and not done:
+                if engine.cancel(rid):
+                    cancelled_tids.append(tid)
+        return cb
+
+    def _submit(t, arrival=None):
+        need_cb = stream is not None or "cancel_after" in t
+        rid = engine.submit(t["prompt"], t["max_new"], arrival=arrival,
+                            on_token=_cb(t) if need_cb else None)
         rid_to_tid[rid] = t["id"]
+
+    base = engine.step_count
+    pending: List[dict] = []
+    if wallclock:
+        pending = sorted(trace, key=lambda t: t.get("arrival_s", 0.0))
+    else:
+        for t in trace:
+            _submit(t, base + t["arrival"])
     stats0 = dict(engine.stats)
     pool = engine.pool
     reclaimed0 = pool.total_reclaimed if pool is not None else 0
+    bubble0 = engine.profiler.bubble_ms_total
+    pwall0 = engine.profiler.wall_ms_total
+    slo0 = engine.slo.breaches()
     itl: List[float] = []
     ttft: List[float] = []
     phase_ms = {"prefill_ms": 0.0, "decode_ms": 0.0}
-    t0 = time.perf_counter()
-    while not engine.sched.done():
+    t0 = time.monotonic()
+    while pending or not engine.sched.done():
+        if pending:
+            now_s = (time.monotonic() - t0) * speed
+            while pending and pending[0].get("arrival_s", 0.0) <= now_s:
+                _submit(pending.pop(0))
+            if engine.sched.done():
+                # Idle until the next arrival: nothing to decode yet.
+                wait = (pending[0].get("arrival_s", 0.0) / speed
+                        - (time.monotonic() - t0))
+                if wait > 0:
+                    time.sleep(min(wait, 0.02))
+                continue
         ev = engine.step()
         itl += list(ev["itl_ms"].values())
         ttft += list(ev["ttft_ms"].values())
@@ -171,17 +351,24 @@ def run_trace(engine, trace: List[dict],
         for rid in ev["preempted"]:
             log(f"[serve] preempted id={rid_to_tid[rid]} (pool exhausted) "
                 f"— requeued at the head")
+        for rid in ev["cancelled"]:
+            log(f"[serve] cancelled id={rid_to_tid[rid]} — slot"
+                f"{' and pages' if pool is not None else ''} freed this "
+                f"step")
         for rid in ev["finished"]:
             log(f"[serve] done id={rid_to_tid[rid]} "
                 f"tokens={len(engine.result(rid))}")
-    wall = time.perf_counter() - t0
+    wall = time.monotonic() - t0
     results = {rid_to_tid[rid]: toks for rid, toks in engine.drain().items()}
     tokens = sum(len(v) for v in results.values())
 
     def delta(key):
         return engine.stats[key] - stats0[key]
+    pwall = engine.profiler.wall_ms_total - pwall0
+    pbubble = engine.profiler.bubble_ms_total - bubble0
     rep = {
         "results": results,
+        "cancelled_ids": sorted(cancelled_tids),
         "wall_s": wall,
         "tokens": tokens,
         "tok_s": tokens / wall if wall > 0 else float("inf"),
@@ -194,6 +381,9 @@ def run_trace(engine, trace: List[dict],
         **phase_ms,
         "kv_bytes_hwm": engine.kv_bytes_high_water(),
         "kv_bytes_reserved": engine.kv_bytes_reserved(),
+        "bubble_ms_total": pbubble,
+        "bubble_fraction": pbubble / pwall if pwall > 0 else 0.0,
+        "slo_breaches": engine.slo.breaches() - slo0,
     }
     if pool is not None:
         rep["pages_hwm"] = pool.high_water
@@ -246,16 +436,63 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--arch", default="smollm_360m")
     ap.add_argument("--full", action="store_true",
                     help="serve the FULL config (default: SMOKE)")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--batch_slots", type=int, default=4)
+    ap.add_argument("--prompt_len", type=int, default=16)
+    ap.add_argument("--max_new", type=int, default=24)
+    ap.add_argument("--stagger", type=int, default=3,
+                    help="arrival gap between requests, in engine steps "
+                         "(step-indexed replay)")
+    ap.add_argument("--arrivals", default="steps",
+                    choices=("steps", "shared", "uniform", "poisson",
+                             "pareto"),
+                    help="synthetic arrival process: 'steps' keeps the "
+                         "deterministic --stagger replay; 'shared' is a "
+                         "step-indexed shared-system-prompt trace "
+                         "(--groups share groups); the rest generate "
+                         "wall-clock arrival_s at --rate req/s (seedable "
+                         "via --seed) and replay in real time")
+    ap.add_argument("--groups", type=int, default=4,
+                    help="share groups (distinct system prompts) for "
+                         "--arrivals shared")
+    ap.add_argument("--rate", type=float, default=8.0,
+                    help="mean request rate (req/s) for --arrivals")
+    ap.add_argument("--speed", type=float, default=1.0,
+                    help="wall-clock replay speedup factor (2 = replay "
+                         "arrival_s twice as fast)")
     ap.add_argument("--trace", default=None,
                     help="JSONL trace file or bare name under "
-                         "benchmarks/traces/ (default: a synthetic trace)")
-    ap.add_argument("--batch_slots", type=int, default=4)
-    ap.add_argument("--max_new", type=int, default=24,
-                    help="tokens per request of the synthetic trace (8 "
-                         "requests of 16 prompt tokens, 3 steps apart)")
+                         "benchmarks/traces/ (overrides --requests/"
+                         "--prompt_len/--stagger/--arrivals)")
+    ap.add_argument("--dump-trace", dest="dump_trace", default=None,
+                    help="write the (synthesized) trace as JSONL and "
+                         "continue")
+    ap.add_argument("--trace-out", dest="trace_out", default=None,
+                    help="write a Chrome-trace-event JSON of the run "
+                         "(chrome://tracing or ui.perfetto.dev); enables "
+                         "span recording for this run")
+    ap.add_argument("--metrics-out", dest="metrics_out", default=None,
+                    help="write the schema-1 metrics snapshot JSON")
+    ap.add_argument("--prom-out", dest="prom_out", default=None,
+                    help="write the metrics as Prometheus text exposition")
+    ap.add_argument("--flight-out", dest="flight_out", default=None,
+                    help="write the flight recorder's JSON at the end of "
+                         "the run; mid-run tripwires (SLO breach, "
+                         "preemption storm) write the same path at once")
+    ap.add_argument("--slo-ttft-ms", dest="slo_ttft_ms", type=float,
+                    default=None,
+                    help="arm the SLO monitor: rolling-window p99 TTFT "
+                         "target in ms")
+    ap.add_argument("--slo-itl-ms", dest="slo_itl_ms", type=float,
+                    default=None,
+                    help="arm the SLO monitor: rolling-window p99 "
+                         "inter-token target in ms")
+    ap.add_argument("--warmup", action="store_true",
+                    help="replay the trace once first, reset the metrics, "
+                         "then measure")
     ap.add_argument("--verify", action="store_true",
                     help="check each completed request against a one-shot "
-                         "single-slot generate()")
+                         "single-slot generate() (greedy only)")
     ap.add_argument("--kv", choices=("dense", "paged"), default="dense",
                     help="KV layout: dense per-slot max_len rows, or the "
                          "kvpool page pool + block tables")
@@ -287,35 +524,94 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--policy", default="fifo", choices=("fifo", "latency"),
                     help="admission policy: fifo admits whenever a slot "
                          "fits; latency defers admission while the token "
-                         "budget is saturated")
+                         "budget is saturated or an SLO is breached")
+    ap.add_argument("--stream", action="store_true",
+                    help="print every token as the engine emits it")
+    ap.add_argument("--eos_id", type=int, default=None,
+                    help="token id that ends a request early (frees its "
+                         "slot and, when paged, its pages that step)")
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--quantize", action="store_true",
+                    help="int8 weight-only quantization (not ported yet: "
+                         "ROADMAP Queue A item 3)")
+    ap.add_argument("--mesh", default=None, metavar="D,M",
+                    help="a (data, model) pack mesh (not ported yet: "
+                         "ROADMAP Queue A item 12)")
     ap.add_argument("--gemm-mode", dest="gemm_mode", default="auto",
                     choices=("auto", "kernel", "ref"))
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    if args.verify and args.temperature > 0.0:
+        raise SystemExit(
+            "--verify requires greedy decoding (temperature=0): sampled "
+            "streams depend on the slot's place in the batch")
+    if args.mesh is not None:
+        raise NotImplementedError(
+            "--mesh (the multi-device pack GEMM) is not ported yet: it "
+            "comes with ROADMAP Queue A item 12")
 
-    from repro_torch import configs as C
+    from repro_torch import configs as C, obs
     from repro_torch.models import init_params
     from repro_torch.models.layers import set_gemm_mode
     from repro_torch.serving.engine import ServeConfig, ServeEngine
 
+    # Fresh metrics for this run; span recording only when a trace is
+    # written (spans cost a clock read each).
+    bundle = obs.configure(
+        registry=obs.Registry(),
+        tracer=obs.Tracer(enabled=args.trace_out is not None))
     set_gemm_mode(args.gemm_mode)
     cfg = C.get(args.arch) if args.full else C.get_smoke(args.arch)
-    params = init_params(cfg, seed=1, device=args.device)
     if args.trace:
-        trace = load_trace(resolve_trace_path(args.trace), cfg.vocab_size)
+        trace = load_trace(resolve_trace_path(args.trace), cfg.vocab_size,
+                           seed=args.seed)
+    elif args.arrivals == "shared":
+        trace = shared_trace(args.requests, args.prompt_len, args.max_new,
+                             args.groups, args.stagger, cfg.vocab_size,
+                             seed=args.seed)
+    elif args.arrivals != "steps":
+        trace = bursty_trace(args.requests, args.prompt_len, args.max_new,
+                             args.arrivals, args.rate, cfg.vocab_size,
+                             seed=args.seed)
     else:
-        trace = synth_trace(8, 16, args.max_new, 3, cfg.vocab_size)
+        trace = synth_trace(args.requests, args.prompt_len, args.max_new,
+                            args.stagger, cfg.vocab_size, seed=args.seed)
+    if args.dump_trace:
+        dump_trace(args.dump_trace, trace)
+        print(f"[serve] wrote {len(trace)} requests -> {args.dump_trace}")
     max_len = max(len(t["prompt"]) + t["max_new"] for t in trace) + 8
-    engine = ServeEngine(cfg, params, ServeConfig(
-        batch_slots=args.batch_slots, max_len=max_len, kv=args.kv,
+    scfg = ServeConfig(
+        batch_slots=args.batch_slots, max_len=max_len,
+        temperature=args.temperature, seed=args.seed,
+        quantize=args.quantize, eos_id=args.eos_id, kv=args.kv,
         page_size=args.page_size, pool_pages=args.pool_pages,
         kv_dtype=args.kv_dtype, prefix_cache=args.prefix_cache,
         prefill_chunk=args.prefill_chunk, token_budget=args.token_budget,
-        policy=args.policy))
+        policy=args.policy)
+    params = init_params(cfg, seed=1, device=args.device)
+    engine = ServeEngine(cfg, params, scfg)
+    if args.slo_ttft_ms is not None:
+        engine.slo.set_targets(ttft_ms=args.slo_ttft_ms)
+    if args.slo_itl_ms is not None:
+        engine.slo.set_targets(itl_ms=args.slo_itl_ms)
+    if args.flight_out:
+        # Armed path: mid-run tripwires write the snapshot at once.
+        engine.flight.path = args.flight_out
+    stream_cb = None
+    if args.stream:
+        def stream_cb(tid, tok, done):
+            print(f"[stream] id={tid} token={tok}"
+                  f"{' (done)' if done else ''}")
     try:
-        rep = run_trace(engine, trace)
-        if len(rep["results"]) != len(trace):
-            raise SystemExit(f"only {len(rep['results'])}/{len(trace)} "
+        if args.warmup:
+            run_trace(engine, trace, log=None, speed=args.speed)
+            bundle.registry.reset_values()
+            engine.profiler.reset_totals()
+        rep = run_trace(engine, trace, stream=stream_cb, speed=args.speed)
+        expected = len(trace) - len(rep["cancelled_ids"])
+        if len(rep["results"]) != expected:
+            raise SystemExit(f"only {len(rep['results'])}/{expected} "
                              f"requests completed")
         print(f"[serve] {rep['tokens']} tokens in {rep['wall_s']:.3f}s "
               f"({rep['tok_s']:.1f} tok/s) p50={rep['p50_ms']:.2f}ms "
@@ -330,6 +626,31 @@ def main(argv: Optional[List[str]] = None) -> None:
                   f"budget={engine.scfg.token_budget} "
                   f"policy={engine.sched.policy.name} "
                   f"starved_steps={rep['starved_steps']}")
+        if rep["cancelled_ids"]:
+            print(f"[serve] cancelled ids={rep['cancelled_ids']} "
+                  f"(slots/pages reclaimed the same step)")
+        # The paper's %-of-peak analogue: decode throughput over the
+        # analytic peak of the device the engine serves on.
+        backend = engine.device.type
+        eff = obs.efficiency.serve_efficiency(cfg, rep["tok_s"], backend)
+        bundle.registry.gauge(
+            "serve.efficiency",
+            "achieved decode throughput / analytic peak").set(eff)
+        print(f"[serve] efficiency={eff:.3e} of analytic peak "
+              f"(backend={backend})")
+        stall = " ".join(
+            f"{k.name}:{k.stall_class}({k.bound_ratio:.1e})"
+            for k in engine.profiler.kernel_table()) or "n/a"
+        print(f"[serve] attribution: bubble={rep['bubble_fraction']:.3f} "
+              f"(bubble_ms={rep['bubble_ms_total']:.1f}) stall={stall}")
+        if (args.slo_ttft_ms is not None or args.slo_itl_ms is not None
+                or rep["slo_breaches"]):
+            slo = engine.slo.summary()
+            print(f"[serve] slo: breaches={rep['slo_breaches']} "
+                  f"ttft_target={args.slo_ttft_ms} "
+                  f"itl_target={args.slo_itl_ms} "
+                  f"ttft_breaches={slo['ttft']['breaches']} "
+                  f"itl_breaches={slo['itl']['breaches']}")
         if engine.paged:
             dense_mib = (engine.scfg.batch_slots * engine.scfg.max_len
                          * engine.token_kv_bytes() / 2 ** 20)
@@ -349,7 +670,37 @@ def main(argv: Optional[List[str]] = None) -> None:
                   f"resident={engine.pool.pages_resident}"
                   f"/{engine.pool.num_pages} pages")
         if args.verify:
-            _verify(cfg, params, trace, rep["results"], engine.scfg)
+            done = [t for t in trace if t["id"] in rep["results"]]
+            _verify(cfg, params, done, rep["results"], engine.scfg)
+        if args.trace_out:
+            n = bundle.tracer.write(args.trace_out)
+            obs.validate_chrome_trace(bundle.tracer.chrome_trace())
+            print(f"[serve] wrote {n} trace events -> {args.trace_out} "
+                  f"(open in chrome://tracing or ui.perfetto.dev)")
+        if args.metrics_out:
+            run_section = {k: v for k, v in rep.items() if k != "results"}
+            run_section["arch"] = cfg.name
+            run_section["kv_mode"] = engine.scfg.kv
+            run_section["prefill_chunk"] = engine.prefill_chunk
+            run_section["device"] = str(engine.device)
+            obs.write_metrics(
+                args.metrics_out, bundle.registry,
+                extra={"run": run_section},
+                required_histograms=("serve.ttft_ms",
+                                     "serve.inter_token_ms"),
+                required_gauges=("kvpool.pages_in_use",
+                                 "serve.efficiency", "serve.kv_tokens",
+                                 "serve.bubble_fraction"))
+            print(f"[serve] wrote metrics snapshot -> {args.metrics_out}")
+        if args.prom_out:
+            obs.write_prometheus(args.prom_out, bundle.registry)
+            print(f"[serve] wrote prometheus text -> {args.prom_out}")
+        if args.flight_out:
+            doc = engine.flight.write(args.flight_out, reason="end_of_run")
+            print(f"[serve] wrote flight record -> {args.flight_out} "
+                  f"(steps={len(doc['steps'])} "
+                  f"requests={len(doc['requests'])} "
+                  f"trips={len(doc['trips'])})")
     finally:
         engine.close()
 

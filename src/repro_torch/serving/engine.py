@@ -46,9 +46,19 @@ accepted and does nothing: the port's kernel plans are fixed functions of
 the shape, with nothing to resolve ahead.  Weight-only quantization,
 enc-dec encoders, the pack mesh and the tuner-resolved sizes raise
 ``NotImplementedError`` naming the ROADMAP item that brings them; none
-falls back to another path.  The ``obs`` hooks (tracer spans, step
-profiler, SLO monitor, flight recorder, the ``prefix.*`` counters) wait
-for ROADMAP Queue A item 8.
+falls back to another path.
+
+Observability (``repro_torch.obs``) follows the reference series for
+series and span for span: the engine instruments the process bundle's
+registry (always on) and tracer (on when the entry point enables it),
+splits each step's wall into the section probes and the host bubble
+(:class:`~repro_torch.obs.profile.StepProfiler`), places the decode and
+the prefill chunks on the card's roofline, watches rolling-window
+TTFT/ITL against SLO targets and keeps a flight recorder that a breach or
+a preemption storm trips.  On a card the section probes are CUDA event
+pairs on the stream, read once a step after its last readback, so a
+prefill chunk whose kernels are still queued when the host moves on is
+charged to its own section.
 """
 
 from __future__ import annotations
@@ -60,9 +70,12 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.kernels.ops import op_cost_model
 from repro_torch.models import (decode_step, forward, init_cache,
                                 init_paged_cache)
 from repro_torch.models.config import ModelConfig, torch_dtype
+from repro_torch.obs import FlightRecorder, SLOMonitor, StepProfiler, get_obs
+from repro_torch.obs.efficiency import model_flops_per_token
 from repro_torch.serving.kvpool import (BlockTables, PagePool, PrefixCache,
                                         pages_for)
 from repro_torch.serving.quant import KV_PAGE_DTYPES, quantize_kv_row
@@ -154,6 +167,43 @@ def _bucket_for(plen: int, max_len: int) -> int:
     raise ValueError(f"prompt of {plen} tokens exceeds max_len={max_len}")
 
 
+class _Sections:
+    """One step's section probes: named spans whose sum is the step's
+    device estimate.  On a CUDA device a span is two events recorded on
+    the current stream and read only after the stream has passed them
+    (:meth:`read`), so no probe stalls the host; on the CPU the work is
+    synchronous and a span is a host-clock interval."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self._spans: List[tuple] = []     # (name, start, end, payload)
+
+    def mark(self):
+        if not self.cuda:
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def span(self, name: str, start, payload=None) -> None:
+        """Close the span ``name`` opened by the mark ``start``."""
+        self._spans.append((name, start, self.mark(), payload))
+
+    def read(self, synced: bool) -> List[tuple]:
+        """Every span as (name, ms, payload), in the order closed.  On a
+        card the last event is waited for unless the caller has already
+        synchronised the stream past it (``synced``)."""
+        if self.cuda and self._spans and not synced:
+            self._spans[-1][2].synchronize()
+        out = []
+        for name, start, end, payload in self._spans:
+            ms = (start.elapsed_time(end) if self.cuda
+                  else (end - start) * 1e3)
+            out.append((name, ms, payload))
+        self._spans.clear()
+        return out
+
+
 class ServeEngine:
     """Continuous-batching engine over the port's kernels.
 
@@ -200,8 +250,6 @@ class ServeEngine:
         self._closed = False
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(scfg.seed)
-        self.sched = Scheduler(scfg.batch_slots, policy=scfg.policy)
-        self.sched.signals = self._admission_signals
         self.caches = None            # allocated at first step
         self.paged = scfg.kv == "paged"
         self.prefix = None
@@ -235,6 +283,12 @@ class ServeEngine:
             # Page-aligned chunks: each chunk's scatter writes whole pages.
             chunk = pages_for(chunk, scfg.page_size) * scfg.page_size
         self.prefill_chunk = min(chunk, self._fresh_len)
+        self._init_obs()
+        self.sched = Scheduler(scfg.batch_slots, policy=scfg.policy,
+                               registry=self._obs.registry)
+        # The policy reads the engine's live load picture (token budget,
+        # decode tokens in flight, measured inter-token p99, SLO state).
+        self.sched.signals = self._admission_signals
         self._slot_req: Dict[int, Request] = {}  # slot -> its request
         self._scratch: Dict[int, List] = {}       # slot -> chunk scratch
         self._streamed: Dict[int, int] = {}       # rid -> tokens streamed
@@ -257,6 +311,67 @@ class ServeEngine:
                       "starved_steps": 0, "prefix_hits": 0,
                       "prefix_hit_tokens": 0, "prefix_prompt_tokens": 0,
                       "cow_copies": 0}
+
+    def _init_obs(self) -> None:
+        """Instrument against the process bundle (the reference's series,
+        names and help texts): metrics always on, spans live only when the
+        entry point enabled the tracer (``--trace-out``)."""
+        obs = get_obs()
+        self._obs = obs
+        reg = obs.registry
+        self._h_ttft = reg.histogram(
+            "serve.ttft_ms", "runnable -> first token, per request")
+        self._h_itl = reg.histogram(
+            "serve.inter_token_ms",
+            "per-stream gap between consecutive decode tokens "
+            "(first tokens are TTFT, not ITL)")
+        self._c_tokens = reg.counter("serve.tokens_out", "tokens emitted")
+        self._c_chunks = reg.counter(
+            "serve.prefill_chunks", "prompt chunks prefilled")
+        self._c_starved = reg.counter(
+            "serve.decode_starved_steps",
+            "steps where in-flight streams stalled behind prefill work "
+            "longer than the batched decode itself")
+        self._c_rejects = reg.counter(
+            "serve.admission_rejections",
+            "arrived requests deferred by the paged fits() gate")
+        self._g_active = reg.gauge("serve.active_slots", "slots mid-decode")
+        self._g_kv_tokens = reg.gauge(
+            "serve.kv_tokens", "KV rows bound to live requests")
+        # Registered in both layouts so one snapshot schema covers dense
+        # and paged runs (dense holds no pages: stays 0), as are the
+        # prefix-cache series (stay 0 when the cache is off).
+        reg.gauge("kvpool.pages_in_use", "KV pages currently allocated")
+        self._c_plookup = reg.counter(
+            "prefix.lookup", "prefix-cache lookups at admission")
+        self._c_phit = reg.counter(
+            "prefix.hit_tokens",
+            "prompt tokens served from cached pages (never re-forwarded)")
+        self._g_phit_rate = reg.gauge(
+            "prefix.hit_rate",
+            "cumulative hit_tokens / prompt tokens across admissions")
+        if self.pool is not None:
+            self.pool.bind_metrics(reg)
+        # Step-time decomposition and the kernel roofline table, against
+        # the model of the device the engine serves on.
+        dtype_name = self.cfg.compute_dtype
+        self._dtype_bytes = float(torch_dtype(dtype_name).itemsize)
+        self.profiler = StepProfiler(reg, backend=self.device.type,
+                                     dtype_name=dtype_name)
+        # Rolling-window tail-latency monitor (targets off until the
+        # launcher arms them), and the incident recorder its breaches and
+        # preemption storms trip.
+        self.slo = SLOMonitor(reg, tracer=obs.tracer)
+        self.flight = FlightRecorder()
+        self.slo.on_breach(
+            lambda series, q, target: self.flight.trip(
+                "slo_breach", series=series, window_ms=q,
+                target_ms=target))
+        self._kernel_costs: Dict[str, tuple] = {}  # op -> (flops, bytes)
+        self._sections = _Sections(self.device)   # the step's probes
+        if obs.tracer.enabled:
+            obs.tracer.process_name("repro-serve")
+            obs.tracer.thread_name("engine")
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -322,7 +437,10 @@ class ServeEngine:
         return rows * self.token_kv_bytes()
 
     def _note_kv_tokens(self, live: int) -> None:
+        """Record the live-token count (KV rows bound to active requests)
+        into the gauge and the engine's own high-water."""
         self._kv_tokens_hwm = max(self._kv_tokens_hwm, live)
+        self._g_kv_tokens.set(live)
 
     def _insert_slot(self, one: List, slot: int) -> None:
         """Overwrite slot ``slot`` of the persistent cache with a freshly
@@ -382,12 +500,15 @@ class ServeEngine:
         """Account one admission's lookup, once per admission (not per
         fits() probe, so deferred requests do not skew the rate)."""
         hit = hit_pages * self.pool.page_size
+        self._c_plookup.inc()
         self._prefix_prompt_tokens += req.prompt_len
         self.stats["prefix_prompt_tokens"] = self._prefix_prompt_tokens
         if hit:
+            self._c_phit.inc(hit)
             self._prefix_hit_tokens += hit
             self.stats["prefix_hits"] += 1
             self.stats["prefix_hit_tokens"] = self._prefix_hit_tokens
+        self._g_phit_rate.set(self.prefix_hit_rate())
 
     def _slice_prefix_page(self, scratch: List, page_idx: int) -> List:
         """One full page of a slot's dense-scratch KV rows, every layer: the
@@ -436,8 +557,9 @@ class ServeEngine:
 
     def _admission_signals(self) -> Dict[str, Any]:
         """Load picture the scheduler policy decides from: the token
-        budget, the decode tokens in flight, and the prompt tokens the
-        prefilling slots' next chunks hold."""
+        budget, the decode tokens in flight, the prompt tokens the
+        prefilling slots' next chunks hold, the measured inter-token p99
+        and the SLO monitor's rolling-window state."""
         backlog = 0
         if self.prefill_chunk:
             for s in self.sched.slots:
@@ -445,9 +567,50 @@ class ServeEngine:
                 if s.state == PREFILLING and req is not None:
                     backlog += min(self.prefill_chunk,
                                    req.prompt_len - s.prefill_pos)
-        return {"token_budget": self.scfg.token_budget,
-                "decode_tokens": len(self.sched.active_slots()),
-                "prefill_backlog": backlog}
+        sig = {"token_budget": self.scfg.token_budget,
+               "decode_tokens": len(self.sched.active_slots()),
+               "prefill_backlog": backlog,
+               "itl_p99_ms": (self._h_itl.percentile(99)
+                              if self._h_itl.count else None)}
+        sig.update(self.slo.signals())
+        return sig
+
+    # -- kernel roofline capture ---------------------------------------------
+
+    def _profile_decode(self, decode_ms: float) -> None:
+        """Roofline-place the step's batched decode on the analytic costs
+        (:func:`~repro_torch.kernels.ops.op_cost_model`) and this step's
+        decode probe, so the table tracks warm timings (last wins)."""
+        op = "flash_paged_decode" if self.paged else "flash_decode"
+        costs = self._kernel_costs.get(op)
+        if costs is None:
+            cfg = self.cfg
+            mfpt = model_flops_per_token(cfg)
+            costs = self._kernel_costs[op] = op_cost_model(
+                op, batch=self.scfg.batch_slots, heads=cfg.n_heads,
+                kv_heads=cfg.n_kv_heads, seq=self.scfg.max_len,
+                d_head=cfg.d_head, dtype_bytes=self._dtype_bytes,
+                kv_bytes=self._dtype_bytes, layers=cfg.n_layers,
+                weight_flops=mfpt * self.scfg.batch_slots,
+                weight_bytes=mfpt / 2.0 * self._dtype_bytes)
+        if decode_ms > 0:
+            self.profiler.record_kernel(op, costs[0], costs[1],
+                                        measured_us=decode_ms * 1e3)
+
+    def _profile_prefill_chunk(self, take: int, chunk_ms: float) -> None:
+        """Roofline-place one prompt chunk (forward + page scatter)."""
+        if chunk_ms <= 0 or take <= 0:
+            return
+        cfg = self.cfg
+        mfpt = model_flops_per_token(cfg)
+        flops, nbytes = op_cost_model(
+            "prefill_chunk", chunk_tokens=take, heads=cfg.n_heads,
+            kv_heads=cfg.n_kv_heads, d_head=cfg.d_head,
+            kv_bytes=self._dtype_bytes, layers=cfg.n_layers,
+            weight_flops=mfpt * take,
+            weight_bytes=mfpt / 2.0 * self._dtype_bytes)
+        self.profiler.record_kernel("prefill_chunk", flops, nbytes,
+                                    measured_us=chunk_ms * 1e3)
 
     # -- continuous-batching API --------------------------------------------
 
@@ -484,6 +647,13 @@ class ServeEngine:
                                   prompt=prompt))
         if on_token is not None:
             self._on_token[rid] = on_token
+        tr = self._obs.tracer
+        tr.async_begin("request", rid, prompt_len=int(prompt.size),
+                       max_new=int(max_new))
+        tr.async_begin("queued", rid)
+        self.flight.record_request_event(
+            rid, "submitted", prompt_len=int(prompt.size),
+            max_new=int(max_new), arrival=arrival)
         if arrival <= self.step_count:
             # TTFT clock starts the moment the request is runnable.
             self._runnable_at[rid] = time.perf_counter()
@@ -513,6 +683,7 @@ class ServeEngine:
         self._check_open("step")
         if self.caches is None:
             self.caches = self.new_cache()
+        tr = self._obs.tracer
         t_step = time.perf_counter()
         for r in self.sched.queue:
             # Trace-replayed arrivals become runnable this step.
@@ -526,64 +697,112 @@ class ServeEngine:
                                   "cancelled": list(self._cancel_log),
                                   "ttft_ms": {}, "itl_ms": {}}
         self._cancel_log.clear()
-        self._admit(events)
-        admit_ms = (time.perf_counter() - t_step) * 1e3
-        t_pf = time.perf_counter()
-        prefill_ms = 0.0
-        if any(s.state == PREFILLING for s in self.sched.slots):
-            self._advance_prefills(events, budget)
-            prefill_ms = (time.perf_counter() - t_pf) * 1e3
-        if self.paged:
-            self._grow_pages(events)
-        active = self.sched.active_slots()
-        decode_ms = 0.0
-        if active:
-            pos = np.zeros((self.scfg.batch_slots,), np.int32)
-            for s in self.sched.slots:
-                # Inactive slots decode garbage into their own dead rows
-                # (dense: replaced wholesale on re-admission; paged: the
-                # null sink page); the clamp only guards the bound.
-                pos[s.index] = min(s.length, self._fresh_len - 1)
-            tables = (torch.from_numpy(self._decode_table()).to(self.device)
-                      if self.paged else None)
-            t_dec = time.perf_counter()
-            logits, self.caches = decode_step(
-                self.params, torch.from_numpy(self._tok).to(self.device),
-                torch.from_numpy(pos).to(self.device), self.cfg, self.caches,
-                block_tables=tables)
-            toks = self._sample(logits).cpu().numpy()
-            decode_ms = (time.perf_counter() - t_dec) * 1e3
-            self.stats["decode_steps"] += 1
-            if events["admitted"] and holdover:
-                # A mid-stream admission shared this decode step with
-                # older in-flight requests.
-                self.stats["shared_steps"] += 1
-            # Every active slot just wrote a row at position `length`.
-            self._note_kv_tokens(sum(s.length + 1 for s in active))
-            for s in active:
-                if s.state != DECODE:
-                    continue    # cancelled mid-step by a callback
-                s.length += 1
-                self._tok[s.index] = toks[s.index]
-                events["decoded"].append(s.rid)
-                self._emit(s, int(toks[s.index]), events)
-        if self._cancel_log:
-            events["cancelled"].extend(self._cancel_log)
-            self._cancel_log.clear()
-        if holdover and active and admit_ms + prefill_ms > decode_ms:
-            # In-flight streams waited longer on prefill work than on
-            # their own batched decode: what chunking exists to bound.
-            self.stats["starved_steps"] += 1
-        if events["finished"] or events["preempted"] or events["cancelled"]:
-            self._admit(events)
+        clock = self._sections
+        with tr.span("engine.step", cat="engine", step=self.step_count):
+            mark = clock.mark()
+            self._admission_pass(events, "arrival")
+            clock.span("admit", mark)
+            if any(s.state == PREFILLING for s in self.sched.slots):
+                mark = clock.mark()
+                self._advance_prefills(events, budget)
+                clock.span("prefill", mark)
+            if self.paged:
+                self._grow_pages(events)
+            active = self.sched.active_slots()
+            if active:
+                pos = np.zeros((self.scfg.batch_slots,), np.int32)
+                for s in self.sched.slots:
+                    # Inactive slots decode garbage into their own dead
+                    # rows (dense: replaced wholesale on re-admission;
+                    # paged: the null sink page); the clamp only guards
+                    # the bound.
+                    pos[s.index] = min(s.length, self._fresh_len - 1)
+                tables = (torch.from_numpy(self._decode_table()).to(
+                    self.device) if self.paged else None)
+                with tr.span("decode", cat="engine", batch=len(active)):
+                    mark = clock.mark()
+                    logits, self.caches = decode_step(
+                        self.params,
+                        torch.from_numpy(self._tok).to(self.device),
+                        torch.from_numpy(pos).to(self.device), self.cfg,
+                        self.caches, block_tables=tables)
+                    toks = self._sample(logits)
+                    clock.span("decode", mark)
+                    toks = toks.cpu().numpy()
+                # The readback above synchronised the stream past every
+                # probe of the step so far.
+                probes = self._read_probes(synced=True)
+                self.stats["decode_steps"] += 1
+                if events["admitted"] and holdover:
+                    # A mid-stream admission shared this decode step with
+                    # older in-flight requests.
+                    self.stats["shared_steps"] += 1
+                # Every active slot just wrote a row at position `length`.
+                self._note_kv_tokens(sum(s.length + 1 for s in active))
+                for s in active:
+                    if s.state != DECODE:
+                        continue    # cancelled mid-step by a callback
+                    s.length += 1
+                    self._tok[s.index] = toks[s.index]
+                    events["decoded"].append(s.rid)
+                    self._emit(s, int(toks[s.index]), events)
+            else:
+                probes = self._read_probes(synced=False)
+            if self._cancel_log:
+                events["cancelled"].extend(self._cancel_log)
+                self._cancel_log.clear()
+            if (holdover and active
+                    and probes["admit"] + probes["prefill"]
+                    > probes["decode"]):
+                # In-flight streams waited longer on prefill work than on
+                # their own batched decode: what chunking exists to bound.
+                self._c_starved.inc()
+                self.stats["starved_steps"] += 1
+            if events["finished"] or events["preempted"] \
+                    or events["cancelled"]:
+                self._admission_pass(events, "reclaim")
         self._note_kv_tokens(sum(s.length for s in self.sched.active_slots()))
+        self._g_active.set(len(self.sched.active_slots()))
         self.step_count += 1
+        step_ms = (time.perf_counter() - t_step) * 1e3
         events["timings"] = {
-            "admit_ms": admit_ms, "prefill_ms": prefill_ms,
-            "decode_ms": decode_ms,
-            "step_ms": (time.perf_counter() - t_step) * 1e3,
+            "admit_ms": probes["admit"], "prefill_ms": probes["prefill"],
+            "decode_ms": probes["decode"], "step_ms": step_ms,
         }
+        # Attribution: the three section probes are the device estimate;
+        # the wall time they do not cover is the host bubble.
+        prof = self.profiler.record_step(
+            step_ms, {"admit": probes["admit"],
+                      "prefill": probes["prefill"],
+                      "decode": probes["decode"]})
+        events["profile"] = prof
+        tr.counter("step.attribution", bubble_ms=prof["bubble_ms"],
+                   device_ms=prof["device_ms"])
+        self.flight.record_step(
+            self.step_count - 1, wall_ms=round(step_ms, 3),
+            device_ms=round(prof["device_ms"], 3),
+            bubble_ms=round(prof["bubble_ms"], 3),
+            admitted=len(events["admitted"]),
+            decoded=len(events["decoded"]),
+            finished=len(events["finished"]),
+            preempted=len(events["preempted"]))
         return events
+
+    def _read_probes(self, synced: bool) -> Dict[str, float]:
+        """Read the step's section probes (once a step, after its last
+        readback), feed the chunk and decode spans to the kernel roofline
+        table, and return the section times: ``admit``, ``prefill`` (the
+        whole chunk phase) and ``decode``, in ms (0 for a section that did
+        not run)."""
+        out = {"admit": 0.0, "prefill": 0.0, "decode": 0.0}
+        for name, ms, payload in self._sections.read(synced):
+            if name == "prefill_chunk":
+                self._profile_prefill_chunk(payload, ms)
+            else:
+                out[name] = ms
+                if name == "decode":
+                    self._profile_decode(ms)
+        return out
 
     def _decode_table(self) -> np.ndarray:
         """Block tables as the decode step sees them: a slot in the middle
@@ -596,6 +815,13 @@ class ServeEngine:
         table = self.blocks.table.copy()
         table[pre] = self.pool.null_page
         return table
+
+    def _admission_pass(self, events: Dict[str, Any], phase: str) -> None:
+        """The single admission entry point: the arrival pass at the top
+        of :meth:`step` and the reclaim pass after decode (``phase`` tags
+        the trace span)."""
+        with self._obs.tracer.span("admit", cat="engine", phase=phase):
+            self._admit(events)
 
     def _admit(self, events: Dict[str, Any]) -> None:
         """Admission pass: free slots and (paged) enough free pages for each
@@ -632,13 +858,17 @@ class ServeEngine:
                     need -= len(pins[req.rid][0])
                     headroom = self.pool.free_pages + self.prefix.evictable()
                 if reserved + need > headroom:
+                    self._c_rejects.inc()
                     return False
                 reserved += need
                 return True
+        tr = self._obs.tracer
         inflight = []
         for req in self.sched.pop_admissible(self.step_count, fits=fits):
             slot = self.sched.admit(
                 req, state=PREFILLING if self.prefill_chunk else DECODE)
+            tr.async_end("queued", req.rid)
+            tr.async_begin("decode", req.rid, slot=slot.index)
             hit_pages, hit_payloads = pins.pop(req.rid, ([], []))
             if self.paged:
                 # The slot takes over the pinned prefix's references and
@@ -663,6 +893,8 @@ class ServeEngine:
                 inflight.append((slot, self._prefill_slot(slot, req)))
             self.stats["admitted"] += 1
             events["admitted"].append(req.rid)
+            self.flight.record_request_event(
+                req.rid, "admitted", slot=slot.index, step=self.step_count)
         # Unpin what fits() approved but the policy did not take (it stays
         # queued; the next pass pins again).
         for hit_pages, _ in pins.values():
@@ -683,19 +915,22 @@ class ServeEngine:
         last-position logits) as an unsynced device tensor."""
         plen = req.prompt_len
         bucket = _bucket_for(plen, self.scfg.max_len)
-        toks = np.zeros((1, bucket), np.int64)
-        toks[0, :plen] = req.prompt
-        fresh = init_cache(self.cfg, 1, self._fresh_len, self.device)
-        logits, fresh = forward(
-            self.params, {"tokens": torch.from_numpy(toks).to(self.device)},
-            self.cfg, caches=fresh, cache_pos=0)
-        if self.paged:
-            self._insert_slot_pages(fresh, slot.index)
-        else:
-            self._insert_slot(fresh, slot.index)
-        self.stats["prefills"] += 1
-        slot.length = plen
-        return torch.argmax(logits[0, plen - 1])
+        with self._obs.tracer.span("prefill", cat="engine", rid=req.rid,
+                                   plen=plen, bucket=bucket):
+            toks = np.zeros((1, bucket), np.int64)
+            toks[0, :plen] = req.prompt
+            fresh = init_cache(self.cfg, 1, self._fresh_len, self.device)
+            logits, fresh = forward(
+                self.params,
+                {"tokens": torch.from_numpy(toks).to(self.device)},
+                self.cfg, caches=fresh, cache_pos=0)
+            if self.paged:
+                self._insert_slot_pages(fresh, slot.index)
+            else:
+                self._insert_slot(fresh, slot.index)
+            self.stats["prefills"] += 1
+            slot.length = plen
+            return torch.argmax(logits[0, plen - 1])
 
     def _advance_prefills(self, events: Dict[str, Any], budget: int) -> None:
         """Spend the step's prefill tokens on prompt chunks, oldest
@@ -738,15 +973,22 @@ class ServeEngine:
             buf = pages_for(take, ps) * ps
         else:
             buf = min(chunk, self._fresh_len - c0)
-        toks = np.zeros((1, buf), np.int64)
-        toks[0, :take] = req.prompt[c0:c0 + take]
-        scratch = self._scratch[slot.index]
-        logits, _ = forward(
-            self.params, {"tokens": torch.from_numpy(toks).to(self.device)},
-            self.cfg, caches=scratch, cache_pos=c0)
-        if self.paged:
-            self._insert_chunk_pages(scratch, slot.index, c0, buf)
-        self.stats["prefill_chunks"] += 1
+        mark = self._sections.mark()
+        with self._obs.tracer.span("prefill_chunk", cat="engine",
+                                   rid=req.rid, lo=c0, take=take):
+            toks = np.zeros((1, buf), np.int64)
+            toks[0, :take] = req.prompt[c0:c0 + take]
+            scratch = self._scratch[slot.index]
+            logits, _ = forward(
+                self.params,
+                {"tokens": torch.from_numpy(toks).to(self.device)},
+                self.cfg, caches=scratch, cache_pos=c0)
+            if self.paged:
+                self._insert_chunk_pages(scratch, slot.index, c0, buf)
+            self.stats["prefill_chunks"] += 1
+            self._c_chunks.inc()
+        # The chunk's roofline row is placed when the step reads its probes.
+        self._sections.span("prefill_chunk", mark, take)
         slot.prefill_pos = c0 + take
         if slot.prefill_pos < plen:
             return
@@ -773,6 +1015,7 @@ class ServeEngine:
         Safe from an ``on_token`` callback.  False when ``rid`` is unknown
         or already finished."""
         self._check_open("cancel")
+        tr = self._obs.tracer
         req = self.sched.cancel(rid)
         self._streamed.pop(rid, None)
         if req is not None:                      # still queued
@@ -780,6 +1023,9 @@ class ServeEngine:
             self._on_token.pop(rid, None)
             self.stats["cancelled"] += 1
             self._cancel_log.append(rid)
+            tr.async_end("queued", rid)
+            tr.async_end("request", rid, cancelled=True)
+            self.flight.record_request_event(rid, "cancelled", queued=True)
             return True
         for slot in self.sched.slots:
             if slot.rid == rid and slot.state in (DECODE, PREFILLING):
@@ -794,6 +1040,11 @@ class ServeEngine:
                 self._on_token.pop(rid, None)
                 self.stats["cancelled"] += 1
                 self._cancel_log.append(rid)
+                tr.instant("cancel", cat="engine", rid=rid)
+                tr.async_end("decode", rid)
+                tr.async_end("request", rid, cancelled=True)
+                self.flight.record_request_event(rid, "cancelled",
+                                                 queued=False)
                 return True
         return False
 
@@ -815,17 +1066,30 @@ class ServeEngine:
         self._out.setdefault(rid, []).append(int(tok))
         slot.generated += 1
         n_out = slot.generated      # release() below resets the slot
+        self._c_tokens.inc()
         now = time.perf_counter()
+        tr = self._obs.tracer
         t0 = self._runnable_at.pop(rid, None)
         if t0 is not None:
-            # First token since the request became runnable: TTFT.
-            events["ttft_ms"][rid] = (now - t0) * 1e3
+            # First token since the request became runnable (or since its
+            # last preemption): TTFT.
+            ttft_ms = (now - t0) * 1e3
+            self._h_ttft.observe(ttft_ms)
+            self.slo.observe_ttft(ttft_ms)
+            events["ttft_ms"][rid] = ttft_ms
+            self.flight.record_request_event(
+                rid, "first_token", ttft_ms=round(ttft_ms, 3))
+            tr.flow(f"req{rid}", rid, "start", cat="reqflow")
         else:
             prev = self._last_emit.get(rid)
             if prev is not None:
                 # Inter-token latency as the stream sees it: the wall gap
                 # since this request's previous token.
-                events["itl_ms"][rid] = (now - prev) * 1e3
+                gap_ms = (now - prev) * 1e3
+                self._h_itl.observe(gap_ms)
+                self.slo.observe_itl(gap_ms)
+                events["itl_ms"][rid] = gap_ms
+                tr.flow(f"req{rid}", rid, "step", cat="reqflow")
         self._last_emit[rid] = now
         eos = (self.scfg.eos_id is not None
                and int(tok) == int(self.scfg.eos_id))
@@ -842,6 +1106,11 @@ class ServeEngine:
                 # Pages return to the pool the step the request ends.
                 self.blocks.release(slot.index)
             self.sched.release(slot)
+            tr.flow(f"req{rid}", rid, "end", cat="reqflow")
+            tr.async_end("decode", rid)
+            tr.async_end("request", rid, tokens=n_out, eos=eos)
+            self.flight.record_request_event(
+                rid, "finished", tokens=int(n_out), eos=bool(eos))
         cb = (self._on_token.pop(rid, None) if done
               else self._on_token.get(rid))
         # A request regenerating after a preemption emits again the tokens
@@ -918,6 +1187,13 @@ class ServeEngine:
         self.sched.requeue(req)
         self.stats["preemptions"] += 1
         events["preempted"].append(rid)
+        tr = self._obs.tracer
+        tr.instant("preempt", cat="engine", rid=rid)
+        tr.async_end("decode", rid)
+        tr.async_begin("queued", rid)
+        # Enough preemptions inside one window of steps trip the flight
+        # recorder (a preemption storm).
+        self.flight.note_preemption(self.step_count, rid)
         # The regenerated stream measures TTFT again from the eviction.
         self._runnable_at[rid] = time.perf_counter()
 

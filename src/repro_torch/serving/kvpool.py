@@ -30,8 +30,8 @@ goes.  A slot about to write into a shared page copies it first
 Allocator invariants: the free list and the in-use set partition
 ``range(num_pages)``; every in-use page has a refcount >= 1; releasing a
 page that is not in use raises; the lowest free ids go first, so traces
-replay identically.  The pool's metrics hooks (``bind_metrics``) come
-with the observability slice (ROADMAP Queue A item 8).
+replay identically.  ``bind_metrics`` mirrors the accounting into an obs
+registry.
 """
 
 from __future__ import annotations
@@ -94,6 +94,19 @@ class PagePool:
         self.reclaimer = reclaimer      # optional shortfall hook: called
         #                                 with the deficit before alloc
         #                                 gives up (prefix-cache eviction)
+        self._g_in_use = None           # bound obs gauge (bind_metrics)
+        self._c_reclaimed = None
+
+    def bind_metrics(self, registry) -> None:
+        """Mirror the pool's accounting into an obs registry: the
+        ``kvpool.pages_in_use`` gauge (its high-water is the
+        ``pages_hwm`` figure) and the ``kvpool.pages_reclaimed``
+        counter track every alloc/release from here on."""
+        self._g_in_use = registry.gauge(
+            "kvpool.pages_in_use", "KV pages currently allocated")
+        self._c_reclaimed = registry.counter(
+            "kvpool.pages_reclaimed", "KV pages returned to the pool")
+        self._g_in_use.set(self._n_live)
 
     # -- accounting ---------------------------------------------------------
 
@@ -120,6 +133,8 @@ class PagePool:
 
     def _note_live(self) -> None:
         self.high_water = max(self.high_water, self._n_live)
+        if self._g_in_use is not None:
+            self._g_in_use.set(self._n_live)
 
     # -- alloc / share / release --------------------------------------------
 
@@ -165,8 +180,8 @@ class PagePool:
         """Drop one reference per page (``cache=True`` drops a cache
         ref); pages whose last reference goes return to the free list.
         Returns the number of pages physically freed —
-        ``total_reclaimed`` advances by that (physical pages once, not
-        per-referencing-slot).
+        ``total_reclaimed`` and the ``pages_reclaimed`` counter advance
+        by that (physical pages once, not per-referencing-slot).
         Double-free (or freeing a never-allocated id) raises — that is a
         bookkeeping bug upstream, and silently absorbing it would let
         two slots clobber each other's KV."""
@@ -194,6 +209,8 @@ class PagePool:
         self._free = sorted(self._free + freed)
         self.total_reclaimed += len(freed)
         self._note_live()
+        if self._c_reclaimed is not None and freed:
+            self._c_reclaimed.inc(len(freed))
         return len(freed)
 
     def check(self) -> None:

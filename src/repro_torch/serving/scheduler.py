@@ -1,8 +1,7 @@
 """Continuous-batching scheduler: a request queue over a fixed slot pool.
 
 A copy of ``repro/serving/scheduler.py`` (the port imports nothing of the
-JAX package); only the observability counters are left out, until the
-port's ``obs`` slice (ROADMAP Queue A item 8).
+JAX package).
 
 The engine owns one persistent KV-cache allocation with
 ``batch_slots`` rows ("slots"); the scheduler decides which request
@@ -32,8 +31,8 @@ a tensor — which keeps admission decisions off the device.
 
 Admission is delegated to a :class:`Policy`.  ``fifo`` reproduces the
 historical hardcoded scan bit-for-bit; ``latency`` defers admission
-while the decode token budget is saturated, trading TTFT for in-flight
-stream latency.
+while the decode token budget is saturated (or the measured inter-token
+p99 is above target), trading TTFT for in-flight stream latency.
 
 >>> s = Scheduler(2)
 >>> s.submit(Request(rid=0, prompt_len=4, max_new=2))
@@ -149,29 +148,28 @@ class FifoPolicy(Policy):
 
 
 class LatencyPolicy(FifoPolicy):
-    """Defer admission while decode is saturated: when the step's token
-    budget is already consumed by in-flight decode plus pending prefill
-    chunks (``decode_tokens + prefill_backlog >= token_budget``), a new
-    prompt's chunks could only displace in-flight tokens, so the FIFO
-    scan is gated wholesale (nothing is admitted this step).
+    """Defer admission while decode is saturated.  Three signals gate the
+    FIFO scan wholesale (admitting nothing this step):
+
+    - the step's token budget is already consumed by in-flight decode
+      plus pending prefill chunks (``decode_tokens + prefill_backlog >=
+      token_budget``), so a new prompt's chunks could only displace
+      in-flight tokens; or
+    - the measured ``serve.inter_token_ms`` p99 (``itl_p99_ms``) is
+      above ``target_p99_ms`` (when set), i.e. streams are already
+      missing their SLO; or
+    - the engine's :class:`repro_torch.obs.slo.SLOMonitor` reports an
+      active rolling-window breach (``slo_breached`` in the signals —
+      armed by the launcher's ``--slo-ttft-ms`` / ``--slo-itl-ms``).
 
     Deferral trades time-to-first-token for inter-token latency of the
     streams already running; FIFO order among deferred requests is kept.
-
-    The reference's two latency gates, ``target_p99_ms`` (measured
-    inter-token p99 above target) and the SLO monitor's ``slo_breached``
-    signal, read metrics the port's engine does not publish until its
-    ``obs`` slice (ROADMAP Queue A item 8); asking for the first raises.
     """
 
     name = "latency"
 
     def __init__(self, target_p99_ms: Optional[float] = None):
-        if target_p99_ms is not None:
-            raise NotImplementedError(
-                "LatencyPolicy(target_p99_ms=...) needs the measured "
-                "inter-token p99, which the engine publishes with the obs "
-                "slice (ROADMAP Queue A item 8)")
+        self.target_p99_ms = target_p99_ms
 
     def select(self, view: AdmissionView) -> List[Request]:
         sig = view.signals
@@ -181,6 +179,15 @@ class LatencyPolicy(FifoPolicy):
                 + int(sig.get("prefill_backlog") or 0)
             if load >= budget:
                 return []
+        p99 = sig.get("itl_p99_ms")
+        if (self.target_p99_ms is not None and p99 is not None
+                and p99 > self.target_p99_ms):
+            return []
+        # The SLO monitor's rolling-window verdict: while the recent tail
+        # is over target, new prompts' prefills would push the breached
+        # streams further past their SLO.
+        if sig.get("slo_breached"):
+            return []
         return super().select(view)
 
 
@@ -204,7 +211,8 @@ class Scheduler:
     """
 
     def __init__(self, n_slots: int,
-                 policy: Union[str, Policy, None] = "fifo"):
+                 policy: Union[str, Policy, None] = "fifo",
+                 registry=None):
         if n_slots < 1:
             raise ValueError(f"need at least one slot, got {n_slots}")
         self.slots: List[Slot] = [Slot(index=i) for i in range(n_slots)]
@@ -214,11 +222,29 @@ class Scheduler:
         # decode tokens in flight, measured p99, ...).
         self.signals: Callable[[], Dict[str, Any]] = dict
         self._admit_seq = 0
+        # Optional obs registry (repro_torch.obs.metrics.Registry); the
+        # engine passes the process bundle's, direct constructions stay
+        # silent.
+        self._c_submitted = self._c_requeued = self._g_depth = None
+        if registry is not None:
+            self._c_submitted = registry.counter(
+                "sched.submitted", "requests queued")
+            self._c_requeued = registry.counter(
+                "sched.requeued", "preempted requests returned to queue")
+            self._g_depth = registry.gauge(
+                "sched.queue_depth", "requests waiting for a slot")
+
+    def _sample_depth(self) -> None:
+        if self._g_depth is not None:
+            self._g_depth.set(len(self.queue))
 
     # -- queue --------------------------------------------------------------
 
     def submit(self, req: Request) -> int:
         self.queue.append(req)
+        if self._c_submitted is not None:
+            self._c_submitted.inc()
+        self._sample_depth()
         return req.rid
 
     def requeue(self, req: Request) -> None:
@@ -227,6 +253,9 @@ class Scheduler:
         first again keeps preemption FIFO-fair (no later request can
         leapfrog a victim)."""
         self.queue.insert(0, req)
+        if self._c_requeued is not None:
+            self._c_requeued.inc()
+        self._sample_depth()
 
     def cancel(self, rid: int) -> Optional[Request]:
         """Drop a still-queued request; returns it, or None if ``rid``
@@ -234,6 +263,7 @@ class Scheduler:
         for r in self.queue:
             if r.rid == rid:
                 self.queue.remove(r)
+                self._sample_depth()
                 return r
         return None
 
@@ -256,6 +286,8 @@ class Scheduler:
         picked = self.admissible(step, fits=fits)
         for r in picked:
             self.queue.remove(r)
+        if picked:
+            self._sample_depth()
         return picked
 
     # -- slots --------------------------------------------------------------

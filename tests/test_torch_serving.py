@@ -25,6 +25,7 @@ from repro.models import init_params as jinit_params
 from repro.serving.engine import ServeConfig as JServeConfig
 from repro.serving.engine import ServeEngine as JServeEngine
 from repro_torch import configs as TC
+from repro_torch import obs
 from repro_torch.bridge import params_from_numpy
 from repro_torch.launch import serve as tserve
 from repro_torch.serving.engine import (ServeConfig, ServeEngine,
@@ -136,8 +137,13 @@ def test_launcher_main_replays_and_verifies(capsys):
                  "--device", "cpu"])
     out = capsys.readouterr().out
     assert "96 tokens" in out and "verify OK: 6 requests" in out
-    with pytest.raises(NotImplementedError, match="arrival_s"):
-        tserve.main(["--trace", "bursty24", "--device", "cpu"])
+    # bursty24 carries wall-clock arrivals (arrival_s): replayed on the
+    # clock, four times faster.
+    tserve.main(["--trace", "bursty24", "--kv", "paged", "--page_size", "16",
+                 "--prefill-chunk", "16", "--verify", "--speed", "4",
+                 "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "verify OK: 24 requests" in out and "chunked prefill" in out
 
 
 def test_uniform_generate_matches_oneshot_rows():
@@ -323,6 +329,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "import repro_torch.launch.train, repro_torch.models.rwkv\n"
             "import repro_torch.checkpoint.manager, repro_torch.data.pipeline\n"
             "import repro_torch.kernels.wkv, repro_torch.training.trainer\n"
+            "import repro_torch.obs, repro_torch.core.hw\n"
             "print('ok')")
     env = {"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin"}
     out = subprocess.run([sys.executable, "-c", code], env=env,
@@ -331,10 +338,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
 
 
 def test_latency_policy_gates_on_the_token_budget_only():
-    """The budget gate is ported; the measured-p99 gate needs the obs
-    slice and raises instead of admitting quietly."""
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        LatencyPolicy(target_p99_ms=5.0)
+    """The latency policy's three gates: the token budget, the measured
+    inter-token p99 against ``target_p99_ms`` and the SLO monitor's
+    breach; the engine publishes the measured p99 it reads."""
     assert make_policy("latency").name == "latency"
     assert make_policy(None).name == make_policy("fifo").name == "fifo"
     with pytest.raises(ValueError, match="unknown scheduler policy"):
@@ -346,6 +352,30 @@ def test_latency_policy_gates_on_the_token_budget_only():
     assert LatencyPolicy().select(view) == []
     view.signals["decode_tokens"] = 3
     assert [r.rid for r in LatencyPolicy().select(view)] == [0, 1]
+    view.signals["itl_p99_ms"] = 7.0
+    assert LatencyPolicy(target_p99_ms=5.0).select(view) == []
+    assert [r.rid for r in LatencyPolicy(target_p99_ms=9.0).select(view)] \
+        == [0, 1]
+    view.signals["slo_breached"] = True
+    assert LatencyPolicy().select(view) == []
+    # The p99 is the process registry's: a fresh one holds no other
+    # engine's gaps.
+    obs.configure(registry=obs.Registry())
+    eng = _engine(2, policy=LatencyPolicy(target_p99_ms=1e-9))
+    try:
+        first = eng.submit(np.arange(4, dtype=np.int32), 6)
+        for _ in range(3):
+            eng.step()
+        assert eng._admission_signals()["itl_p99_ms"] > 1e-9
+        late = eng.submit(np.arange(5, dtype=np.int32), 3)
+        ev = eng.step()
+        # A free slot, no budget set: only the measured p99 defers it.
+        assert first in ev["decoded"] and late not in ev["admitted"]
+        assert [r.rid for r in eng.sched.queue] == [late]
+        assert eng.sched.free_slots() == 1
+    finally:
+        eng.close()
+        obs.reset()
     eng = _engine(2, policy="latency", token_budget=1)
     try:
         rids = [eng.submit(np.arange(4, dtype=np.int32), 3) for _ in range(2)]
