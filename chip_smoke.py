@@ -76,6 +76,22 @@
    idle share for the same 8-slot decode steps, and the step's wall with
    the metrics registry on and off, in turns; and a profile of the 8 x
    448 replay (its prefill attention's and paged decode's device time).
+   Tune (every phase above runs untuned, from an empty tuning cache in a
+   temporary directory; nothing under ``~/.cache`` is read or written):
+   the port's autotuner (``repro_torch.tuning``) against a cache of its
+   own in a temporary directory measures ``gama_gemm``'s plans at
+   SmolLM-360M FULL's weight GEMMs at M = 8 and 488, ``flash_attention``'s
+   at the 8 x 448 prefill (488 x 496, D = 64) and Qwen3-8B's 512 x 512 at
+   D = 128, and the decode and wkv kernels' one chunk at their served
+   shapes, each candidate's output ``torch.equal`` to the analytic plan's
+   (the winner against the analytic plan in ms); the same tunes again
+   must be cache hits; ``tune_serve`` on SmolLM-360M FULL (max_len 64,
+   3 candidates); the 8 x 448 replay with the tuned cache in turns with
+   the untuned one (untuned, tuned, tuned, untuned), every stream equal,
+   each replay's ``gama_gemm`` device time from ``torch.profiler``, every
+   ``ops.*.ref`` 0; the serve launcher with ``--batch_slots 0 --kv paged
+   --page_size 0 --prefill-chunk -1 --verify`` resolving the tuned
+   serve entry; and the host time of a dispatch memo hit.
 5. Train: the wkv6 forward and backward kernels against their plain
    versions at the training shape, a ragged length and a long one, and
    the head-16 builds the SMOKE config runs (bf16, and f32 at the
@@ -97,7 +113,9 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
+import io
 import json
 import math
 import os
@@ -143,6 +161,9 @@ from repro_torch.training.trainer import (  # noqa: E402
 from repro_torch.serving.engine import ServeConfig, ServeEngine  # noqa: E402
 from repro_torch.serving.kvpool import pages_for  # noqa: E402
 from repro_torch.serving.quant import quantize_kv_pages  # noqa: E402
+from repro_torch.tuning import dispatch  # noqa: E402
+from repro_torch.tuning.space import (  # noqa: E402
+    AttentionCandidate, GemmCandidate)
 
 # Published H100 SXM peaks (NVIDIA data sheet; dense, 700 W), from the
 # port's hardware model: device memory bytes/s, operations/s by input type,
@@ -966,14 +987,16 @@ _COUNTED_KINDS = {
 }
 
 
-def _profiled(fn, label):
-    """``fn()`` under ``torch.profiler``, taken again while the profile saw
-    fewer kernels of a counted kind than the wrappers launched.  Returns
-    (fn's result, (count, device us) by kernel name, the launch counters'
-    increments over the traced run, {kind: [seen, launched]} of what the
-    last profile lost: empty when it is complete)."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+def _profiled(fn, label, host=True):
+    """``fn()`` under ``torch.profiler`` (CPU and CUDA activity; CUDA only
+    without ``host``, which keeps the trace to the kernels), taken again
+    while the profile saw fewer kernels of a counted kind than the
+    wrappers launched.  Returns (fn's result, (count, device us) by kernel
+    name, the launch counters' increments over the traced run, {kind:
+    [seen, launched]} of what the last profile lost: empty when it is
+    complete)."""
+    acts = ([torch.profiler.ProfilerActivity.CPU] if host else []) + [
+        torch.profiler.ProfilerActivity.CUDA]
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
         before = K.launch_counts()
         torch.cuda.synchronize()
@@ -983,7 +1006,7 @@ def _profiled(fn, label):
             torch.cuda.synchronize()
             time.sleep(PROFILE_MARGIN_S)
         launched = {n: c - before[n] for n, c in K.launch_counts().items()}
-        by_name = _device_by_name(prof)
+        by_name = _device_by_name(prof, raw=not host)
         lost = {}
         for kind, names in _COUNTED_KINDS.items():
             n = sum(launched[x] for x in names)
@@ -1075,6 +1098,21 @@ ROUTES = {"ops.matmul": "gama_gemm", "ops.decode": "flash_decode",
           "ops.decode_paged": "flash_paged_decode"}
 
 
+def check_routes(label, metrics, counts):
+    """The route counters of a run's metrics snapshot: every ``ops.*.ref``
+    0 and each ``.kernel`` equal to its kernel's launches in ``counts``.
+    Returns them."""
+    routes = {name: metrics["counters"].get(name, 0.0)
+              for op in ROUTES for name in (f"{op}.kernel", f"{op}.ref")}
+    bad = {op: [routes[f"{op}.kernel"], routes[f"{op}.ref"], counts[k]]
+           for op, k in ROUTES.items()
+           if routes[f"{op}.ref"] or routes[f"{op}.kernel"] != counts[k]}
+    if bad:
+        raise AssertionError(f"{label}: route counters [kernel, ref] and "
+                             f"launches disagree: {json.dumps(bad)}")
+    return routes
+
+
 def replay(cfg, params, trace, scfg, label, verify=True, warm=True):
     """One path of the main run: a warm-up replay (``warm``; without it the
     engine is cold, as a prefix cache must be to count its first hits),
@@ -1105,14 +1143,7 @@ def replay(cfg, params, trace, scfg, label, verify=True, warm=True):
         rep["metrics"] = bundle.registry.snapshot()
     finally:
         engine.close()
-    routes = {name: rep["metrics"]["counters"].get(name, 0.0)
-              for op in ROUTES for name in (f"{op}.kernel", f"{op}.ref")}
-    bad = {op: [routes[f"{op}.kernel"], routes[f"{op}.ref"], counts[k]]
-           for op, k in ROUTES.items()
-           if routes[f"{op}.ref"] or routes[f"{op}.kernel"] != counts[k]}
-    if bad:
-        raise AssertionError(f"{label}: route counters [kernel, ref] and "
-                             f"launches disagree: {json.dumps(bad)}")
+    routes = check_routes(label, rep["metrics"], counts)
     peak = torch.cuda.max_memory_allocated()
     if len(rep["results"]) != len(trace):
         raise AssertionError(f"{label}: {len(rep['results'])}/{len(trace)} "
@@ -1243,14 +1274,23 @@ def prefill_attention_kernel_vs_ref(cfg, params, prompt_len, bucket,
                              f"differ by {diff.max().item()}")
 
 
-def _device_by_name(prof):
-    """(count, device us) of every CUDA kernel a profile saw, by name."""
+def _device_by_name(prof, raw=False):
+    """(count, device us) of every CUDA kernel a profile saw, by name;
+    ``raw`` reads the profiler's device records directly, without building
+    its event tree (minutes for a long replay's host events)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    if raw:
+        events = ((e.name(), e.duration_ns() / 1e3)
+                  for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == cuda and not e.is_user_annotation())
+    else:
+        events = ((e.name, e.time_range.elapsed_us()) for e in prof.events()
+                  if e.device_type == cuda)
     by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = _kernel_name(e)
-            n, t = by_name.get(name, (0, 0.0))
-            by_name[name] = (n + 1, t + e.time_range.elapsed_us())
+    for name, us in events:
+        name = _clean_name(name)
+        n, t = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, t + us)
     return by_name
 
 
@@ -1774,6 +1814,217 @@ def serve_phase(cfg, max_len):
 
 
 # ---------------------------------------------------------------------------
+# 4b. Tune: the autotuner's measured plans on the serve path
+# ---------------------------------------------------------------------------
+
+
+def _plan_str(cls, config):
+    return "(" + ",".join(str(x) for x in cls.from_json(config).plan) + ")"
+
+
+def _report_tune(op, label, res, cls=None):
+    """Print one tune: the space, the number measured, the analytic plan
+    (the prior's first candidate) against the winner in ms, and whether
+    every measured candidate gave the analytic plan's bits; raise unless
+    all did.  Returns (analytic us, winner us)."""
+    trials = res.trials
+    if res.best is None or not trials:
+        raise AssertionError(f"tune {op} {label}: no winner {trials}")
+    bad = [t for t in trials if not (t.get("ok") and t.get("bits_equal"))]
+    if bad:
+        raise AssertionError(f"tune {op} {label}: candidates failed the "
+                             f"bits/tolerance gate: {json.dumps(bad)}")
+    first, best = trials[0]["us"], res.best_us
+    show = ((lambda c: _plan_str(cls, c)) if cls is not None
+            else (lambda c: json.dumps(c, sort_keys=True)))
+    print(f"[tune] {op} {label}: space {res.space_size}, measured "
+          f"{len(trials)}, analytic {show(trials[0]['config'])} "
+          f"{first / 1e3:.5f} ms, winner {show(res.best)} {best / 1e3:.5f} "
+          f"ms (x{best / first:.3f}), bits equal to the analytic plan in "
+          f"{len(trials)}/{len(trials)}, max_err {max(t['max_err'] for t in trials):.3e}")
+    return first, best
+
+
+def _tunes(cfg):
+    """The phase's kernel tunes as (op, label, thunk, candidate class):
+    gemm at SmolLM-360M FULL's decode (M = 8) and prefill (M = 488) weight
+    GEMMs, attention at the 8 x 448 prefill (Sq 488 against the 496-row
+    scratch cache, 15/5 heads of 64) and Qwen3-8B's 512 x 512 at D = 128
+    (32/8 heads), decode at the replay's decode shape, wkv at the training
+    shape."""
+    out = []
+    for m in (8, LONG_LEN):
+        for k, n in sorted({(k, n) for k, n, _ in
+                            cfg.gemm_shapes().values()}):
+            out.append(("gemm", f"M={m} K={k} N={n}", functools.partial(
+                dispatch.tune_gemm, m, k, n, torch.bfloat16),
+                GemmCandidate))
+    cache_rows = pages_for(LONG_LEN, 16) * 16
+    qwen = C.get("qwen3_8b")
+    for sq, sk, d, hq, hkv in ((LONG_LEN, cache_rows, 64, cfg.n_heads,
+                                cfg.n_kv_heads),
+                               (512, 512, qwen.d_head, qwen.n_heads,
+                                qwen.n_kv_heads)):
+        out.append(("attention", f"Sq={sq} Sk={sk} D={d} heads {hq}/{hkv}",
+                    functools.partial(dispatch.tune_attention, sq, sk, d,
+                                      torch.bfloat16, hq=hq, hkv=hkv),
+                    AttentionCandidate))
+    out.append(("decode", f"B={LONG_REQS} heads {cfg.n_heads}/"
+                f"{cfg.n_kv_heads} Sk={cache_rows} D={cfg.d_head}",
+                functools.partial(dispatch.tune_decode, cache_rows,
+                                  cfg.d_head, torch.bfloat16, b=LONG_REQS,
+                                  hq=cfg.n_heads, hkv=cfg.n_kv_heads), None))
+    out.append(("wkv", "B=8 H=40 T=64 N=64", functools.partial(
+        dispatch.tune_wkv, 64, 64, torch.bfloat16, b=8, h=40), None))
+    return out
+
+
+def _gemm_replay(engine, trace, label):
+    """One measured replay under ``torch.profiler`` (CUDA activity): its
+    results, launch counts and ``gama_gemm`` device ms; every ``ops.*.ref``
+    route counter 0 and each ``.kernel`` counter its launches."""
+    bundle = obs.get_obs()
+
+    def run():
+        bundle.registry.reset_values()     # each profiler attempt afresh
+        return S.run_trace(engine, trace, log=None)
+
+    rep, by_name, launched, lost = _profiled(run, label, host=False)
+    check_routes(label, bundle.registry.snapshot(), launched)
+    if not by_name or lost:
+        raise AssertionError(f"{label}: gama_gemm device time not measured "
+                             f"({_unmeasured(lost)})")
+    n, us = _by_kind(by_name)["GEMM (gama_gemm)"]
+    if n != launched["gama_gemm"]:
+        raise AssertionError(f"{label}: profiled {n} gama_gemm kernels of "
+                             f"{launched['gama_gemm']} launched")
+    return rep, launched, us / 1e3
+
+
+def tune_phase(cfg):
+    """The autotuner on the card against a cache in a temporary directory
+    (nothing under ``~/.cache``): gemm, attention, decode and wkv tuned at
+    the served shapes (every measured candidate's output ``torch.equal``
+    to the analytic plan's, the winner against the analytic plan), the
+    same tunes again as cache hits, ``tune_serve`` on SmolLM-360M FULL,
+    the 8 x 448 replay with the tuned cache in turns with the untuned one
+    (streams equal token for token, ``gama_gemm`` device time of each,
+    every ``ops.*.ref`` 0), the serve launcher with ``--batch_slots 0 --kv
+    paged --page_size 0 --prefill-chunk -1 --verify``, and the host time
+    of a dispatch memo hit.  Returns the replays' launch counts."""
+    set_gemm_mode("kernel")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    tuned_path = os.path.join(tmp, "tuned.json")
+    untuned_path = os.path.join(tmp, "untuned.json")    # never written
+    total = {n: 0 for n in SERVE_KERNELS}
+    try:
+        dispatch.set_cache_path(tuned_path)
+        tunes = _tunes(cfg)
+        t0 = time.perf_counter()
+        for op, label, tune, cls in tunes:
+            _report_tune(op, label, tune(keep=8, reps=5), cls)
+        print(f"[tune] {len(tunes)} tunes in "
+              f"{time.perf_counter() - t0:.1f} s -> {tuned_path}")
+        hits = [tune().cache_hit for _, _, tune, _ in tunes]
+        print(f"[tune] the same {len(tunes)} tunes again: "
+              f"{sum(hits)} cache hit")
+        if not all(hits):
+            raise AssertionError("a second tune measured again instead of a "
+                                 "cache hit")
+
+        t0 = time.perf_counter()
+        res = dispatch.tune_serve(cfg, max_len=64, keep=3)
+        for t in res.trials:
+            if not t.get("ok"):
+                raise AssertionError(f"tune_serve: a candidate did not "
+                                     f"finish its trace: {json.dumps(t)}")
+            print(f"[tune] serve candidate {json.dumps(t['config'])}: "
+                  f"{t['us']:.1f} us a token")
+        print(f"[tune] serve SmolLM-360M FULL max_len=64 keep=3: space "
+              f"{res.space_size}, winner {json.dumps(res.best)} "
+              f"{res.best_us:.1f} us a token "
+              f"({time.perf_counter() - t0:.1f} s)")
+        if not dispatch.tune_serve(cfg, max_len=64, keep=3).cache_hit:
+            raise AssertionError("a second tune_serve was no cache hit")
+        t0 = time.perf_counter()
+
+        params = init_params(cfg, seed=1, device=DEV)
+        long8 = S.synth_trace(LONG_REQS, LONG_PROMPT, LONG_NEW, 3,
+                              cfg.vocab_size, seed=0)
+        engine = ServeEngine(cfg, params, ServeConfig(
+            batch_slots=LONG_REQS, max_len=LONG_LEN, kv="paged",
+            page_size=16))
+        runs = {"untuned": [], "tuned": []}
+        try:
+            dispatch.set_cache_path(untuned_path)
+            S.run_trace(engine, long8, log=None)          # warm-up
+            for name in ("untuned", "tuned", "tuned", "untuned"):
+                dispatch.set_cache_path(tuned_path if name == "tuned"
+                                        else untuned_path)
+                hits = dispatch.warm_gemm_shapes(
+                    engine._all_gemm_shapes(), cfg.cdtype, 0)
+                label = f"paged-bf16 synth 8x448+32 {name}"
+                rep, launched, ms = _gemm_replay(engine, long8, label)
+                runs[name].append((rep, ms))
+                for n in total:
+                    total[n] += launched[n]
+                print(f"[tune] {label}: gama_gemm device_ms={ms:.3f} "
+                      f"({launched['gama_gemm']} launches, plans from the "
+                      f"cache for {hits} of the engine's GEMM sites) "
+                      f"wall_s={rep['wall_s']:.4f}")
+        finally:
+            engine.close()
+        want = runs["untuned"][0][0]
+        for name, rs in runs.items():
+            for i, (rep, _) in enumerate(rs):
+                same_streams(f"8x448 {name} replay {i}", rep, want,
+                             "the first untuned replay")
+        print(f"[tune] 8x448 gama_gemm device ms in turns (untuned, tuned, "
+              f"tuned, untuned): untuned "
+              f"{[round(ms, 3) for _, ms in runs['untuned']]} tuned "
+              f"{[round(ms, 3) for _, ms in runs['tuned']]} "
+              f"({time.perf_counter() - t0:.1f} s)")
+        del params
+        t0 = time.perf_counter()
+
+        dispatch.set_cache_path(tuned_path)
+        argv = ["--full", "--prompt_len", "32", "--max_new", "24",
+                "--batch_slots", "0", "--kv", "paged", "--page_size", "0",
+                "--prefill-chunk", "-1", "--verify"]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            S.main(argv)             # raises unless it prints "verify OK"
+        text = out.getvalue()
+        lines = [ln for ln in text.splitlines()
+                 if "tuner-resolved" in ln or "verify OK" in ln
+                 or "paged kv:" in ln or "tok/s" in ln]
+        for ln in lines:
+            print(f"[tune] launcher {' '.join(argv)}: {ln}")
+        best = res.best
+        want_line = (f"tuner-resolved: batch_slots={best['slots']} "
+                     f"page_size={best['page_size'] or 32} prefill_chunk="
+                     f"{best['prefill_chunk']}")
+        if want_line not in text or "verify OK" not in text:
+            raise AssertionError(f"launcher {argv}: expected '{want_line}' "
+                                 f"and 'verify OK' in:\n{text}")
+        print(f"[tune] launcher: {time.perf_counter() - t0:.1f} s")
+
+        m, k, n = 8, cfg.d_model, cfg.d_ff
+        dispatch.gemm_config(m, k, n, torch.bfloat16, 0)
+        reps = 200000
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            dispatch.gemm_config(m, k, n, torch.bfloat16, 0)
+        hit_us = (time.perf_counter() - t0) / reps * 1e6
+        print(f"[tune] dispatch memo hit (gemm_config {m}x{k}x{n} bf16): "
+              f"{hit_us:.4f} us of host time, mean of {reps}")
+    finally:
+        dispatch.reset()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return total
+
+
+# ---------------------------------------------------------------------------
 # 5. Train: wkv6 kernels, then RWKV-6 3B
 # ---------------------------------------------------------------------------
 
@@ -1930,9 +2181,13 @@ def _batches(cfg, batch, seq_len, seed):
                                   global_batch=batch, seed=seed))
 
 
-def _kernel_name(e):
-    return e.name.replace("void ", "").replace(
+def _clean_name(name):
+    return name.replace("void ", "").replace(
         "(anonymous namespace)::", "").split("<")[0].split("(")[0][:70]
+
+
+def _kernel_name(e):
+    return _clean_name(e.name)
 
 
 def _kind(name):
@@ -2211,6 +2466,18 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     kind = torch.cuda.get_device_name(0)
+    # Every phase but the Tune phase runs untuned, from an empty tuning
+    # cache in a temporary directory: nothing reads or writes ~/.cache.
+    cache_dir = tempfile.mkdtemp(prefix="chip_smoke_cache_")
+    os.environ["REPRO_TORCH_TUNING_CACHE"] = os.path.join(cache_dir,
+                                                          "untuned.json")
+    try:
+        return _main(card, kind)
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+
+
+def _main(card, kind) -> int:
     print(f"[device] {card} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | {kind} x{torch.cuda.device_count()}")
     t0 = time.perf_counter()
@@ -2237,6 +2504,8 @@ def main() -> int:
     counts = timed("serve SMOKE", smoke_serve_phase, smoke_cfg, smoke_trace,
                    smoke_len)
     for name, n in timed("serve FULL", serve_phase, cfg, max_len).items():
+        counts[name] += n
+    for name, n in timed("tune", tune_phase, cfg).items():
         counts[name] += n
     counts.update(timed("train", train_phase))
     timed("train kernels vs plain", train_kernel_vs_plain)

@@ -133,27 +133,37 @@ def plan(b: int, hq: int, hkv: int, sq: int, sk: int, d: int,
     return Plan("tc", rows, heads, stages, tile)
 
 
+# flash_attention's ``plan`` argument shadows the function's name.
+_default_plan = plan
+
+
 def check_plan(p: Plan, hq: int, hkv: int, d: int,
                dtype: torch.dtype) -> None:
     """Raise unless the kernel takes ``p``: the rule ``flash_attention_
     launch`` in ``csrc/flash_attention.cu`` checks again on the card."""
-    tile = kv_tile(d, dtype)
-    if dtype == torch.float32:
-        ok = tuple(p) == ("simt", 16, 1, 1, tile)
-    else:
-        ok = (p.route == "tc" and p.kv_tile == tile and p.rows in ROWS
-              and p.heads in (1, hq // hkv) and warps(p) <= MAX_WARPS
-              and STAGES[0] <= p.stages <= STAGES[1]
-              and smem_bytes(p, d) <= SMEM_LIMIT)
-    if not ok:
+    if not _plan_ok(p, hq, hkv, d, dtype):
         raise ValueError(f"flash_attention does not take {p} for hq={hq} "
                          f"hkv={hkv} d={d} {dtype}")
 
 
+@functools.lru_cache(maxsize=4096)
+def _plan_ok(p: Plan, hq: int, hkv: int, d: int, dtype: torch.dtype) -> bool:
+    # Memoised: every prefill attention call checks its plan.
+    tile = kv_tile(d, dtype)
+    if dtype == torch.float32:
+        return tuple(p) == ("simt", 16, 1, 1, tile)
+    return (p.route == "tc" and p.kv_tile == tile and p.rows in ROWS
+            and p.heads in (1, hq // hkv) and warps(p) <= MAX_WARPS
+            and STAGES[0] <= p.stages <= STAGES[1]
+            and smem_bytes(p, d) <= SMEM_LIMIT)
+
+
 def candidates(hq: int, hkv: int, d: int, dtype: torch.dtype):
     """Every plan the kernel takes for these heads, head dim and dtype:
-    the choices ``tools/attention_table.py --sweep`` times and checks for
-    equal bits."""
+    the choices the tuner (``repro_torch.tuning``) and
+    ``tools/attention_table.py --sweep`` time and check for equal bits.
+    ``kv_tile`` is fixed by (D, dtype), so all of them give the same bits
+    and a prompt gives the same rows whole or in chunks."""
     tile = kv_tile(d, dtype)
     if dtype == torch.float32:
         yield Plan("simt", 16, 1, 1, tile)
@@ -213,9 +223,11 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: Optional[float] = None,
-                    q_offset: int = 0,
-                    kv_len: Optional[int] = None) -> torch.Tensor:
-    """q: (B, Hq, Sq, D); k/v: (B, Hkv, Sk, D) -> (B, Hq, Sq, D)."""
+                    q_offset: int = 0, kv_len: Optional[int] = None,
+                    plan: Optional[Plan] = None) -> torch.Tensor:
+    """q: (B, Hq, Sq, D); k/v: (B, Hkv, Sk, D) -> (B, Hq, Sq, D).
+    ``plan`` is the launch (:func:`check_plan` refuses one the kernel does
+    not take); None takes :func:`plan`'s."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     scale = d ** -0.5 if scale is None else float(scale)
@@ -230,14 +242,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     if not 0 <= kv_len <= sk:
         raise ValueError(f"kv_len must lie in [0, {sk}], got {kv_len}")
-    p = plan(b, hq, hkv, sq, sk, d, q.dtype)
-    if p.route == "tc":
+    if plan is None:
+        plan = _default_plan(b, hq, hkv, sq, sk, d, q.dtype)
+    else:
+        check_plan(plan, hq, hkv, d, q.dtype)
+    if plan.route == "tc":
         # 16-byte cp.async needs 16-byte aligned rows: a view that starts
         # off that boundary is copied (the rows themselves, D * 2 bytes,
         # are multiples of 16).
         q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
                    for t in (q, k, v))
     out = torch.empty_like(q)
-    launch(q, k, v, out, p, causal=causal, scale=scale, q_offset=q_offset,
+    launch(q, k, v, out, plan, causal=causal, scale=scale, q_offset=q_offset,
            kv_len=kv_len)
     return out

@@ -149,20 +149,53 @@ def plan(m: int, k: int, n: int, dtype: torch.dtype) -> Plan:
     return Plan(bm, 128, splits, int(splits > 1), 3)
 
 
+# gama_gemm's ``plan`` argument shadows the function's name.
+_default_plan = plan
+
+
 def check_plan(p: Plan, k: int, dtype: torch.dtype) -> None:
     """Raise unless the kernel takes ``p`` for this K and dtype: the same
     rule as ``gama_gemm_launch`` in ``csrc/gemm.cu``, which checks it again
     on the card."""
-    if dtype == torch.float32:
-        ok = tuple(p) == SIMT_PLAN
-    else:
-        chunks = -(-k // k_chunk(dtype))
-        ok = (p.bn in TC_TILES.get(p.bm, ()) and p.cluster in (0, 1)
-              and STAGES[0] <= p.stages <= STAGES[1]
-              and smem_bytes(p, dtype) <= SMEM_LIMIT
-              and 1 <= p.splits <= min(MAX_SPLITS, chunks))
-    if not ok:
+    if not _plan_ok(p, k, dtype):
         raise ValueError(f"gama_gemm does not take {p} for K={k} {dtype}")
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan_ok(p: Plan, k: int, dtype: torch.dtype) -> bool:
+    # Memoised: every GEMM call on the serve path checks its plan.
+    if dtype == torch.float32:
+        return tuple(p) == SIMT_PLAN
+    chunks = -(-k // k_chunk(dtype))
+    return (p.bn in TC_TILES.get(p.bm, ()) and p.cluster in (0, 1)
+            and STAGES[0] <= p.stages <= STAGES[1]
+            and smem_bytes(p, dtype) <= SMEM_LIMIT
+            and 1 <= p.splits <= min(MAX_SPLITS, chunks))
+
+
+def candidates(m: int, k: int, n: int, dtype: torch.dtype):
+    """Every plan the kernel takes for this shape with :func:`splits_for`'s
+    K walk, the choices the tuner times (``repro_torch.tuning``) and
+    ``tools/gemm_table.py --sweep`` times: 16-row tiles up to m = 64, 64
+    rows above 16, 128 above 64; the slices as a cluster or in one block;
+    rings of 3, 4, 6 or 8 chunks.  The K walk, and so every output's sum
+    order, is the same in all of them, so they give the same bits and a
+    row's result stays independent of its batch.  f32 has one plan,
+    :data:`SIMT_PLAN`.  :func:`plan`'s choice is always among them."""
+    if dtype == torch.float32:
+        yield Plan(*SIMT_PLAN)
+        return
+    splits = splits_for(k, n, dtype)
+    for bm, bns in TC_TILES.items():
+        if not ((bm == 16 and m <= 64) or (bm == 64 and m > 16)
+                or (bm == 128 and m > 64)):
+            continue
+        for bn in bns:
+            for cluster in (0, 1) if splits > 1 else (0,):
+                for stages in (3, 4, 6, 8):
+                    p = Plan(bm, bn, splits, cluster, stages)
+                    if smem_bytes(p, dtype) <= SMEM_LIMIT:
+                        yield p
 
 
 def k_walk(p: Plan, k: int, dtype: torch.dtype) -> Tuple[Tuple[int, int], ...]:
@@ -212,10 +245,12 @@ def launch(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor, p: Plan,
 
 
 def gama_gemm(a: torch.Tensor, b: torch.Tensor, *,
-              out_dtype: Optional[torch.dtype] = None,
-              scale: float = 1.0) -> torch.Tensor:
+              out_dtype: Optional[torch.dtype] = None, scale: float = 1.0,
+              plan: Optional[Plan] = None) -> torch.Tensor:
     """C[M, N] = A[M, K] @ B[K, N].  Output dtype defaults to int32 for
-    int8 inputs, else the input dtype (``repro/kernels/gemm.py:93-97``)."""
+    int8 inputs, else the input dtype (``repro/kernels/gemm.py:93-97``).
+    ``plan`` is the launch (:func:`check_plan` refuses one the kernel does
+    not take); None takes :func:`plan`'s."""
     if a.device.type == "cpu" and b.device.type == "cpu":
         return plain(a, b, out_dtype=out_dtype, scale=scale)
     _build.refuse_autograd("gama_gemm", a, b)
@@ -237,7 +272,10 @@ def gama_gemm(a: torch.Tensor, b: torch.Tensor, *,
         raise ValueError("gama_gemm needs contiguous row-major operands")
     m, k = a.shape
     n = b.shape[1]
-    p = plan(m, k, n, a.dtype)
+    if plan is None:
+        plan = _default_plan(m, k, n, a.dtype)
+    else:
+        check_plan(plan, k, a.dtype)
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    launch(a, b, out, p, scale)
+    launch(a, b, out, plan, scale)
     return out

@@ -13,9 +13,14 @@ The TPU padding of the reference (tiles, and the GQA group padded to 8
 sublanes) is gone: the CUDA kernels mask their ragged edges themselves.
 The reference's pack-context branch of ``matmul`` (the multi-device pack
 GEMM, ``repro/kernels/ops.py:99-109``) is left out until the multi-device
-slice (ROADMAP Queue A item 12), and so is ``wkv``'s ``chunk`` (a TPU grid
-step with no counterpart here; the tuner slice, item 9, decides whether it
-gets one).
+slice (ROADMAP Queue A item 12).  ``wkv`` takes no ``chunk``: the kernels
+take one chunk length per shape (``kernels/wkv.py:wkv_chunk``).
+
+``matmul`` and ``attention`` take the kernel's plan from the tuner's
+dispatch (``repro_torch.tuning.dispatch``: memo, then the tuning cache,
+then today's analytic plan) unless the caller passes ``plan``, as the
+reference resolves its tiles (``repro/kernels/ops.py:57-63``,
+``:150-155``).  The CPU route takes no plan.
 
 ``matmul``, ``decode`` and ``decode_paged`` tick the reference's route
 counters ``ops.<op>.kernel`` or ``ops.<op>.ref`` on the process registry
@@ -39,6 +44,7 @@ from repro_torch.kernels.gemm import gama_gemm
 from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_kernel
 from repro_torch.kernels.wkv import WKV6
 from repro_torch.obs import get_obs
+from repro_torch.tuning import dispatch
 
 MODES = ("auto", "kernel", "ref")
 
@@ -85,20 +91,25 @@ def _check_gqa(hq: int, hkv: int) -> None:
 
 def matmul(a: torch.Tensor, b: torch.Tensor, *,
            out_dtype: Optional[torch.dtype] = None, scale: float = 1.0,
-           mode: str = "auto") -> torch.Tensor:
-    """GAMA GEMM.  a: (M, K); b: (K, N)."""
+           mode: str = "auto", plan=None) -> torch.Tensor:
+    """GAMA GEMM.  a: (M, K); b: (K, N).  ``plan``: a ``gemm.Plan``, None
+    for the tuner's."""
     if not _use_kernel(mode, a, b):
         _count("ops.matmul.ref")
         return ref.ref_gemm(a, b, out_dtype=out_dtype, scale=scale)
     _count("ops.matmul.kernel")
-    return gama_gemm(a, b, out_dtype=out_dtype, scale=scale)
+    if plan is None:
+        (m, k), n = a.shape, b.shape[1]
+        plan = dispatch.gemm_config(m, k, n, a.dtype, a.get_device()).plan
+    return gama_gemm(a, b, out_dtype=out_dtype, scale=scale, plan=plan)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, scale: Optional[float] = None,
               q_offset: int = 0, kv_len: Optional[int] = None,
-              mode: str = "auto") -> torch.Tensor:
-    """Flash attention.  q: (B, Hq, Sq, D); k/v: (B, Hkv, Sk, D)."""
+              mode: str = "auto", plan=None) -> torch.Tensor:
+    """Flash attention.  q: (B, Hq, Sq, D); k/v: (B, Hkv, Sk, D).
+    ``plan``: a ``flash_attention.Plan``, None for the tuner's."""
     _check_gqa(q.shape[1], k.shape[1])
     if not _use_kernel(mode, q, k, v):
         # Past 2048 keys the plain path takes the online-softmax form, so
@@ -108,8 +119,13 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  else ref.ref_attention)
         return plain(q, k, v, causal=causal, scale=scale, q_offset=q_offset,
                      kv_len=kv_len)
+    if plan is None:
+        _, hq, sq, d = q.shape
+        plan = dispatch.attention_blocks(sq, k.shape[2], d, q.dtype, hq=hq,
+                                         hkv=k.shape[1],
+                                         device=q.get_device())
     return flash_attention(q, k, v, causal=causal, scale=scale,
-                           q_offset=q_offset, kv_len=kv_len)
+                           q_offset=q_offset, kv_len=kv_len, plan=plan)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6,

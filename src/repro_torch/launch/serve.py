@@ -43,6 +43,9 @@ shares page-aligned prompt prefixes; ``--arrivals shared`` synthesizes
 the matching shared-system-prompt trace).  ``--prefill-chunk N`` prefills
 in N-token chunks interleaved with decode, ``--token-budget B`` caps the
 tokens a step spends, ``--policy`` picks the admission policy.
+``--batch_slots 0``, ``--page_size 0`` and ``--prefill-chunk -1`` ask the
+tuner (``repro_torch.tuning``: a measured entry of the tuning cache, else
+8 slots, pages of 32 and monolithic prefill) and print what it resolved.
 ``--trace-out``, ``--metrics-out``, ``--prom-out`` and ``--flight-out``
 write the Chrome trace, the schema-1 metrics snapshot, its Prometheus
 text and the flight record (``tools/obs_report.py`` renders them);
@@ -437,7 +440,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--full", action="store_true",
                     help="serve the FULL config (default: SMOKE)")
     ap.add_argument("--requests", type=int, default=8)
-    ap.add_argument("--batch_slots", type=int, default=4)
+    ap.add_argument("--batch_slots", type=int, default=4,
+                    help="KV-cache slots (0 = resolve from the tuner)")
     ap.add_argument("--prompt_len", type=int, default=16)
     ap.add_argument("--max_new", type=int, default=24)
     ap.add_argument("--stagger", type=int, default=3,
@@ -496,9 +500,9 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--kv", choices=("dense", "paged"), default="dense",
                     help="KV layout: dense per-slot max_len rows, or the "
                          "kvpool page pool + block tables")
-    ap.add_argument("--page_size", type=int, default=None,
-                    help="paged: tokens per page (required: the tuner that "
-                         "would pick it is not ported)")
+    ap.add_argument("--page_size", type=int, default=0,
+                    help="paged: tokens per page (0 = resolve from the "
+                         "tuner)")
     ap.add_argument("--pool_pages", type=int, default=0,
                     help="paged: pool capacity in pages (0 = the "
                          "dense-equivalent slots * ceil(max_len/page))")
@@ -515,8 +519,9 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--prefill-chunk", dest="prefill_chunk", type=int,
                     default=0,
                     help="prefill prompts in N-token chunks interleaved "
-                         "with decode (0 = monolithic; paged runs round N "
-                         "up to a page multiple)")
+                         "with decode (0 = monolithic; -1 = resolve from "
+                         "the tuner; paged runs round N up to a page "
+                         "multiple)")
     ap.add_argument("--token-budget", dest="token_budget", type=int,
                     default=0,
                     help="tokens a step may spend, decode first (0 = "
@@ -587,10 +592,17 @@ def main(argv: Optional[List[str]] = None) -> None:
         quantize=args.quantize, eos_id=args.eos_id, kv=args.kv,
         page_size=args.page_size, pool_pages=args.pool_pages,
         kv_dtype=args.kv_dtype, prefix_cache=args.prefix_cache,
-        prefill_chunk=args.prefill_chunk, token_budget=args.token_budget,
-        policy=args.policy)
+        prefill_chunk=None if args.prefill_chunk < 0 else args.prefill_chunk,
+        token_budget=args.token_budget, policy=args.policy)
     params = init_params(cfg, seed=1, device=args.device)
     engine = ServeEngine(cfg, params, scfg)
+    if (args.batch_slots == 0 or args.prefill_chunk < 0
+            or (args.kv == "paged" and args.page_size == 0)):
+        from repro_torch.tuning import dispatch
+        print(f"[serve] tuner-resolved: batch_slots="
+              f"{engine.scfg.batch_slots} page_size={engine.scfg.page_size} "
+              f"prefill_chunk={engine.scfg.prefill_chunk} (tuning cache "
+              f"{dispatch.get_cache().path})")
     if args.slo_ttft_ms is not None:
         engine.slo.set_targets(ttft_ms=args.slo_ttft_ms)
     if args.slo_itl_ms is not None:

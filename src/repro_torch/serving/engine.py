@@ -41,12 +41,16 @@ streaming per-token callback), :meth:`step` runs one engine step,
 idle and returns finished outputs, and the one-shot :meth:`generate`
 admits a uniform batch at step 0.
 
-The engine runs on the device its parameters live on.  ``pretune`` is
-accepted and does nothing: the port's kernel plans are fixed functions of
-the shape, with nothing to resolve ahead.  Weight-only quantization,
-enc-dec encoders, the pack mesh and the tuner-resolved sizes raise
-``NotImplementedError`` naming the ROADMAP item that brings them; none
-falls back to another path.
+The engine runs on the device its parameters live on.  ``batch_slots=0``,
+``page_size=0`` (or None) with paged KV and ``prefill_chunk=None`` ask the
+tuner (``repro_torch.tuning.dispatch.serve_*``: a measured entry of the
+tuning cache, else the analytic 8 slots, pages of 32 and monolithic
+prefill), as the reference does.  ``pretune`` resolves the kernel plan of
+every GEMM shape the engine can issue before the first step (a cache hit
+or the analytic plan; ``tuned_gemm_hits`` counts the hits), so a step's
+lookups are memo hits.  Weight-only quantization, enc-dec encoders and
+the pack mesh raise ``NotImplementedError`` naming the ROADMAP item that
+brings them; none falls back to another path.
 
 Observability (``repro_torch.obs``) follows the reference series for
 series and span for span: the engine instruments the process bundle's
@@ -81,23 +85,24 @@ from repro_torch.serving.kvpool import (BlockTables, PagePool, PrefixCache,
 from repro_torch.serving.quant import KV_PAGE_DTYPES, quantize_kv_row
 from repro_torch.serving.scheduler import (DECODE, PREFILLING, Request,
                                            Scheduler, Slot)
+from repro_torch.tuning import dispatch
 
 
 @dataclasses.dataclass
 class ServeConfig:
-    batch_slots: int = 8      # KV-cache slots (0 = tuner: not ported yet)
+    batch_slots: int = 8      # KV-cache slots; 0 = resolve from the tuner
     max_len: int = 1024
     enc_len: int = 0          # encoder length of enc-dec models
     temperature: float = 0.0  # 0 = greedy
     seed: int = 0             # torch.Generator seed for sampled decoding
     quantize: bool = False    # int8 weight-only
-    pretune: bool = True      # accepted; the port has nothing to pre-resolve
+    pretune: bool = True      # resolve every GEMM shape's plan at init
     eos_id: Optional[int] = None  # sampled EOS ends the request early
     # KV layout: "dense" per-slot max_len rows, or "paged" (kvpool).
     kv: str = "dense"
-    # Paged only: tokens per page (None or 0 asks the tuner, which is not
-    # ported: both raise), pool capacity in pages (0 = the dense-equivalent
-    # slots * ceil(max_len / page_size)), and the page dtype (None keeps
+    # Paged only: tokens per page (None or 0 = resolve from the tuner),
+    # pool capacity in pages (0 = the dense-equivalent slots *
+    # ceil(max_len / page_size)), and the page dtype (None keeps
     # cfg.cache_dtype; "int8" adds per-row scales).
     page_size: Optional[int] = None
     pool_pages: int = 0
@@ -124,11 +129,6 @@ class ServeConfig:
 # (field, predicate on the value that the port cannot serve yet, the
 # ROADMAP item that brings it).
 _UNSUPPORTED = (
-    ("page_size", lambda v: v == 0,
-     "the tuner-resolved page size of paged KV (ROADMAP Queue A items 6.2 "
-     "and 9)"),
-    ("prefill_chunk", lambda v: v is None,
-     "the tuner-resolved prefill chunk (ROADMAP Queue A item 9)"),
     ("quantize", bool,
      "int8 weight-only quantization (ROADMAP Queue A item 3)"),
     ("enc_len", lambda v: v > 0,
@@ -137,9 +137,24 @@ _UNSUPPORTED = (
      "the multi-device pack GEMM (ROADMAP Queue A item 12)"),
     ("pack_data_axis", lambda v: v is not None,
      "the multi-device pack GEMM's data axis (ROADMAP Queue A item 12)"),
-    ("batch_slots", lambda v: v == 0,
-     "the tuner-resolved slot count (ROADMAP Queue A item 9)"),
 )
+
+
+def model_gemm_shapes(cfg: ModelConfig, batch: int, seq: int,
+                      include_decode: bool = True) -> List[tuple]:
+    """The (M, K, N) GEMMs a forward pass issues, for warming the plan
+    lookups (the reference's ``model_gemm_shapes`` over the port's
+    projections, ``ModelConfig.gemm_shapes``): prefill sees M = batch*seq
+    tokens, decode M = batch (``include_decode=False`` keeps only the
+    prefill block, used when warming per-slot prompt buckets).  GEMM
+    sites of one layer and the head, not unique shapes: k and v, and gate
+    and up, are listed apart."""
+    sites = [(k, n) for name, (k, n, _) in cfg.gemm_shapes().items()
+             for _ in name.split("/")]
+    return [(m, k, n)
+            for m in ((batch * seq, batch) if include_decode
+                      else (batch * seq,))
+            for k, n in sites]
 
 
 def prefill_buckets(max_len: int, lo: int = 8) -> List[int]:
@@ -236,15 +251,24 @@ class ServeEngine:
                 f"ServeConfig.prefix_cache requires kv='paged' — the dense "
                 f"layout has no page pool to share prefixes through (got "
                 f"kv={scfg.kv!r})")
-        if scfg.kv == "paged" and scfg.page_size is None:
-            raise NotImplementedError(
-                "ServeConfig.page_size=None with kv='paged' asks the tuner "
-                "for a page size, which is not ported yet: it comes with "
-                "ROADMAP Queue A item 9 (pass a page size)")
         if any(spec.mixer != "attn" for spec in cfg.pattern):
             raise NotImplementedError(
                 f"arch {cfg.name!r}: recurrent mixers are served by a later "
                 f"slice (ROADMAP Queue A item 10)")
+        device = params["embed"]["table"].get_device()
+        # The tuner-resolved sizes (the reference's engine.py:249-300): a
+        # measured entry of the tuning cache for this arch and max_len,
+        # else the analytic 8 slots, pages of 32 and monolithic prefill.
+        if scfg.batch_slots == 0:
+            scfg = dataclasses.replace(scfg, batch_slots=dispatch.serve_slots(
+                cfg, scfg.max_len, cfg.cdtype, device))
+        if scfg.kv == "paged" and not scfg.page_size:
+            scfg = dataclasses.replace(scfg, page_size=dispatch.serve_page_size(
+                cfg, scfg.max_len, cfg.cdtype, device))
+        if scfg.prefill_chunk is None:
+            scfg = dataclasses.replace(
+                scfg, prefill_chunk=dispatch.serve_prefill_chunk(
+                    cfg, scfg.max_len, cfg.cdtype, device))
         self.cfg, self.params, self.scfg = cfg, params, scfg
         self.device = params["embed"]["table"].device
         self._closed = False
@@ -283,6 +307,12 @@ class ServeEngine:
             # Page-aligned chunks: each chunk's scatter writes whole pages.
             chunk = pages_for(chunk, scfg.page_size) * scfg.page_size
         self.prefill_chunk = min(chunk, self._fresh_len)
+        self.tuned_gemm_hits = 0
+        if scfg.pretune:
+            # Resolve every GEMM shape's plan up front (a cache hit or the
+            # analytic plan), so a step's lookups are memo hits.
+            self.tuned_gemm_hits = dispatch.warm_gemm_shapes(
+                self._all_gemm_shapes(), cfg.cdtype, device)
         self._init_obs()
         self.sched = Scheduler(scfg.batch_slots, policy=scfg.policy,
                                registry=self._obs.registry)
@@ -390,6 +420,19 @@ class ServeEngine:
                 f"engine instead")
 
     # -- helpers ------------------------------------------------------------
+
+    def _all_gemm_shapes(self) -> List[tuple]:
+        """GEMM shapes the engine can issue: the uniform-batch shapes, every
+        per-slot prefill bucket (M = bucket) and, chunked, M = chunk."""
+        shapes = model_gemm_shapes(self.cfg, self.scfg.batch_slots,
+                                   self.scfg.max_len)
+        for bucket in prefill_buckets(self.scfg.max_len):
+            shapes += model_gemm_shapes(self.cfg, 1, bucket,
+                                        include_decode=False)
+        if self.prefill_chunk:
+            shapes += model_gemm_shapes(self.cfg, 1, self.prefill_chunk,
+                                        include_decode=False)
+        return shapes
 
     def new_cache(self) -> List:
         """The persistent cache: page pools (paged) or ``batch_slots`` rows

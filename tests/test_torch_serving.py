@@ -244,9 +244,7 @@ def test_submit_validation_and_close_as_reference():
 
 @pytest.mark.parametrize("option,value,item", [
     ("enc_len", 16, "item 10"), ("pack_data_axis", "data", "item 12"),
-    ("prefill_chunk", None, "item 9"), ("quantize", True, "item 3"),
-    ("pack_mesh", object(), "item 12"), ("batch_slots", 0, "item 9"),
-    ("page_size", 0, "6.2 and 9")])
+    ("quantize", True, "item 3"), ("pack_mesh", object(), "item 12")])
 def test_unported_options_raise(option, value, item):
     _, tcfg, _, tparams = _setup()
     scfg = dataclasses.replace(ServeConfig(batch_slots=2, max_len=32),
@@ -255,12 +253,10 @@ def test_unported_options_raise(option, value, item):
         ServeEngine(tcfg, tparams, scfg)
 
 
-@pytest.mark.parametrize("option,value,item", [
-    ("page_size", 0, "items 6.2 and 9"), ("page_size", None, "item 9"),
-    ("prefill_chunk", None, "item 9"), ("enc_len", 16, "item 10")])
+@pytest.mark.parametrize("option,value,item", [("enc_len", 16, "item 10")])
 def test_unported_paged_options_raise(option, value, item):
-    """Paged KV, int8 pages, chunked prefill and the prefix cache are
-    served; the tuner's page size and chunk and an encoder still raise."""
+    """Paged KV, int8 pages, chunked prefill, the prefix cache and the
+    tuner's sizes are served; an encoder still raises."""
     _, tcfg, _, tparams = _setup()
     scfg = dataclasses.replace(ServeConfig(batch_slots=2, max_len=32,
                                            kv="paged", page_size=16),
@@ -269,11 +265,47 @@ def test_unported_paged_options_raise(option, value, item):
         ServeEngine(tcfg, tparams, scfg)
 
 
+@pytest.mark.parametrize("kv,option,value,resolved", [
+    ("dense", "batch_slots", 0, 8), ("dense", "prefill_chunk", None, 0),
+    ("paged", "page_size", 0, 32), ("paged", "page_size", None, 32),
+    ("paged", "prefill_chunk", None, 0), ("paged", "batch_slots", 0, 8)])
+def test_tuner_options_resolve_as_reference(tmp_path, kv, option, value,
+                                            resolved):
+    """The options that ask the tuner resolve, with an empty tuning cache,
+    to the reference's analytic answers (8 slots, pages of 32, monolithic
+    prefill) in both engines (the JAX engine asks for a page size with 0
+    only)."""
+    from repro.tuning import dispatch as jdispatch
+    from repro_torch.tuning import dispatch
+    jcfg, tcfg, jparams, tparams = _setup()
+    dispatch.set_cache_path(tmp_path / "port.json")
+    jdispatch.set_cache_path(tmp_path / "ref.json")
+    try:
+        for engine, cfg, params, scfg_cls, ask in (
+                (JServeEngine, jcfg, jparams, JServeConfig,
+                 0 if option == "page_size" else value),
+                (ServeEngine, tcfg, tparams, ServeConfig, value)):
+            scfg = dataclasses.replace(
+                scfg_cls(batch_slots=2, max_len=32, kv=kv, page_size=16),
+                **{option: ask})
+            eng = engine(cfg, params, scfg)
+            try:
+                got = {"batch_slots": eng.scfg.batch_slots,
+                       "page_size": eng.pool.page_size if eng.pool else None,
+                       "prefill_chunk": eng.prefill_chunk}[option]
+            finally:
+                eng.close()
+            assert got == resolved, engine
+    finally:
+        dispatch.reset()
+        jdispatch.reset()
+
+
 @pytest.mark.parametrize("pretune", [False, True])
 def test_pretune_is_accepted(pretune):
-    """A caller shaped like the reference passes ``pretune``: the port's
-    kernel plans are fixed functions of the shape, so both values serve
-    the same tokens."""
+    """A caller shaped like the reference passes ``pretune``: it warms the
+    plan lookups (a cache hit or today's analytic plan), and both values
+    serve the same tokens."""
     eng = _engine(1, pretune=pretune)
     try:
         got = eng.generate(np.arange(5, dtype=np.int32)[None], 3)
@@ -330,6 +362,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "import repro_torch.checkpoint.manager, repro_torch.data.pipeline\n"
             "import repro_torch.kernels.wkv, repro_torch.training.trainer\n"
             "import repro_torch.obs, repro_torch.core.hw\n"
+            "import repro_torch.core.paper_tables, repro_torch.core.planner\n"
+            "import repro_torch.tuning.cli, repro_torch.tuning.runner\n"
             "print('ok')")
     env = {"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin"}
     out = subprocess.run([sys.executable, "-c", code], env=env,
