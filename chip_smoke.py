@@ -92,12 +92,35 @@
    ``ops.*.ref`` 0; the serve launcher with ``--batch_slots 0 --kv paged
    --page_size 0 --prefill-chunk -1 --verify`` resolving the tuned
    serve entry; and the host time of a dispatch memo hit.
+   Archs: ``wkv6_state`` (the wkv6 forward from a carried state, which
+   RWKV-6 serving runs) against its plain loop from a nonzero state at
+   RWKV-6 3B's decode, a serial prompt and a 448-token one, in bf16 and
+   f32 (a control with the state 1% off must fail; from a zero state its
+   y is wkv6's bit for bit); the ``layernorm`` kernel (RWKV-6's
+   LayerNorm and GroupNorm in a fixed order, rows bit-identical at every
+   M; under autograd, as training runs it, its gradients the plain
+   ones); the ``dequant`` kernel (int8 weights to bf16, the plain bits)
+   at the quantized replays' weights; ``gama_gemm`` at every weight GEMM
+   of RWKV-6 3B, Phi-3-medium and
+   Minitron-8B and of the SMOKE configs; Phi-3-medium's heads in
+   attention and decode.  Then the serve launcher's bare ``--verify``
+   (qwen3 SMOKE, the default arch) and smoke6 on the phi3, minitron and
+   rwkv6 SMOKE configs, and, one FULL model at a time: Qwen3-8B (dense
+   and bf16 pages), Phi-3-medium (bf16 pages; int8 weights), Minitron-8B
+   (dense: 193 GEMMs a step), the three also 8 x 448 on bf16 pages,
+   RWKV-6 3B (``kv="paged"`` asked, the state kept dense; smoke6 and
+   8 x 448), SmolLM-360M with int8 weights (one dequant a weight a step
+   checked), each
+   replay under ``--verify``'s check with its routes held to the
+   launches, each model's decode step timed (wall and device) with its
+   ``max_memory_allocated``.
 5. Train: the wkv6 forward and backward kernels against their plain
    versions at the training shape, a ragged length and a long one, and
    the head-16 builds the SMOKE config runs (bf16, and f32 at the
    launcher's shape); then RWKV-6 3B FULL (32 layers, d_model 2560, f32
    parameters, bf16 compute, seeded random weights) takes training steps
-   through ``make_train_step`` (each step's wkv6 launches counted), one
+   through ``make_train_step`` (each step's wkv6 and layernorm launches
+   counted), one
    step profiled; a 2-layer step with the kernels against one with the
    plain recurrence, in f32 and in bf16 compute, each beside a control;
    the training launcher at SMOKE size; and a restart after an injected
@@ -138,6 +161,8 @@ from repro_torch.core import hw  # noqa: E402
 from repro_torch.configs.gama_paper import ARRAY_GEMMS  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
+from repro_torch.kernels.dequant import dequantize as dequant_kernel  # noqa: E402,E501
+from repro_torch.kernels.rmsnorm import layernorm as layernorm_kernel  # noqa: E402,E501
 from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_kernel  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_chunk, flash_decode, flash_paged_decode)
@@ -147,8 +172,9 @@ from repro_torch.kernels.flash_attention import plan as attn_plan  # noqa: E402
 from repro_torch.kernels.gemm import gama_gemm  # noqa: E402
 from repro_torch.kernels.gemm import blocks as gemm_blocks  # noqa: E402
 from repro_torch.kernels.gemm import plan as gemm_plan  # noqa: E402
+from repro_torch.kernels import dequant as dequant_mod  # noqa: E402
 from repro_torch.kernels import wkv as wkv_mod  # noqa: E402
-from repro_torch.kernels.wkv import wkv6, wkv6_bwd  # noqa: E402
+from repro_torch.kernels.wkv import wkv6, wkv6_bwd, wkv6_state  # noqa: E402
 from repro_torch.launch import serve as S  # noqa: E402
 from repro_torch.launch import train as TL  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
@@ -182,16 +208,27 @@ SOURCES = {"gama_gemm": "src/repro_torch/csrc/gemm.cu",
                "src/repro_torch/csrc/paged_decode_attention.cu",
            "wkv6": "src/repro_torch/csrc/wkv.cu",
            "wkv6_bwd": "src/repro_torch/csrc/wkv.cu",
-           "rmsnorm": "src/repro_torch/csrc/rmsnorm.cu"}
-# wkv6_bwd replaces the VJP that JAX derives through the same pallas_call.
+           "wkv6_state": "src/repro_torch/csrc/wkv.cu",
+           "rmsnorm": "src/repro_torch/csrc/rmsnorm.cu",
+           "layernorm": "src/repro_torch/csrc/rmsnorm.cu",
+           "dequant": "src/repro_torch/csrc/dequant.cu"}
+# wkv6_bwd replaces the VJP that JAX derives through the same pallas_call;
+# wkv6_state the same kernel's recurrence run from a carried state (the
+# reference's cached RWKV branch scans it in jnp, src/repro/models/rwkv.py).
 REPLACES = {"gama_gemm": "src/repro/kernels/gemm.py:113",
             "flash_attention": "src/repro/kernels/flash_attention.py:145",
             "flash_decode": "src/repro/kernels/decode_attention.py:127",
             "flash_paged_decode": "src/repro/kernels/decode_attention.py:415",
             "wkv6": "src/repro/kernels/wkv.py:70",
             "wkv6_bwd": "src/repro/kernels/wkv.py:70",
+            "wkv6_state": "src/repro/kernels/wkv.py:70",
             "rmsnorm": "none: no Pallas counterpart (jnp rmsnorm at "
-                       "src/repro/models/layers.py:103)"}
+                       "src/repro/models/layers.py:103)",
+            "layernorm": "none: no Pallas counterpart (jnp layernorm and "
+                         "groupnorm at src/repro/models/layers.py:115, "
+                         ":125)",
+            "dequant": "none: no Pallas counterpart (jnp dequantize_weight "
+                       "at src/repro/serving/quant.py:44)"}
 # The long replay: 8 requests of 448-token prompts and 32 new tokens on 8
 # slots; max_len = 488 is also its last prefill bucket, and its scratch
 # cache has pages_for(488, 16) * 16 = 496 rows.
@@ -199,6 +236,8 @@ LONG_REQS, LONG_PROMPT, LONG_NEW = 8, 448, 32
 LONG_LEN = LONG_PROMPT + LONG_NEW + 8
 SERVE_KERNELS = ("gama_gemm", "flash_attention", "flash_decode",
                  "flash_paged_decode", "rmsnorm")
+ATTENTION_KERNELS = ("flash_attention", "flash_decode", "flash_paged_decode",
+                     "rmsnorm")
 # The chunked replays of the 8 x 448 trace: chunks of 128 tokens (448 =
 # 128 + 128 + 128 + 64, 32 chunks), and a budget of the 8 decode tokens
 # plus two chunks a step.
@@ -437,6 +476,158 @@ def check_rmsnorm(label, m, d, dtype, seed, main=False, per_step=None):
     if main:
         r.update(ms=kern, plain_ms=plain, library_ms=lib, bound_ms=bms,
                  bound_by=by, shape=f"M={m} d={d} {str(dtype)[6:]} {label}")
+
+
+def check_layernorm(label, m, d, groups, dtype, seed, main=False,
+                    per_step=None):
+    """The layernorm kernel (``groups`` > 1: GroupNorm) against its plain
+    version (f32 sums in torch's order): within 1e-5 * (1 + |plain|) in
+    f32 and 1e-2 * (1 + |plain|) in bf16 (one bf16 ulp); timed beside its
+    bound, the plain version and F.layer_norm / F.group_norm.  Bit for
+    bit: every row equal at M = 1, 3, 8, 448 and 512 and computed alone,
+    which the batched RWKV decode's ``--verify`` needs."""
+    gen = _gen(seed)
+    x = (torch.randn((max(m, 512), d), generator=gen, device=DEV) * 3 + 0.5
+         ).to(dtype)
+    scale = 1 + 0.1 * torch.randn((d,), generator=gen, device=DEV)
+    bias = 0.1 * torch.randn((d,), generator=gen, device=DEV)
+    eps = 1e-5 if groups == 1 else 64e-5
+    whole = layernorm_kernel(x, scale, bias, eps, groups)
+    want = ops.layernorm(x, scale, bias, eps=eps, groups=groups, mode="ref")
+    torch.cuda.synchronize()
+    err = max_err(whole, want, 1e-5 if dtype == torch.float32 else 1e-2)
+    for rows in (1, 3, 8, 448, 512):
+        if not torch.equal(layernorm_kernel(x[:rows].contiguous(), scale,
+                                            bias, eps, groups),
+                           whole[:rows]):
+            raise AssertionError(f"layernorm {label}: rows of an M={rows} "
+                                 f"call differ from the M=512 call")
+    alone = torch.cat([layernorm_kernel(x[i:i + 1].contiguous(), scale,
+                                        bias, eps, groups)
+                       for i in range(16)])
+    if not torch.equal(alone, whole[:16]):
+        raise AssertionError(f"layernorm {label}: a row alone differs")
+    r = RESULTS["layernorm"]
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    xm = x[:m].contiguous()
+    nbytes = 2 * m * d * x.element_size() + 8 * d
+    kern = device_ms(lambda: (lambda: layernorm_kernel(xm, scale, bias, eps,
+                                                       groups)), nbytes)
+    plain = device_ms(lambda: (lambda: ops.layernorm(
+        xm, scale, bias, eps=eps, groups=groups, mode="ref")), nbytes)
+    sc, bi = scale.to(dtype), bias.to(dtype)
+    if groups == 1:
+        lib_fn, lib_name = (lambda: F.layer_norm(xm, (d,), sc, bi, eps),
+                            "F.layer_norm")
+    else:
+        lib_fn, lib_name = (lambda: F.group_norm(xm, groups, sc, bi, eps),
+                            "F.group_norm")
+    lib = device_ms(lambda: lib_fn, nbytes)
+    bms, by = bound(nbytes, 6.0 * m * d, torch.float32)
+    print(f"[kernel] layernorm {label} M={m} d={d} groups={groups} "
+          f"{str(dtype)[6:]} max_abs_err={err:.3e} rows torch.equal at "
+          f"M=1,3,8,448,512 and alone, OK kernel_ms={kern:.5f} "
+          f"plain_ms={plain:.5f} library_ms={lib:.5f} ({lib_name}) "
+          f"bound_ms={bms:.6f} ({by}) bound/kernel={bms / kern:.4f}"
+          + ("" if per_step is None else f" launches_per_decode_step="
+             f"{per_step}"))
+    if main:
+        r.update(ms=kern, plain_ms=plain, library_ms=lib, bound_ms=bms,
+                 bound_by=by, shape=f"M={m} d={d} {str(dtype)[6:]} {label}")
+
+
+def check_layernorm_grad(label, m, d, groups, dtype, seed):
+    """``ops.layernorm`` under autograd, as training calls it (RWKV-6 3B's
+    8 x 64 tokens): the kernel forward bit for bit, and the gradients of
+    x, scale and bias against autograd of the plain version on the same
+    inputs (the backward recomputes that expression: within 1e-5 *
+    (1 + |plain|), bitwise equality printed)."""
+    gen = _gen(seed)
+    x = (torch.randn((m, d), generator=gen, device=DEV) * 3 + 0.5).to(dtype)
+    scale = 1 + 0.1 * torch.randn((d,), generator=gen, device=DEV)
+    bias = 0.1 * torch.randn((d,), generator=gen, device=DEV)
+    gy = torch.randn((m, d), generator=gen, device=DEV).to(dtype)
+    before = K.launch_counts()["layernorm"]
+    got_in = [t.clone().requires_grad_() for t in (x, scale, bias)]
+    got = ops.layernorm(*got_in, groups=groups)
+    got.backward(gy)
+    launched = K.launch_counts()["layernorm"] - before
+    want_in = [t.clone().requires_grad_() for t in (x, scale, bias)]
+    ops.layernorm(*want_in, groups=groups, mode="ref").backward(gy)
+    torch.cuda.synchronize()
+    if launched != 1 or not torch.equal(
+            got.detach(), layernorm_kernel(x, scale, bias, 1e-5, groups)):
+        raise AssertionError(f"layernorm grad {label}: {launched} launches, "
+                             f"or the forward is not the kernel's")
+    errs, same = {}, []
+    for name, g, w in zip(("x", "scale", "bias"), got_in, want_in):
+        errs[name] = max_err(g.grad, w.grad, 1e-5)
+        same.append(torch.equal(g.grad, w.grad))
+    print(f"[kernel] layernorm grad {label} M={m} d={d} groups={groups} "
+          f"{str(dtype)[6:]}: forward == kernel bitwise, 1 launch; grads "
+          f"max_abs_err {json.dumps(errs)} (tol 1e-5*(1+|plain|)), "
+          f"bitwise equal {same}")
+
+
+def check_dequant(label, q_shape, s_shape, dtype, seed, main=False,
+                  per_step=None):
+    """The dequant kernel against its plain version, bit for bit (the
+    product in f32, rounded once), also for a code view off the 16-byte
+    boundary; timed beside its bound (each code read once, each value
+    written once, the scales read once), the plain version (three passes)
+    and one ``torch.mul`` into an output of ``dtype``."""
+    gen = _gen(seed)
+
+    def inputs():
+        q = torch.randint(-127, 128, q_shape, generator=gen, device=DEV,
+                          dtype=torch.int8)
+        return q, torch.rand(s_shape, generator=gen, device=DEV) * 0.02
+
+    q, scale = inputs()
+    got = dequant_kernel(q, scale, dtype)
+    want = ops.dequantize(q, scale, dtype, mode="ref")
+    odd = torch.empty(q.numel() + 1, dtype=torch.int8, device=DEV)[1:]
+    odd = odd.view(q_shape).copy_(q)
+    torch.cuda.synchronize()
+    err = max_err(got, want, 0.0)
+    if not (torch.equal(got, want)
+            and torch.equal(dequant_kernel(odd, scale, dtype), got)):
+        raise AssertionError(f"dequant {label}: not the plain version's bits")
+    del got, want, odd
+    r = RESULTS["dequant"]
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    elems = q.numel()
+    nbytes = elems * (1 + torch.tensor([], dtype=dtype).element_size()) \
+        + scale.numel() * 4
+    mid = (1,) * (len(q_shape) - len(s_shape))
+
+    def mk(fn):
+        def make():     # fresh inputs per copy, rotated past the L2
+            qq, ss = inputs()
+            return lambda: fn(qq, ss)
+        return make
+
+    kern = device_ms(mk(lambda qq, ss: dequant_kernel(qq, ss, dtype)),
+                     nbytes)
+    plain = device_ms(mk(lambda qq, ss: ops.dequantize(qq, ss, dtype,
+                                                       mode="ref")), nbytes)
+    lib = device_ms(mk(lambda qq, ss: torch.mul(
+        qq, ss.view(*s_shape[:-1], *mid, s_shape[-1]),
+        out=torch.empty(q_shape, dtype=dtype, device=DEV))), nbytes)
+    bms, by = bound(nbytes, float(elems), torch.float32)
+    print(f"[kernel] dequant {label} q={tuple(q_shape)} scale="
+          f"{tuple(s_shape)} -> {str(dtype)[6:]} vec="
+          f"{dequant_mod.vec_width(*dequant_mod.groups_of(q, scale)[1:])}: "
+          f"torch.equal to plain (and from a misaligned view) OK "
+          f"kernel_ms={kern:.5f} plain_ms={plain:.5f} library_ms={lib:.5f} "
+          f"(torch.mul into {str(dtype)[6:]}) bound_ms={bms:.6f} ({by}: "
+          f"{nbytes / 1e6:.3f} MB) bound/kernel={bms / kern:.3f}"
+          + ("" if per_step is None else
+             f" launches_per_decode_step={per_step}"))
+    if main:
+        r.update(ms=kern, plain_ms=plain, library_ms=lib, bound_ms=bms,
+                 bound_by=by, shape=f"q={tuple(q_shape)} -> "
+                 f"{str(dtype)[6:]} {label}")
 
 
 def _attn_bound(b, hq, hkv, sq, d, elt, keys_per_row, kv_rows):
@@ -981,6 +1172,8 @@ PROFILE_MARGIN_S = 0.05
 _COUNTED_KINDS = {
     "GEMM (gama_gemm)": ("gama_gemm",),
     "rmsnorm (rmsnorm kernel)": ("rmsnorm",),
+    "layernorm (layernorm kernel)": ("layernorm",),
+    "dequantize (dequant kernel)": ("dequant",),
     "prefill attention (flash_attention)": ("flash_attention",),
     "decode attention (flash_decode, flash_paged_decode)": (
         "flash_decode", "flash_paged_decode"),
@@ -1095,7 +1288,8 @@ def profile_decode_norms(cfg, params, steps=5):
 # The ops wrappers' route counters and the kernel launch counters they
 # must equal on a path (every ``.ref`` counter reads 0 there).
 ROUTES = {"ops.matmul": "gama_gemm", "ops.decode": "flash_decode",
-          "ops.decode_paged": "flash_paged_decode"}
+          "ops.decode_paged": "flash_paged_decode",
+          "ops.wkv_state": "wkv6_state"}
 
 
 def check_routes(label, metrics, counts):
@@ -1153,9 +1347,12 @@ def replay(cfg, params, trace, scfg, label, verify=True, warm=True):
         if toks.shape != (t["max_new"],) or not (
                 (toks >= 0) & (toks < cfg.vocab_size)).all():
             raise AssertionError(f"{label} request {tid}: bad tokens {toks}")
-    paged = ""
-    if scfg.kv == "paged":
-        paged = (f" page_size={scfg.page_size} kv_dtype="
+    paged = f" kv_mode={engine.kv_mode}"
+    if engine.quant_stats is not None:
+        paged += (" int8_weights=" + json.dumps(engine.quant_stats)
+                  .replace(" ", ""))
+    if engine.kv_mode == "paged":
+        paged += (f" page_size={scfg.page_size} kv_dtype="
                  f"{scfg.kv_dtype or cfg.cache_dtype} "
                  f"pool_pages={engine.pool.num_pages}"
                  f" preemptions={rep['preemptions']} pages_hwm="
@@ -1190,16 +1387,27 @@ def replay(cfg, params, trace, scfg, label, verify=True, warm=True):
           f"max_memory_allocated={peak}")
     print(f"[serve] {label}: launches {json.dumps(counts)} routes "
           f"{json.dumps(routes)}")
-    # Every path runs the GEMM, prefill attention and the norms; decode
-    # goes through the dense kernel on the dense cache and the paged one
-    # on the pool; a chunked path runs attention at q_offset > 0.
-    must = ["gama_gemm", "flash_attention", "rmsnorm",
-            "flash_paged_decode" if scfg.kv == "paged" else "flash_decode"]
+    # Every attention path runs the GEMM, prefill attention and the norms;
+    # decode goes through the dense kernel on the dense cache and the paged
+    # one on the pool; a chunked path runs attention at q_offset > 0.  An
+    # RWKV path runs the GEMM and the state-carrying wkv6 (prefill and
+    # decode), and no attention.
+    if any(spec.mixer == "rwkv" for spec in cfg.pattern):
+        must = ["gama_gemm", "wkv6_state", "layernorm"]
+        if any(counts[n] for n in ATTENTION_KERNELS):
+            raise AssertionError(f"{label}: an RWKV path launched attention "
+                                 f"or rmsnorm kernels")
+    else:
+        must = ["gama_gemm", "flash_attention", "rmsnorm",
+                "flash_paged_decode" if engine.kv_mode == "paged"
+                else "flash_decode"]
+    if engine.quant_stats is not None:
+        must.append("dequant")
     missing = [n for n in must if counts[n] == 0]
     if missing:
         raise AssertionError(f"{label}: kernels never launched on this "
                              f"path: {missing}")
-    if scfg.kv == "paged" and counts["flash_decode"]:
+    if engine.kv_mode == "paged" and counts["flash_decode"]:
         raise AssertionError(f"{label}: the paged path launched the dense "
                              f"flash_decode {counts['flash_decode']} times")
     if engine.prefill_chunk and not offset:
@@ -1369,6 +1577,7 @@ def smoke_serve_phase(cfg, trace, max_len):
                   "--token-budget", "12", "--verify"],
                  ["--trace", "bursty24", "--kv", "paged", "--page_size", "16",
                   "--prefill-chunk", "16", "--verify"]):
+        argv = ["--arch", "smollm_360m"] + argv
         K.reset_launch_counts()
         S.main(argv)                 # raises unless it prints "verify OK"
         torch.cuda.synchronize()
@@ -1419,8 +1628,8 @@ def launcher_dump_trace(cfg):
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dump_")
     path = os.path.join(tmp, "pareto.jsonl")
     try:
-        S.main(["--arrivals", "pareto", "--rate", "16", "--dump-trace",
-                path])
+        S.main(["--arch", "smollm_360m", "--arrivals", "pareto", "--rate",
+                "16", "--dump-trace", path])
         back = S.load_trace(path, cfg.vocab_size)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -1988,7 +2197,8 @@ def tune_phase(cfg):
         t0 = time.perf_counter()
 
         dispatch.set_cache_path(tuned_path)
-        argv = ["--full", "--prompt_len", "32", "--max_new", "24",
+        argv = ["--arch", "smollm_360m", "--full", "--prompt_len", "32",
+                "--max_new", "24",
                 "--batch_slots", "0", "--kv", "paged", "--page_size", "0",
                 "--prefill-chunk", "-1", "--verify"]
         out = io.StringIO()
@@ -2198,6 +2408,10 @@ def _kind(name):
         return "GEMM (gama_gemm)"
     if low.startswith("rmsnorm"):
         return "rmsnorm (rmsnorm kernel)"
+    if low.startswith("layernorm"):
+        return "layernorm (layernorm kernel)"
+    if low.startswith("dequant"):
+        return "dequantize (dequant kernel)"
     if low.startswith("flash_attention"):
         return "prefill attention (flash_attention)"
     if low.startswith(("flash_decode", "paged_decode")):
@@ -2235,7 +2449,12 @@ def train_phase(steps=4):
           f"{cfg.rwkv.head_size} d_ff={cfg.d_ff} vocab={cfg.vocab_size} "
           f"params={n_params} (f32) compute={cfg.compute_dtype} "
           f"global_batch=8 seq_len=64 remat=off gemm=torch.matmul")
-    total = {n: 0 for n in TRAIN_KERNELS}
+    # Forward launches a step: each wkv kernel once a layer; layernorm
+    # (LayerNorm's kernel forward; its backward is the plain expression's)
+    # for ln0, two norms and the GroupNorm a layer, and the final norm.
+    want = dict({n: cfg.n_layers for n in TRAIN_KERNELS},
+                layernorm=3 * cfg.n_layers + 2)
+    total = {n: 0 for n in want}
     step_ms = []
     for i in range(steps):
         batch = data.batch_at(i)
@@ -2254,17 +2473,16 @@ def train_phase(steps=4):
               f"loss={loss:.5f} grad_norm={float(m['grad_norm']):.5f} "
               f"lr={m['lr']:.3e} step_ms={ms:.3f} tok_s={tokens / ms * 1e3:.1f}"
               f" max_memory_allocated={torch.cuda.max_memory_allocated()} "
-              f"launches={json.dumps({n: counts[n] for n in TRAIN_KERNELS})}")
+              f"launches={json.dumps({n: counts[n] for n in want})}")
         if not math.isfinite(loss):
             raise AssertionError(f"non-finite loss at step {i}")
-        bad = {n: counts[n] for n in TRAIN_KERNELS
-               if counts[n] != cfg.n_layers}
+        bad = {n: counts[n] for n in want if counts[n] != want[n]}
         if bad:
-            raise AssertionError(f"expected {cfg.n_layers} launches of each "
-                                 f"wkv kernel per step, got {bad}")
+            raise AssertionError(f"expected {json.dumps(want)} launches a "
+                                 f"step, got {bad}")
         if i:
             step_ms.append(ms)
-            for n in TRAIN_KERNELS:
+            for n in want:
                 total[n] += counts[n]
 
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -2457,6 +2675,452 @@ def trainer_phase():
         shutil.rmtree(ckpt_root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# 4c. Serve the other archs: Qwen3-8B, Phi-3-medium, Minitron-8B and RWKV-6
+#     3B at full width, int8 weights, and the state-carrying wkv6
+# ---------------------------------------------------------------------------
+
+
+def check_wkv_state(label, b, h, t, n, seed, dtype=torch.bfloat16,
+                    main=False, per_step=None):
+    """wkv6_state against ref_wkv_state from a nonzero state s0: y and the
+    final state sT.  With f32 r/k/v both at the f32 tolerance (1e-4 of the
+    largest value: sums in another order, and the state's update fused),
+    and a control: s0 scaled by 1.01 must fail it; with bf16 r/k/v (the
+    served dtype) y, rounded once to bf16, at 1e-2 and sT at 1e-4.  At
+    s0 = 0 its y must equal wkv6's bit for bit, and two calls must repeat
+    their bits.  Timed beside its bound (4 N^2 f32 operations per (b, h,
+    t); r, k, v, w read once, u, s0 read and y, sT written once) and its
+    plain version."""
+    gen = _gen(seed)
+    r, k, v, w, u, _ = _wkv_inputs(gen, b, h, t, n, dtype)
+    s0 = torch.randn((b, h, n, n), generator=gen, device=DEV) * 0.5
+    y, s_end = wkv6_state(r, k, v, w, u, s0)
+    y2, s2 = wkv6_state(r, k, v, w, u, s0)
+    want_y, want_s = ref.ref_wkv_state(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    f32 = dtype == torch.float32
+    tol_y = 1e-4 if f32 else 1e-2
+    err_y = _err_to_max(y, want_y, tol_y)
+    err_s = _err_to_max(s_end, want_s, 1e-4)
+    if not (torch.equal(y, y2) and torch.equal(s_end, s2)):
+        raise AssertionError(f"wkv6_state {label}: two runs differ")
+    control = "not run (bf16: y rounds to bf16)"
+    if f32:
+        yc, sc = wkv6_state(r, k, v, w, u, s0 * 1.01)
+        caught = []
+        for name, got, want in (("y", yc, want_y), ("sT", sc, want_s)):
+            try:
+                _err_to_max(got, want, 1e-4)
+            except AssertionError:
+                caught.append(name)
+        if not caught:
+            raise AssertionError(f"wkv6_state {label}: s0 * 1.01 passed the "
+                                 f"tolerance: the check cannot see s0")
+        control = f"s0*1.01 fails on {'+'.join(caught)}"
+    y0, _ = wkv6_state(r, k, v, w, u, torch.zeros_like(s0))
+    if not torch.equal(y0, wkv6(r, k, v, w, u)):
+        raise AssertionError(f"wkv6_state {label}: at s0 = 0 its y is not "
+                             f"wkv6's bit for bit")
+    del want_y, want_s, y2, s2
+    e = r.element_size()
+    elems = b * h * t * n
+    nbytes = elems * (3 * e + 4 + e) + h * n * 4 + 2 * b * h * n * n * 4
+    flops = 4.0 * n * n * b * h * t
+
+    def mk(fn):
+        def make():     # fresh inputs per copy, rotated past the L2
+            args = _wkv_inputs(gen, b, h, t, n, dtype)[:5]
+            st = torch.randn((b, h, n, n), generator=gen, device=DEV)
+            return lambda: fn(*args, st)
+        return make
+
+    kern = device_ms(mk(wkv6_state), nbytes)
+    plain = device_ms(mk(ref.ref_wkv_state), nbytes,
+                      reps=24 if t <= 128 else 1)
+    bms, by = bound(nbytes, flops, torch.float32)
+    chunk = wkv_mod.wkv_chunk(t, n, dtype)
+    grid = wkv_mod.blocks(b, h, t, n, chunk, False)
+    res = RESULTS["wkv6_state"]
+    res["max_abs_err"] = max(res["max_abs_err"], err_y, err_s)
+    print(f"[kernel] wkv6_state {label} B={b} H={h} T={t} N={n} "
+          f"r/k/v={'f32' if f32 else 'bf16'} s0=N(0,0.25) max_abs_err y="
+          f"{err_y:.3e} (tol {tol_y:g}) sT={err_s:.3e} (tol 1e-4) "
+          f"*max(1,max|plain|) control: {control}; s0=0 y == wkv6 bitwise; "
+          f"kernel_ms={kern:.5f} plain_ms={plain:.5f} bound_ms={bms:.6f} "
+          f"({by}: {nbytes / 1e6:.3f} MB, {flops / 1e9:.4f} GFLOP f32) "
+          f"library_ms=null bound/kernel={bms / kern:.3f} chunk={chunk} "
+          f"chunks={wkv_mod.n_chunks(t, chunk)} blocks={sum(grid.values())}"
+          + ("" if per_step is None else
+             f" launches_per_decode_step={per_step}"))
+    if main:
+        res.update(ms=kern, plain_ms=plain, library_ms=None, bound_ms=bms,
+                   bound_by=by, shape=f"B={b} H={h} T={t} N={n} bf16 from s0")
+
+
+def archs_kernel_phase():
+    """The kernels at the shapes the other archs serve: wkv6_state at
+    RWKV-6 3B's decode (B = 8 slots, 40 heads of 64, T = 1; the kernels
+    line), a serial prompt (T = 11) and a multi-chunk one (T = 448), in
+    bf16 and f32, and the SMOKE config's heads of 16 in f32; gama_gemm at
+    every weight GEMM of RWKV-6 3B (M = 3, 8, 448), Phi-3-medium and
+    Minitron-8B (M = 3, 16), their lm heads of 100352 and 256000 columns
+    included, and the SMOKE configs' f32 GEMMs (M = 3, 12)."""
+    rwkv = C.get("rwkv6_3b")
+    heads = rwkv.d_model // rwkv.rwkv.head_size
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        check_wkv_state(f"decode-{tag}", LONG_REQS, heads, 1, 64, seed=60,
+                        dtype=dtype, main=dtype == torch.bfloat16,
+                        per_step=rwkv.n_layers)
+        check_wkv_state(f"serial-{tag}", LONG_REQS, heads, 11, 64, seed=61,
+                        dtype=dtype)
+        check_wkv_state(f"prompt-448-{tag}", 1, heads, LONG_PROMPT, 64,
+                        seed=62, dtype=dtype)
+    check_wkv_state("smoke-decode", 3, 4, 1, 16, seed=63, dtype=torch.float32)
+    check_wkv_state("smoke-prompt", 1, 4, 12, 16, seed=64,
+                    dtype=torch.float32)
+    check_wkv_state("smoke-long", 1, 4, 37, 16, seed=65, dtype=torch.float32)
+    # RWKV-6's norms: LayerNorm (ln0, two a layer, the final norm) and the
+    # wkv output's GroupNorm (one group a head), at 3B's decode batch of 8
+    # (the kernels line) and its 448-token prompt, and the SMOKE config's
+    # in f32.
+    norms = 2 * rwkv.n_layers + 2
+    check_layernorm("decode", LONG_REQS, rwkv.d_model, 1, torch.bfloat16,
+                    seed=72, main=True, per_step=norms + rwkv.n_layers)
+    check_layernorm("prompt-448", LONG_PROMPT, rwkv.d_model, 1,
+                    torch.bfloat16, seed=73)
+    check_layernorm("groupnorm-decode", LONG_REQS, rwkv.d_model, heads,
+                    torch.bfloat16, seed=74)
+    check_layernorm("smoke", 3, 64, 1, torch.float32, seed=75)
+    check_layernorm("smoke-groupnorm", 12, 64, 4, torch.float32, seed=76)
+    # The int8 weights' dequantize at the quantized replays' shapes:
+    # Phi-3-medium's (the kernels line: its FFN down weight) and lm head,
+    # SmolLM-360M's tied head (a scale a row) and embedding rows, and a
+    # width off the 16-code path.
+    phi3, smol = C.get("phi3_medium_14b"), C.get("smollm_360m")
+    check_dequant("phi3-medium-14b down", (phi3.d_ff, phi3.d_model),
+                  (phi3.d_model,), torch.bfloat16, seed=80, main=True,
+                  per_step=sum(c for _, _, c in phi3.gemm_shapes().values())
+                  + 1)
+    check_dequant("phi3-medium-14b lm head", (phi3.d_model, phi3.vocab_size),
+                  (phi3.vocab_size,), torch.bfloat16, seed=81)
+    check_dequant("smollm-360m tied head", (smol.d_model, smol.vocab_size, 1),
+                  (smol.d_model, 1), torch.bfloat16, seed=82)
+    check_dequant("smollm-360m embedding rows", (3, 1, smol.d_model),
+                  (smol.d_model,), torch.bfloat16, seed=83)
+    check_dequant("odd width f32", (3, 7, 10), (3, 10), torch.float32,
+                  seed=84)
+    for groups in (1, heads):     # training: autograd through the kernel
+        check_layernorm_grad("train-8x64", 512, rwkv.d_model, groups,
+                             torch.bfloat16, seed=77 + groups)
+    # Phi-3-medium's 40/10 heads of 128 (Minitron-8B's 32/8 are Qwen3-8B's,
+    # checked above) at smoke6's prefill and decode shapes, and the Phi-3
+    # SMOKE config's 10/5 heads of 16 in f32.
+    check_attention("phi3-prefill-paged", 1, 40, 10, 16, 48, 128, 0,
+                    torch.bfloat16, 2e-2, seed=66)
+    check_attention("phi3-smoke-d16-prefill", 1, 10, 5, 16, 36, 16, 0,
+                    torch.float32, 2e-5, seed=67)
+    check_decode("phi3", 40, 10, 36, 128, [28, 20, 13], torch.bfloat16,
+                 2e-2, seed=68)
+    check_decode("phi3-smoke-d16", 10, 5, 36, 16, [28, 20, 13],
+                 torch.float32, 2e-5, seed=69)
+    check_paged_decode("phi3", 40, 10, 128, 16, [28, 20, 13], "float", 2e-2,
+                       seed=70)
+    check_paged_decode("phi3-smoke-d16", 10, 5, 16, 16, [28, 20, 13],
+                       "float", 2e-5, seed=71, dtype=torch.float32)
+    bf16_tol, f32_tol = 1e-2, 1e-4
+    for arch, ms in ((rwkv, (3, 8, LONG_PROMPT)),
+                     (C.get("phi3_medium_14b"), (3, 16)),
+                     (C.get("minitron_8b"), (3, 16))):
+        for m in ms:
+            for label, (k, n, per_step) in arch.gemm_shapes().items():
+                check_gemm(f"{arch.name}:{label}", m, k, n, torch.bfloat16,
+                           torch.bfloat16, 1.0, bf16_tol, seed=m + k + n,
+                           per_step=per_step if m <= 16 else None)
+    for name in ("rwkv6_3b", "phi3_medium_14b", "minitron_8b", "qwen3_8b"):
+        arch = C.get_smoke(name)
+        for m in (3, 12):
+            for label, (k, n, _) in arch.gemm_shapes().items():
+                check_gemm(f"{arch.name}:{label}", m, k, n, torch.float32,
+                           torch.float32, 1.0, f32_tol, seed=m + k + n + 1)
+
+
+def _launcher(argv):
+    """Run the serve launcher, print its result lines, return its stdout
+    and the launch counts of the run."""
+    K.reset_launch_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        S.main(argv)                 # raises unless it prints "verify OK"
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    text = out.getvalue()
+    for ln in text.splitlines():
+        if any(x in ln for x in ("tok/s", "verify OK", "int8 weights",
+                                 "paged kv:")):
+            print(f"[archs] launcher {' '.join(argv)}: {ln}")
+    print(f"[archs] launcher {' '.join(argv)}: launches "
+          f"{json.dumps(counts)}")
+    return text, counts
+
+
+PREROLL_SPINS = 32
+
+
+SHORT_POS = (20, 14, 7)                               # smoke6's first steps
+LONG_POS = (449, 454, 459, 465, 470, 476, 481, 487)   # 8 x 448's last steps
+
+
+def decode_step_times(cfg, params, label, positions=SHORT_POS,
+                      max_len=48, steps=5):
+    """A decode step of one slot per entry of ``positions`` on a dense
+    cache, each slot at its position (smoke6's first decode steps by
+    default; ``LONG_POS``, at max_len ``LONG_LEN``, is the last steps of
+    the 8 x 448 replays): the wall per step (host clock, synchronised,
+    profiler off, mean of two runs) and the device time of its kernels
+    (``torch.profiler``), and the launches of one step.  Returns (wall_ms,
+    device_ms or None, launches per step)."""
+    slots = len(positions)
+    tok = torch.zeros(slots, dtype=torch.long, device=DEV)
+    pos = torch.tensor(positions, dtype=torch.int32, device=DEV)
+    caches = init_cache(cfg, slots, max_len, DEV)
+
+    def run():
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            decode_step(params, tok, pos, cfg, caches)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / steps
+
+    run()                                  # warm-up
+    c0 = K.launch_counts()
+    decode_step(params, tok, pos, cfg, caches)
+    torch.cuda.synchronize()
+    per_step = {n: c - c0[n] for n, c in K.launch_counts().items()
+                if c - c0[n]}
+    wall = (run() + run()) / 2
+
+    def traced():
+        # At these widths the profiler loses the first few kernel events
+        # of its window (the first GEMMs and norms of the first step):
+        # spin kernels, left out of the sums, take their place.
+        for _ in range(PREROLL_SPINS):
+            torch.cuda._sleep(1000)
+        return run()
+
+    _, by_name, launched, lost = _profiled(traced, f"{label} decode step",
+                                           host=False)
+    by_name = {k: v for k, v in by_name.items() if "spin" not in k.lower()}
+    device = None
+    if by_name and not lost:
+        device = sum(us for _, us in by_name.values()) / 1e3 / steps
+        n_kernels = sum(c for c, _ in by_name.values()) // steps
+        dev = (f"device_ms={device:.3f} device_idle_share="
+               f"{1 - device / wall:.3f} kernels_per_step={n_kernels}")
+    else:
+        dev = f"device time not measured ({_unmeasured(lost)})"
+    print(f"[archs] {label} decode step ({slots} slots at positions "
+          f"{min(positions)}-{max(positions)}, dense): wall_ms="
+          f"{wall:.3f} (profiler off, mean of 2) {dev} launches_per_step "
+          f"{json.dumps(per_step)} max_memory_allocated="
+          f"{torch.cuda.max_memory_allocated()}")
+    return wall, device, per_step
+
+
+def dequant_bytes(params):
+    """The bytes a decode step's weight dequantization must move: each
+    int8 code and f32 scale read once, each value written once in the
+    compute dtype (the tied head's transpose counted once, the table's
+    gathered rows not at all), and that traffic's time at the card's
+    memory rate."""
+    nbytes = 0
+
+    def walk(node, key=None):
+        nonlocal nbytes
+        if isinstance(node, dict) and ("q" in node or "q_t" in node):
+            if key == "table":      # gathered rows only, not a weight GEMM
+                return
+            q = node.get("q", node.get("q_t"))
+            nbytes += q.numel() * 3 + node["scale"].numel() * 4
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, k)
+        elif isinstance(node, list):
+            for v in node:
+                walk(v)
+
+    walk(params)
+    return (f"dequantize moves {nbytes} bytes a decode step (int8 read, "
+            f"bf16 written): {nbytes / HBM_BYTES_S * 1e3:.3f} ms at "
+            f"{HBM_BYTES_S / 1e12:.2f} TB/s")
+
+
+def _free():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def archs_phase():
+    """The archs served beyond SmolLM-360M.  SMOKE: the serve launcher's
+    bare ``--verify`` (its default arch, qwen3_8b) and smoke6 on
+    phi3_medium_14b, minitron_8b and rwkv6_3b (``--kv paged`` asked: the
+    recurrent state stays dense).  FULL, one model at a time, freed before
+    the next, each replay through ``replay`` (launch counts, routes, a
+    one-shot engine's bit-identity) and each model's decode step timed
+    (3 slots at smoke6's positions; the attention decoders also 8 slots
+    at 8 x 448's last positions): Qwen3-8B smoke6 dense and on bf16 pages
+    of 16; Phi-3-medium smoke6 on bf16 pages; Minitron-8B smoke6 dense
+    (193 gama_gemm launches a step); the three attention decoders 8 x 448
+    on bf16 pages; RWKV-6 3B smoke6 and 8 x 448 with ``kv="paged"`` asked
+    (32 wkv6_state launches a step); SmolLM-360M and Phi-3-medium smoke6
+    with int8 weights (the bytes their dequantization moves a step
+    printed), SmolLM-360M's decode step with and without them in turns.
+    Returns the launch counts of the replays."""
+    set_gemm_mode("kernel")
+    total = {n: 0 for n in K.KERNEL_COUNTERS}
+
+    def add(counts):
+        for n in total:
+            total[n] += counts.get(n, 0)
+
+    text, counts = _launcher(["--verify"])
+    if "arch=qwen3-smoke" not in text:
+        raise AssertionError("the bare launcher did not serve qwen3 SMOKE")
+    for arch in ("phi3_medium_14b", "minitron_8b", "rwkv6_3b"):
+        argv = ["--arch", arch, "--trace", "smoke6", "--batch_slots", "3",
+                "--kv", "paged", "--page_size", "16", "--verify"]
+        text, counts = _launcher(argv)
+        rwkv = arch == "rwkv6_3b"
+        must = (("gama_gemm", "wkv6_state") if rwkv else
+                ("gama_gemm", "flash_attention", "rmsnorm",
+                 "flash_paged_decode"))
+        missing = [n for n in must if counts[n] == 0]
+        if missing or (rwkv and "paged kv:" in text):
+            raise AssertionError(f"launcher {argv}: kernels never launched "
+                                 f"{missing}, or RWKV took the page pool")
+
+    smoke6 = {}
+
+    def trace_for(cfg):
+        if cfg.vocab_size not in smoke6:
+            smoke6[cfg.vocab_size] = S.load_trace(
+                S.resolve_trace_path("smoke6"), cfg.vocab_size, seed=0)
+        return smoke6[cfg.vocab_size]
+
+    max_len = 36        # smoke6: 12-token prompts + 16 new + 8
+    paged = dict(kv="paged", page_size=16)
+    plans = (
+        ("qwen3_8b", False, [("dense", ServeConfig(batch_slots=3,
+                                                   max_len=max_len)),
+                             ("paged-bf16", ServeConfig(
+                                 batch_slots=3, max_len=max_len, **paged))]),
+        ("phi3_medium_14b", False, [("paged-bf16", ServeConfig(
+            batch_slots=3, max_len=max_len, **paged))]),
+        ("minitron_8b", False, [("dense", ServeConfig(batch_slots=3,
+                                                      max_len=max_len))]),
+        ("rwkv6_3b", False, [("kv=paged asked", ServeConfig(
+            batch_slots=3, max_len=max_len, **paged))]),
+        ("phi3_medium_14b", True, [("int8 weights, paged-bf16", ServeConfig(
+            batch_slots=3, max_len=max_len, quantize=True, **paged))]),
+    )
+    for name, quantize, paths in plans:
+        t_model = time.perf_counter()
+        cfg = C.get(name)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = init_params(cfg, seed=1, device=DEV, quantize=quantize)
+        torch.cuda.synchronize()
+        print(f"[archs] {cfg.name} FULL: layers={cfg.n_layers} d_model="
+              f"{cfg.d_model} params={cfg.n_params()} int8_weights="
+              f"{quantize} init_s={time.perf_counter() - t0:.1f} "
+              f"memory_allocated={torch.cuda.memory_allocated()} "
+              f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
+        for label, scfg in paths:
+            counts, _, engine = replay(cfg, params, trace_for(cfg), scfg,
+                                       f"{cfg.name} FULL {label} smoke6",
+                                       warm=False)
+            add(counts)
+            kv_mode = engine.kv_mode
+            del engine                  # it holds the parameters
+            if name == "rwkv6_3b" and kv_mode != "dense":
+                raise AssertionError("RWKV took the page pool")
+        if not quantize:
+            long8 = S.synth_trace(LONG_REQS, LONG_PROMPT, LONG_NEW, 3,
+                                  cfg.vocab_size, seed=0)
+            counts, _, _ = replay(cfg, params, long8, ServeConfig(
+                batch_slots=LONG_REQS, max_len=LONG_LEN, **paged),
+                f"{cfg.name} FULL "
+                f"{'kv=paged asked' if name == 'rwkv6_3b' else 'paged-bf16'}"
+                f" synth 8x448+32", warm=False)
+            add(counts)
+        _, _, per_step = decode_step_times(
+            cfg, params, f"{cfg.name} FULL"
+            + (" int8 weights" if quantize else ""))
+        if quantize:
+            print(f"[archs] {cfg.name} FULL int8 weights: "
+                  + dequant_bytes(params))
+        elif name != "rwkv6_3b":      # RWKV's state does not grow
+            decode_step_times(cfg, params, f"{cfg.name} FULL", LONG_POS,
+                              max_len=LONG_LEN)
+        want = sum(c for _, _, c in cfg.gemm_shapes().values())
+        if per_step.get("gama_gemm") != want:
+            raise AssertionError(f"{cfg.name}: {per_step.get('gama_gemm')} "
+                                 f"gama_gemm launches a decode step, "
+                                 f"expected {want}")
+        if per_step.get("dequant", 0) != (want + 1 if quantize else 0):
+            raise AssertionError(f"{cfg.name}: {per_step.get('dequant')} "
+                                 f"dequant launches a decode step, expected "
+                                 f"one a GEMM weight and one for the "
+                                 f"embedding rows ({want + 1}) with int8 "
+                                 f"weights, else none")
+        if name == "minitron_8b" and want != 6 * cfg.n_layers + 1:
+            raise AssertionError(f"minitron-8b: {want} GEMM sites, not 6 a "
+                                 f"layer (no gate) and the head")
+        if name == "rwkv6_3b" and (
+                per_step.get("wkv6_state") != cfg.n_layers
+                or per_step.get("layernorm") != 3 * cfg.n_layers + 2):
+            raise AssertionError(f"rwkv6-3b: {json.dumps(per_step)} a "
+                                 f"decode step, expected {cfg.n_layers} "
+                                 f"wkv6_state and {3 * cfg.n_layers + 2} "
+                                 f"layernorm launches")
+        del params
+        _free()
+        print(f"[archs] {cfg.name} FULL{' int8 weights' if quantize else ''}"
+              f": {time.perf_counter() - t_model:.1f} s")
+
+    # SmolLM-360M FULL with int8 weights: smoke6, then its decode step with
+    # and without them, in turns.
+    cfg = C.get("smollm_360m")
+    plain = init_params(cfg, seed=1, device=DEV)
+    q = init_params(cfg, seed=1, device=DEV, quantize=True)
+    counts, _, engine = replay(cfg, q, trace_for(cfg), ServeConfig(
+        batch_slots=3, max_len=max_len, quantize=True),
+        f"{cfg.name} FULL int8 weights dense smoke6", warm=False)
+    add(counts)
+    stats = engine.quant_stats
+    del engine
+    print(f"[archs] {cfg.name} FULL int8 weights: " + dequant_bytes(q))
+    turns = {"bf16": [], "int8": []}
+    for kind in ("bf16", "int8", "int8", "bf16"):
+        wall, device, per_step = decode_step_times(
+            cfg, plain if kind == "bf16" else q,
+            f"{cfg.name} FULL {kind} weights (turn)")
+        want = sum(c for _, _, c in cfg.gemm_shapes().values()) + 1
+        if per_step.get("dequant", 0) != (want if kind == "int8" else 0):
+            raise AssertionError(f"{cfg.name} {kind}: {json.dumps(per_step)}"
+                                 f" a decode step, expected {want} dequant "
+                                 f"launches with int8 weights, else none")
+        turns[kind].append((round(wall, 3), None if device is None
+                            else round(device, 3)))
+    print(f"[archs] {cfg.name} FULL decode step (wall_ms, device_ms) in turns "
+          f"bf16, int8, int8, bf16: {json.dumps(turns)}; int8 weights "
+          f"{json.dumps(stats)}")
+    del plain, q
+    _free()
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
@@ -2505,9 +3169,13 @@ def _main(card, kind) -> int:
                    smoke_len)
     for name, n in timed("serve FULL", serve_phase, cfg, max_len).items():
         counts[name] += n
+    timed("archs kernels", archs_kernel_phase)
+    for name, n in timed("serve archs", archs_phase).items():
+        counts[name] = counts.get(name, 0) + n
     for name, n in timed("tune", tune_phase, cfg).items():
         counts[name] += n
-    counts.update(timed("train", train_phase))
+    for name, n in timed("train", train_phase).items():
+        counts[name] += n
     timed("train kernels vs plain", train_kernel_vs_plain)
     timed("trainer", trainer_phase)
     print(f"[phase] total: {time.perf_counter() - t0:.1f} s")

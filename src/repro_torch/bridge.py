@@ -15,23 +15,20 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import prepare_params
+from repro_torch.models.model import finish_params, tie_head
 from repro_torch.models.transformer import check_block
 
 
 def _to_torch(tree: Any, device: torch.device) -> Any:
     if isinstance(tree, dict):
-        if set(tree) == {"q", "scale"}:
-            raise NotImplementedError(
-                "int8 weight-only leaves ({'q', 'scale'}) come with the "
-                "quantization port (ROADMAP Queue A item 3)")
         return {k: _to_torch(v, device) for k, v in tree.items()}
     return torch.from_numpy(np.array(tree)).to(device)   # a writable copy
 
 
 def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
                       device: Union[str, torch.device] = "cuda",
-                      dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+                      dtype: Optional[torch.dtype] = None,
+                      quantize: bool = False) -> Dict[str, Any]:
     """The reference's param pytree (numpy leaves) -> the port's params:
 
     * the stacked leading ``n_groups`` axis of ``blocks`` (one stack per
@@ -39,7 +36,12 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
       unstacked into one dict per layer, in layer order;
     * dense weights and the embedding table are cast to the compute dtype
       (``dtype``, default ``cfg.compute_dtype``) once, here;
-    * the tied lm-head operand ``table.T`` is stored contiguously once.
+    * the tied lm-head operand ``table.T`` is stored contiguously once;
+    * int8 weight leaves (``{"q", "scale"}``, the reference's
+      ``quantize_params`` output) are carried as they are, each layer's
+      codes and scales unstacked with it; ``quantize=True`` quantizes
+      the (f32) tree here instead, leaf by leaf as it is converted, as
+      the reference's engine quantizes its f32 parameters.
 
     Training passes ``dtype=torch.float32``: every leaf then stays the
     reference's f32 tensor, and an untied model (RWKV-6) gets no second
@@ -52,13 +54,16 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
     if len(stacks) != len(cfg.pattern):
         raise ValueError(f"{len(stacks)} block stacks for a pattern of "
                          f"{len(cfg.pattern)}")
-    blocks = []
-    for g in range(cfg.n_groups):
-        for stack in stacks:
-            blocks.append(_unstack(stack, g))
-    params = {k: _to_torch(v, dev) for k, v in tree.items() if k != "blocks"}
-    params["blocks"] = [_to_torch(b, dev) for b in blocks]
-    return prepare_params(params, cfg, dtype)
+
+    def finish(key, sub):
+        return finish_params({key: sub}, cfg, dtype, quantize)[key]
+
+    params = {k: finish(k, _to_torch(v, dev))
+              for k, v in tree.items() if k != "blocks"}
+    params["blocks"] = [finish("blocks", [_to_torch(_unstack(stack, g),
+                                                    dev)])[0]
+                        for g in range(cfg.n_groups) for stack in stacks]
+    return tie_head(params) if cfg.tie_embeddings else params
 
 
 def _unstack(tree: Any, g: int) -> Any:

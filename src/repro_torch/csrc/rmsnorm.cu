@@ -1,10 +1,15 @@
 // RMSNorm on Hopper: y = x * rsqrt(mean(x^2) + eps) * scale over the last
-// dim, f32 math, output in x's dtype.
+// dim, f32 math, output in x's dtype; and LayerNorm (RWKV-6's norms, and
+// its GroupNorm over each head's slice of a row): y = (x - mean(x)) *
+// rsqrt(mean((x - mean(x))^2) + eps) * scale + bias, in the same
+// fixed order.
 //
-// No Pallas counterpart: the reference computes it with jnp
-// (src/repro/models/layers.py:103) and leaves the reduction order to XLA.
-// Every norm of a dense decoder runs it: two a layer and the final norm,
-// and qk_norm over each head's row (Qwen3).
+// No Pallas counterpart: the reference computes them with jnp
+// (src/repro/models/layers.py:103, :115, :125) and leaves the reduction
+// order to XLA.  Every norm of a dense decoder runs rmsnorm: two a layer
+// and the final norm, and qk_norm over each head's row (Qwen3).  Every
+// norm of RWKV-6's serve path runs layernorm: ln0, two a layer, the wkv
+// output's GroupNorm (rows of one head's N channels) and the final norm.
 //
 // Why a kernel.  Chunked prefill must give a prompt row the same bits
 // whether its call holds 64, 128 or 488 rows, and decode a slot's row the
@@ -17,7 +22,9 @@
 // the 32 partial sums with __fadd_rn.  Nothing depends on the row count,
 // the row's index or the grid, and the explicit _rn intrinsics leave the
 // compiler no contraction to choose, so a row's output bits are a
-// function of the row, eps and scale alone.
+// function of the row, eps and scale alone.  layernorm sums the row once
+// for its mean and once more for the squares of x - mean, each in that
+// order, so its rows are batch-independent too.
 //
 // Bound on the card: bytes.  A row is read twice (the second pass mostly
 // from L1) and written once; 3 operations an element.  A decode step's
@@ -102,6 +109,59 @@ __global__ void __launch_bounds__(WARPS * 32)
   }
 }
 
+// One warp a row of d values, the row's scale and bias at (row % groups) *
+// d: groups = 1 for a LayerNorm, the head count for a GroupNorm whose rows
+// are the heads' slices of a model row.
+template <typename T, int V>
+__global__ void __launch_bounds__(WARPS * 32)
+    layernorm_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                     const float* __restrict__ bias, T* __restrict__ y, int rows, int d, int groups,
+                     float eps) {
+  const int lane = threadIdx.x & 31;
+  const long row = (long)blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const T* xr = x + row * d;
+  T* yr = y + row * d;
+  const long at = (row % groups) * d;
+  const int nvec = d / V;
+  float acc = 0.f;
+  for (int c = lane; c < nvec; c += 32) {
+    float v[V];
+    Vec<T, V>::load(xr + c * V, v);
+#pragma unroll
+    for (int j = 0; j < V; ++j) acc = __fadd_rn(acc, v[j]);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, off));
+  const float mu = __fdiv_rn(__shfl_sync(0xffffffffu, acc, 0), (float)d);
+  float sq = 0.f;
+  for (int c = lane; c < nvec; c += 32) {
+    float v[V];
+    Vec<T, V>::load(xr + c * V, v);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const float dx = __fsub_rn(v[j], mu);
+      sq = __fmaf_rn(dx, dx, sq);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    sq = __fadd_rn(sq, __shfl_xor_sync(0xffffffffu, sq, off));
+  sq = __shfl_sync(0xffffffffu, sq, 0);
+  const float r = __frsqrt_rn(__fadd_rn(__fdiv_rn(sq, (float)d), eps));
+  for (int c = lane; c < nvec; c += 32) {
+    float v[V];
+    Vec<T, V>::load(xr + c * V, v);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const long e = at + c * V + j;
+      v[j] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[j], mu), r), scale[e]), bias[e]);
+    }
+    Vec<T, V>::store(yr + c * V, v);
+  }
+}
+
 template <typename T, int V>
 int launch(const void* x, const void* scale, void* y, int rows, int d, float eps,
            cudaStream_t s) {
@@ -133,6 +193,31 @@ extern "C" int rmsnorm_launch(const void* x, const void* scale, void* y, int row
                     : launch<float, 1>(x, scale, y, rows, d, eps, s);
   return vec == 8 ? launch<__nv_bfloat16, 8>(x, scale, y, rows, d, eps, s)
                   : launch<__nv_bfloat16, 1>(x, scale, y, rows, d, eps, s);
+}
+
+// The same contract for layernorm: x, y (rows, d); scale and bias
+// (groups * d,) f32, row i normalised with the slice (i % groups) * d.
+extern "C" int layernorm_launch(const void* x, const void* scale, const void* bias, void* y,
+                                int rows, int d, int groups, int dtype, int vec, float eps,
+                                void* stream) {
+  if (rows < 1 || d < 1 || groups < 1) return (int)cudaErrorInvalidValue;
+  const int wide = dtype == 0 ? 4 : 8;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (vec != (d % wide == 0 ? wide : 1)) return (int)cudaErrorInvalidValue;
+  if (vec > 1 && (reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(y) % 16))
+    return (int)cudaErrorMisalignedAddress;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = (rows + WARPS - 1) / WARPS;
+  const float *S = static_cast<const float*>(scale), *B = static_cast<const float*>(bias);
+#define LN(T, V)                                                                             \
+  layernorm_kernel<T, V><<<blocks, WARPS * 32, 0, s>>>(static_cast<const T*>(x), S, B,      \
+                                                        static_cast<T*>(y), rows, d, groups, eps)
+  if (dtype == 0 && vec == 4) LN(float, 4);
+  else if (dtype == 0) LN(float, 1);
+  else if (vec == 8) LN(__nv_bfloat16, 8);
+  else LN(__nv_bfloat16, 1);
+#undef LN
+  return (int)cudaGetLastError();
 }
 
 REPRO_EXPORT_ERROR_STRING(rmsnorm)

@@ -9,7 +9,11 @@
 //     S  <- diag(w_t) S + a_t
 //
 // r, k, v (B, H, T, N) in f32 or bf16; w (B, H, T, N) and u (H, N) in f32;
-// y in r's dtype, all arithmetic in f32.  The JAX package differentiates
+// y in r's dtype, all arithmetic in f32.  wkv6_state_fwd_launch is the
+// same forward from a given state S = s0 (B, H, N, N) f32, which also
+// writes the final state sT: serving's prefill and decode carry the state
+// across calls (the reference scans its _wkv_step from the cache's state,
+// src/repro/models/rwkv.py:146-162).  The JAX package differentiates
 // through its pallas_call; a launched CUDA kernel has no autograd, so the
 // backward is a set of kernels of its own computing the same VJP
 // (kernels/ref.py:ref_wkv_bwd).  With S_t the state after step t (S_0 = 0)
@@ -30,7 +34,10 @@
 // (A) every chunk computes Lambda_c and W_c in parallel (wkv6_walk_kernel,
 // LOCAL); (B) a scan over the chunks in order gives each chunk's S_start
 // (wkv6_scan_kernel); (C) every chunk replays its steps from S_start
-// (wkv6_walk_kernel writing y).  There is no division anywhere: a product
+// (wkv6_walk_kernel writing y).  From a state s0, phase B's scan starts
+// from s0 instead of zero, chunk 0 replays from s0, and the last chunk
+// writes the state it ends with; at s0 = 0 every operation is the zero-
+// state forward's, so y repeats its bits.  There is no division anywhere: a product
 // of decays that underflows to 0 is the right answer.  G follows the same
 // recurrence backwards in time with (r, gy) in place of (k, v), so the
 // backward runs phases A and B in both directions in one launch each, and
@@ -225,7 +232,8 @@ __global__ void __launch_bounds__(WalkTile<T, N>::THREADS)
 wkv6_walk_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
                  const T* __restrict__ gy, const float* __restrict__ w, const float* __restrict__ u,
                  T* __restrict__ out, float* __restrict__ states, float* __restrict__ decays,
-                 int heads, int steps, int chunk, int nchunks, int rev0) {
+                 const float* __restrict__ s0, float* __restrict__ s_end, int heads, int steps, int chunk,
+                 int nchunks, int rev0) {
   using WT = WalkTile<T, N>;
   constexpr int RT = WT::RT, CT = WT::CT, RGS = WT::RGS, SEG = WT::SEG, NP = WT::NP, THREADS = WT::THREADS;
   constexpr int TS = WT::TS;
@@ -294,11 +302,15 @@ wkv6_walk_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __re
   const int slot = LOCAL ? (int)blockIdx.x : has_start ? (rev ? c : c - 1) : 0;
   const size_t slot_at = ((size_t)rev * gridDim.y + bh) * slots + slot;
   float* tile_at = states + slot_at * N * N + (size_t)(rg * RT) * N + cg * CT;
+  // Forward from a state (s0 set): chunk 0 starts from s0, the others
+  // from the slots the scan filled from s0.
+  const size_t own = (size_t)bh * N * N + (size_t)(rg * RT) * N + cg * CT;
+  const float* start = has_start ? tile_at : (!LOCAL && !rev && s0) ? s0 + own : nullptr;
 #pragma unroll
   for (int i = 0; i < RT; ++i) {
     dp[i] = 1.f;
 #pragma unroll
-    for (int j = 0; j < CT; ++j) xs[i][j] = has_start ? tile_at[i * N + j] : 0.f;
+    for (int j = 0; j < CT; ++j) xs[i][j] = start ? start[i * N + j] : 0.f;
   }
 
   auto compute = [&](int i, int b) {
@@ -349,6 +361,11 @@ wkv6_walk_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __re
       for (int j = 0; j < CT; ++j) tile_at[i * N + j] = xs[i][j];
       if (cg == 0) decays[slot_at * N + rg * RT + i] = dp[i];
     }
+  } else if (s_end && c == nchunks - 1) {  // the state after step T (padded steps keep it)
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+#pragma unroll
+      for (int j = 0; j < CT; ++j) s_end[own + i * N + j] = xs[i][j];
   }
 }
 
@@ -356,9 +373,11 @@ wkv6_walk_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __re
 // order (forward) or reverse chunk order (backward): X <- diag(W) X + local,
 // each slot overwritten by the state it yields.  Slot i holds chunk i's
 // (forward: the state entering chunk i + 1) or chunk i + 1's (backward: the
-// gradient leaving chunk i) local state and decay product.
+// gradient leaving chunk i) local state and decay product.  The forward
+// starts from s0 (B*H, N, N) where it is given, else from zero.
 template <int N>
-__global__ void wkv6_scan_kernel(float* __restrict__ states, const float* __restrict__ decays, int slots) {
+__global__ void wkv6_scan_kernel(float* __restrict__ states, const float* __restrict__ decays,
+                                 const float* __restrict__ s0, int slots) {
   const int dir = blockIdx.z, bh = blockIdx.y;
   const size_t at = ((size_t)dir * gridDim.y + bh) * slots;
   float4* st = reinterpret_cast<float4*>(states + at * N * N);
@@ -366,6 +385,7 @@ __global__ void wkv6_scan_kernel(float* __restrict__ states, const float* __rest
   const int e4 = blockIdx.x * blockDim.x + threadIdx.x, n = e4 * 4 / N;
   constexpr int Q4 = N * N / 4;
   float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (s0 && !dir) x = reinterpret_cast<const float4*>(s0)[(size_t)bh * Q4 + e4];
   int s = dir ? slots - 1 : 0;
   float4 l = st[(size_t)s * Q4 + e4];
   float d = dc[s * N + n];
@@ -639,9 +659,9 @@ int allow_smem(int bytes) {
 }
 
 template <int N>
-void launch_scan(float* st, const float* dc, int bh, int dirs, int slots, cudaStream_t s) {
+void launch_scan(float* st, const float* dc, const float* s0, int bh, int dirs, int slots, cudaStream_t s) {
   constexpr int Q4 = N * N / 4, TPB = Q4 < 256 ? Q4 : 256;
-  wkv6_scan_kernel<N><<<dim3(Q4 / TPB, bh, dirs), TPB, 0, s>>>(st, dc, slots);
+  wkv6_scan_kernel<N><<<dim3(Q4 / TPB, bh, dirs), TPB, 0, s>>>(st, dc, s0, slots);
 }
 
 #define WKV6_CHECK()                                  \
@@ -650,9 +670,10 @@ void launch_scan(float* st, const float* dc, int bh, int dirs, int slots, cudaSt
     if (e_ != cudaSuccess) return (int)e_;            \
   } while (0)
 
+// s0 and s_end null: the zero-state forward, which writes no final state.
 template <typename T, int N>
 int launch_fwd(const void* r, const void* k, const void* v, const void* w, const void* u, void* y,
-               float* scratch, int b, int h, int t, int chunk, cudaStream_t s) {
+               const float* s0, float* s_end, float* scratch, int b, int h, int t, int chunk, cudaStream_t s) {
   using WT = WalkTile<T, N>;
   const int bh = b * h, nchunks = (t + chunk - 1) / chunk;
   float* st = scratch;
@@ -661,13 +682,13 @@ int launch_fwd(const void* r, const void* k, const void* v, const void* w, const
   const float *W = static_cast<const float*>(w), *U = static_cast<const float*>(u);
   if (nchunks > 1) {
     wkv6_walk_kernel<T, N, true><<<dim3(nchunks - 1, bh, 1), WT::THREADS, WT::SMEM, s>>>(
-        R, K, V, nullptr, W, U, nullptr, st, dc, h, t, chunk, nchunks, 0);
+        R, K, V, nullptr, W, U, nullptr, st, dc, nullptr, nullptr, h, t, chunk, nchunks, 0);
     WKV6_CHECK();
-    launch_scan<N>(st, dc, bh, 1, nchunks - 1, s);
+    launch_scan<N>(st, dc, s0, bh, 1, nchunks - 1, s);
     WKV6_CHECK();
   }
   wkv6_walk_kernel<T, N, false><<<dim3(nchunks, bh, 1), WT::THREADS, WT::SMEM, s>>>(
-      R, K, V, nullptr, W, U, static_cast<T*>(y), st, dc, h, t, chunk, nchunks, 0);
+      R, K, V, nullptr, W, U, static_cast<T*>(y), st, dc, s0, s_end, h, t, chunk, nchunks, 0);
   WKV6_CHECK();
   return 0;
 }
@@ -689,13 +710,13 @@ int launch_bwd(const void* r, const void* k, const void* v, const void* w, const
   const float *W = static_cast<const float*>(w), *U = static_cast<const float*>(u);
   if (nchunks > 1) {  // phases A and B, forward (z = 0) and backward (z = 1)
     wkv6_walk_kernel<T, N, true><<<dim3(nchunks - 1, bh, 2), WT::THREADS, WT::SMEM, s>>>(
-        R, K, V, GY, W, U, nullptr, st, dc, h, t, chunk, nchunks, 0);
+        R, K, V, GY, W, U, nullptr, st, dc, nullptr, nullptr, h, t, chunk, nchunks, 0);
     WKV6_CHECK();
-    launch_scan<N>(st, dc, bh, 2, nchunks - 1, s);
+    launch_scan<N>(st, dc, nullptr, bh, 2, nchunks - 1, s);
     WKV6_CHECK();
   }
   wkv6_walk_kernel<T, N, false><<<dim3(nchunks, bh, 1), WT::THREADS, WT::SMEM, s>>>(
-      R, K, V, GY, W, U, static_cast<T*>(gv), st, dc, h, t, chunk, nchunks, 1);
+      R, K, V, GY, W, U, static_cast<T*>(gv), st, dc, nullptr, nullptr, h, t, chunk, nchunks, 1);
   WKV6_CHECK();
   wkv6_rows_kernel<T, N><<<dim3(nchunks * RT::GROUPS, bh), RT::THREADS, RT::smem(chunk), s>>>(
       R, K, V, W, U, GY, static_cast<T*>(gr), static_cast<T*>(gk), static_cast<float*>(gw), gu_part, st, h,
@@ -734,10 +755,34 @@ extern "C" int wkv6_fwd_launch(const void* r, const void* k, const void* v, cons
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* sc = static_cast<float*>(scratch);
-  if (dtype == 0 && n == 16) return launch_fwd<float, 16>(r, k, v, w, u, y, sc, b, h, t, chunk, s);
-  if (dtype == 0) return launch_fwd<float, 64>(r, k, v, w, u, y, sc, b, h, t, chunk, s);
-  if (n == 16) return launch_fwd<__nv_bfloat16, 16>(r, k, v, w, u, y, sc, b, h, t, chunk, s);
-  return launch_fwd<__nv_bfloat16, 64>(r, k, v, w, u, y, sc, b, h, t, chunk, s);
+#define WKV6_FWD(T, N) launch_fwd<T, N>(r, k, v, w, u, y, nullptr, nullptr, sc, b, h, t, chunk, s)
+  if (dtype == 0 && n == 16) return WKV6_FWD(float, 16);
+  if (dtype == 0) return WKV6_FWD(float, 64);
+  if (n == 16) return WKV6_FWD(__nv_bfloat16, 16);
+  return WKV6_FWD(__nv_bfloat16, 64);
+#undef WKV6_FWD
+}
+
+// The forward from the state s0 (B, H, N, N) f32, writing the final state
+// into sT (B, H, N, N) f32, which must not overlap s0 (chunk 0 reads s0
+// while the last chunk writes sT); s0 16-byte aligned.  Otherwise as
+// wkv6_fwd_launch.
+extern "C" int wkv6_state_fwd_launch(const void* r, const void* k, const void* v, const void* w,
+                                     const void* u, const void* s0, void* y, void* sT, void* scratch,
+                                     long long scratch_floats, int b, int h, int t, int n, int dtype,
+                                     int chunk, void* stream) {
+  if (!accept(b, h, t, n, dtype, chunk, scratch_floats, false, {r, k, v, w, s0}) || s0 == sT)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* sc = static_cast<float*>(scratch);
+  const float* S0 = static_cast<const float*>(s0);
+  float* ST = static_cast<float*>(sT);
+#define WKV6_FWD(T, N) launch_fwd<T, N>(r, k, v, w, u, y, S0, ST, sc, b, h, t, chunk, s)
+  if (dtype == 0 && n == 16) return WKV6_FWD(float, 16);
+  if (dtype == 0) return WKV6_FWD(float, 64);
+  if (n == 16) return WKV6_FWD(__nv_bfloat16, 16);
+  return WKV6_FWD(__nv_bfloat16, 64);
+#undef WKV6_FWD
 }
 
 extern "C" int wkv6_bwd_launch(const void* r, const void* k, const void* v, const void* w, const void* u,

@@ -1,12 +1,12 @@
 """The port's kernels: hand-written CUDA for Hopper beside their plain
 PyTorch versions, and the ``ops`` dispatch wrappers over them."""
 
-from repro_torch.kernels import (decode_attention, flash_attention, gemm,
-                                 rmsnorm, wkv)
+from repro_torch.kernels import (decode_attention, dequant, flash_attention,
+                                 gemm, rmsnorm, wkv)
 
 # Every ported kernel: its wrapper's module and the name of the launch
 # counter there (flash_decode and flash_paged_decode share a module and
-# count apart, as do wkv6 and its backward).
+# count apart, as do wkv6, its backward and its state-carrying form).
 KERNEL_COUNTERS = {
     "gama_gemm": (gemm, "launches"),
     "flash_attention": (flash_attention, "launches"),
@@ -14,7 +14,10 @@ KERNEL_COUNTERS = {
     "flash_paged_decode": (decode_attention, "paged_launches"),
     "wkv6": (wkv, "launches"),
     "wkv6_bwd": (wkv, "bwd_launches"),
+    "wkv6_state": (wkv, "state_launches"),
     "rmsnorm": (rmsnorm, "launches"),
+    "layernorm": (rmsnorm, "ln_launches"),
+    "dequant": (dequant, "launches"),
 }
 
 

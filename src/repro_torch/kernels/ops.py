@@ -22,8 +22,9 @@ then today's analytic plan) unless the caller passes ``plan``, as the
 reference resolves its tiles (``repro/kernels/ops.py:57-63``,
 ``:150-155``).  The CPU route takes no plan.
 
-``matmul``, ``decode`` and ``decode_paged`` tick the reference's route
-counters ``ops.<op>.kernel`` or ``ops.<op>.ref`` on the process registry
+``matmul``, ``decode``, ``decode_paged`` and ``wkv_state`` tick the
+reference's route counters ``ops.<op>.kernel`` or ``ops.<op>.ref`` (the
+last the port's own) on the process registry
 (``repro_torch.obs``).  The reference ticks them once per compiled program
 (at trace time); the port has no tracing, so it ticks them once per call:
 on the card each ``.kernel`` count equals its kernel's launch count, and
@@ -39,10 +40,12 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import (flash_decode,
                                                   flash_paged_decode)
+from repro_torch.kernels.dequant import dequantize as dequant_kernel
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gemm import gama_gemm
+from repro_torch.kernels.rmsnorm import LayerNorm
 from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_kernel
-from repro_torch.kernels.wkv import WKV6
+from repro_torch.kernels.wkv import WKV6, wkv6_state
 from repro_torch.obs import get_obs
 from repro_torch.tuning import dispatch
 
@@ -136,6 +139,31 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6,
     if not _use_kernel(mode, x, scale):
         return ref.rmsnorm(x, scale, eps)
     return rmsnorm_kernel(x, scale, eps)
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
+              eps: float = 1e-5, groups: int = 1,
+              mode: str = "auto") -> torch.Tensor:
+    """LayerNorm over the last dim (``groups`` > 1: GroupNorm over that
+    many slices of it) in f32, output in x's dtype: the fixed-order kernel
+    for CUDA tensors (a row's bits do not depend on the rows beside it),
+    the plain version for CPU tensors.  Differentiable on both: the kernel
+    through :class:`~repro_torch.kernels.rmsnorm.LayerNorm` (its backward
+    is the plain expression's)."""
+    if not _use_kernel(mode, x, scale, bias):
+        return ref.layernorm(x, scale, bias, eps, groups)
+    return LayerNorm.apply(x, scale, bias, eps, groups)
+
+
+def dequantize(q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype, *,
+               mode: str = "auto") -> torch.Tensor:
+    """int8 weight codes q (..., K, N) times their f32 scales (..., N),
+    rounded to ``dtype``: the ``dequant`` kernel for CUDA tensors (one
+    pass, int8 read and ``dtype`` written), the plain version for CPU
+    tensors."""
+    if not _use_kernel(mode, q, scale):
+        return ref.dequantize(q, scale, dtype)
+    return dequant_kernel(q, scale, dtype)
 
 
 def decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -233,6 +261,31 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         _use_kernel(mode, r, k, v, w, u)
         return WKV6.apply(*(t.contiguous() for t in (r, k, v, w, u)))
     return ref.ref_wkv(r, k, v, w, u)
+
+
+def wkv_state(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor, *,
+              mode: str = "auto"):
+    """WKV6 recurrence from the state ``s0`` (B, H, N, N) f32: r/k/v/w
+    (B, H, T, N); u (H, N) -> (y (B, H, T, N) in r's dtype, the final state
+    (B, H, N, N) f32).  Serving's cached RWKV branch (prefill and decode):
+    the ``wkv6_state`` kernel for CUDA tensors, ``ref.ref_wkv_state`` for
+    CPU tensors and in mode ``ref``.  Inference only.  Ticks
+    ``ops.wkv_state.kernel`` or ``ops.wkv_state.ref``."""
+    if r.dim() != 4 or any(t.shape != r.shape for t in (k, v, w)):
+        raise ValueError(f"wkv_state needs r, k, v, w (B, H, T, N) of one "
+                         f"shape, got "
+                         f"{[tuple(t.shape) for t in (r, k, v, w)]}")
+    b, h, _, n = r.shape
+    if u.shape != (h, n) or s0.shape != (b, h, n, n):
+        raise ValueError(f"wkv_state needs u ({h}, {n}) and s0 ({b}, {h}, "
+                         f"{n}, {n}), got {tuple(u.shape)}, "
+                         f"{tuple(s0.shape)}")
+    if not _use_kernel(mode, r, k, v, w, u, s0):
+        _count("ops.wkv_state.ref")
+        return ref.ref_wkv_state(r, k, v, w, u, s0)
+    _count("ops.wkv_state.kernel")
+    return wkv6_state(*(t.contiguous() for t in (r, k, v, w, u, s0)))
 
 
 def op_cost_model(op: str, *, m: int = 0, k: int = 0, n: int = 0,

@@ -62,6 +62,32 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     return out.to(x.dtype)
 
 
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5, groups: int = 1) -> torch.Tensor:
+    """Plain LayerNorm over the last dim in f32, as the reference, output
+    in x's dtype; with ``groups`` > 1 a GroupNorm: each of the ``groups``
+    consecutive slices of a row normalised on its own, then the row's
+    (d,) scale and bias applied (RWKV's wkv output, one group a head).
+    Plain torch ops throughout, so torch autograd differentiates it."""
+    *lead, d = x.shape
+    xf = x.float().reshape(*lead, groups, d // groups)
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    out = ((xf - mu) * torch.rsqrt(var + eps)).reshape(*lead, d)
+    return (out * scale.float() + bias.float()).to(x.dtype)
+
+
+def dequantize(q: torch.Tensor, scale: torch.Tensor,
+               dtype: torch.dtype) -> torch.Tensor:
+    """int8 codes q (..., K, N) times their f32 scales (..., N), one per
+    column of each (K, N) matrix (scale's leading dims are q's first ones,
+    or none), in f32, rounded to ``dtype``: the reference's
+    ``dequantize_weight``."""
+    mid = (1,) * (q.dim() - scale.dim())
+    s = scale.reshape(*scale.shape[:-1], *mid, scale.shape[-1])
+    return (q.float() * s).to(dtype)
+
+
 def _softmax_av(s: torch.Tensor, valid: torch.Tensor,
                 v: torch.Tensor) -> torch.Tensor:
     """Masked softmax(s) @ v with the kernels' guards: masked logits at
@@ -204,22 +230,32 @@ def ref_paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     return ref_decode_attention(q, kc, vc, length=length, scale=scale)
 
 
-def ref_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """Plain wkv6 from the zero state.  r/k/v/w: (B, H, T, N); u: (H, N)
-    -> y (B, H, T, N) in r's dtype, computed in f32:
-    y_t = r_t (S_{t-1} + diag(u) k_t^T v_t);  S_t = diag(w_t) S_{t-1} + a_t.
+def ref_wkv_state(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  w: torch.Tensor, u: torch.Tensor,
+                  s0: Optional[torch.Tensor] = None):
+    """Plain wkv6 from the state ``s0`` (B, H, N, N) f32 (None: zero).
+    r/k/v/w: (B, H, T, N); u: (H, N) -> (y (B, H, T, N) in r's dtype, the
+    final state (B, H, N, N) f32), computed in f32 a step at a time in the
+    order of the reference's ``_wkv_step`` (``repro/models/rwkv.py``):
+    a_t = k_t^T v_t; y_t = r_t (S + diag(u) a_t); S <- diag(w_t) S + a_t.
     Plain torch ops throughout, so torch autograd differentiates it."""
     b, h, t, n = r.shape
     rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
     uf = u.float()[:, :, None]                        # (H, N, 1)
-    s = torch.zeros((b, h, n, n), dtype=torch.float32, device=r.device)
+    s = (torch.zeros((b, h, n, n), dtype=torch.float32, device=r.device)
+         if s0 is None else s0.float())
     ys = []
     for i in range(t):
         a = kf[:, :, i, :, None] * vf[:, :, i, None, :]
         ys.append(torch.einsum("bhn,bhnm->bhm", rf[:, :, i], s + uf * a))
         s = wf[:, :, i, :, None] * s + a
-    return torch.stack(ys, dim=2).to(r.dtype)
+    return torch.stack(ys, dim=2).to(r.dtype), s
+
+
+def ref_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Plain wkv6 from the zero state: :func:`ref_wkv_state`'s y."""
+    return ref_wkv_state(r, k, v, w, u)[0]
 
 
 def ref_wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

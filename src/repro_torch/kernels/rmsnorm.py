@@ -1,5 +1,5 @@
-"""RMSNorm with a fixed reduction order, hand-written for Hopper
-(``csrc/rmsnorm.cu``).
+"""RMSNorm and LayerNorm with a fixed reduction order, hand-written for
+Hopper (``csrc/rmsnorm.cu``).
 
 It has no Pallas counterpart: the reference normalises with jnp
 (``repro/models/layers.py:103``).  The port needs a kernel for the bits,
@@ -10,9 +10,16 @@ row to one warp that sums its squares in an order fixed by the row
 length alone (see the source), and replaces torch's ~10 launches a norm
 with one.
 
-:func:`rmsnorm` runs the plain version (:data:`plain`, float64 sums) for
-CPU tensors only; for CUDA tensors it launches the kernel or raises.
-:data:`launches` counts the launches.
+:func:`layernorm` is the same for RWKV-6's LayerNorm and GroupNorm,
+whose rows must not depend on the batch either (``--verify`` holds a
+batched decode to a one-slot one).
+
+:func:`rmsnorm` runs the plain version (:data:`plain`, float64 sums),
+:func:`layernorm` its own (:data:`plain_layernorm`, f32 as the
+reference), for CPU tensors only; for CUDA tensors each launches its
+kernel or raises.  :data:`launches` and :data:`ln_launches` count them.
+:class:`LayerNorm` is :func:`layernorm` with a gradient (RWKV-6 trains
+through its norms): the kernel forward, the plain expression's backward.
 """
 
 from __future__ import annotations
@@ -22,13 +29,17 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.ref import layernorm as plain_layernorm
 from repro_torch.kernels.ref import rmsnorm as plain
 
 launches = 0
+ln_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
              + [ctypes.c_float, ctypes.c_void_p])
+_LN_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                + [ctypes.c_float, ctypes.c_void_p])
 
 
 def vec_width(d: int, dtype: torch.dtype) -> int:
@@ -47,6 +58,8 @@ def _lib() -> ctypes.CDLL:
     if lib.rmsnorm_launch.argtypes is None:
         lib.rmsnorm_launch.argtypes = _ARGTYPES
         lib.rmsnorm_launch.restype = ctypes.c_int
+        lib.layernorm_launch.argtypes = _LN_ARGTYPES
+        lib.layernorm_launch.restype = ctypes.c_int
     return lib
 
 
@@ -82,3 +95,74 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     _build.check(lib, "rmsnorm", err)
     launches += 1
     return out.reshape(x.shape)
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5, groups: int = 1) -> torch.Tensor:
+    """x: (..., d) f32 or bf16; scale, bias: (d,) -> x's shape and dtype.
+    ``groups`` > 1: a GroupNorm over ``groups`` consecutive slices of each
+    row (the kernel's rows are the slices, each with its part of scale
+    and bias)."""
+    global ln_launches
+    if all(t.device.type == "cpu" for t in (x, scale, bias)):
+        return plain_layernorm(x, scale, bias, eps, groups)
+    _build.refuse_autograd("layernorm", x, scale, bias)
+    d = x.shape[-1]
+    if not (x.is_cuda and scale.device == x.device
+            and bias.device == x.device):
+        raise ValueError(f"layernorm needs x, scale and bias on one CUDA "
+                         f"device, got {x.device}, {scale.device}, "
+                         f"{bias.device}")
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"layernorm takes f32 or bf16 x, got {x.dtype}")
+    if groups < 1 or d % groups:
+        raise ValueError(f"layernorm: {groups} groups do not divide d={d}")
+    if any(t.shape != (d,) or not t.is_floating_point()
+           for t in (scale, bias)):
+        raise ValueError(f"layernorm needs a float scale and bias of shape "
+                         f"({d},), got {tuple(scale.shape)}, "
+                         f"{tuple(bias.shape)}")
+    if x.numel() == 0:
+        return torch.empty_like(x)
+    w = d // groups
+    rows = x.reshape(-1, w).contiguous()
+    out = torch.empty_like(rows)
+    vec = vec_width(w, x.dtype)
+    if vec > 1 and rows.data_ptr() % 16:
+        rows = rows.clone()          # 16-byte vector loads
+    scale, bias = scale.float().contiguous(), bias.float().contiguous()
+    lib = _lib()
+    err = lib.layernorm_launch(
+        rows.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        rows.shape[0], w, groups, _DTYPES[x.dtype], vec, float(eps),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, "rmsnorm", err)
+    ln_launches += 1
+    return out.reshape(x.shape)
+
+
+class LayerNorm(torch.autograd.Function):
+    """:func:`layernorm` with the gradient of :data:`plain_layernorm`: the
+    reference differentiates its jnp norm, and a norm is no TPU kernel
+    with a VJP of its own to port.  The forward launches the kernel (it
+    runs with grad mode off, so :func:`layernorm` takes it); the backward
+    recomputes the plain expression from the saved inputs and
+    differentiates it.  So training runs the same forward kernel as
+    serving."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps, groups):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.eps, ctx.groups = eps, groups
+        return layernorm(x, scale, bias, eps, groups)
+
+    @staticmethod
+    def backward(ctx, gy):
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(need) for t, need in
+                      zip(ctx.saved_tensors, ctx.needs_input_grad)]
+            y = plain_layernorm(*inputs, ctx.eps, ctx.groups)
+            wrt = [t for t in inputs if t.requires_grad]
+            grads = iter(torch.autograd.grad(y, wrt, gy))
+        return (*(next(grads) if t.requires_grad else None for t in inputs),
+                None, None)

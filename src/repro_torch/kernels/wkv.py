@@ -7,6 +7,10 @@ k_t^T v_t), S <- diag(w_t) S + k_t^T v_t, with no padding of T.
 :func:`wkv6_bwd` is its VJP as kernels of its own: the JAX package
 differentiates through its ``pallas_call``, a launched CUDA kernel has no
 autograd.  :class:`WKV6` ties the two into a ``torch.autograd.Function``.
+:func:`wkv6_state` is the forward from a given state ``s0`` that also
+returns the final state: serving's prefill and decode carry each
+sequence's state from call to call (the reference's cached branch scans
+its ``_wkv_step`` from the cache's state).  It is inference-only.
 
 Time is split into chunks of :func:`wkv_chunk` steps.  The decay is
 diagonal, so each chunk's state from zero and its decay product are
@@ -18,10 +22,11 @@ holds one state per chunk boundary (:func:`scratch_floats`), never one
 per step.  Bound on the card: 4 N^2 f32 operations per (b, h, t) forward
 and 12 N^2 backward (5.0 and 15.0 us at B=8 H=40 T=64 N=64).
 
-Each wrapper runs its plain version (:data:`plain`, :data:`plain_bwd`)
-for CPU tensors only; for CUDA tensors it launches its kernels or raises.
-:data:`launches` counts forward calls, :data:`bwd_launches` backward ones
-(one call launches one to five CUDA kernels).
+Each wrapper runs its plain version (:data:`plain`, :data:`plain_bwd`,
+:data:`plain_state`) for CPU tensors only; for CUDA tensors it launches
+its kernels or raises.  :data:`launches` counts forward calls,
+:data:`bwd_launches` backward ones and :data:`state_launches`
+``wkv6_state`` calls (one call launches one to five CUDA kernels).
 """
 
 from __future__ import annotations
@@ -35,9 +40,11 @@ from torch.autograd.function import once_differentiable
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import ref_wkv as plain
 from repro_torch.kernels.ref import ref_wkv_bwd as plain_bwd
+from repro_torch.kernels.ref import ref_wkv_state as plain_state
 
 launches = 0
 bwd_launches = 0
+state_launches = 0
 
 # FULL (head size 64, bf16 compute) is the training path.  Head size 16
 # and f32 r/k/v are built only for rwkv6 SMOKE (head size 16, f32
@@ -104,6 +111,11 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fwd.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong]
                         + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         fwd.restype = ctypes.c_int
+        if hasattr(lib, "wkv6_state_fwd_launch"):   # older sources lack it
+            st = lib.wkv6_state_fwd_launch
+            st.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_longlong]
+                           + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+            st.restype = ctypes.c_int
         bwd.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_longlong]
                         + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         bwd.restype = ctypes.c_int
@@ -162,6 +174,20 @@ def launch_fwd(lib: ctypes.CDLL, chunk: int, r, k, v, w, u,
     _build.check(lib, "wkv6", err)
 
 
+def launch_state(lib: ctypes.CDLL, chunk: int, r, k, v, w, u, s0,
+                 y: torch.Tensor, s_end: torch.Tensor) -> None:
+    """Launch ``lib``'s forward from ``s0`` into ``y`` and ``s_end``."""
+    b, h, t, n = r.shape
+    scratch = torch.empty(scratch_floats(b, h, t, n, chunk, False),
+                          dtype=torch.float32, device=r.device)
+    err = lib.wkv6_state_fwd_launch(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+        s0.data_ptr(), y.data_ptr(), s_end.data_ptr(), scratch.data_ptr(),
+        scratch.numel(), b, h, t, n, _DTYPES[r.dtype], chunk,
+        torch.cuda.current_stream(r.device).cuda_stream)
+    _build.check(lib, "wkv6", err)
+
+
 def launch_bwd(lib: ctypes.CDLL, chunk: int, r, k, v, w, u, gy, gr, gk, gv,
                gw, gu) -> None:
     """Launch ``lib``'s backward into (gr, gk, gv, gw, gu)."""
@@ -189,6 +215,36 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     launch_fwd(_lib(), wkv_chunk(t, n, r.dtype), r, k, v, w, u, y)
     launches += 1
     return y
+
+
+def wkv6_state(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`wkv6` from the state ``s0`` (B, H, N, N) f32: returns (y
+    (B, H, T, N) in r's dtype, the state after step T (B, H, N, N) f32,
+    a new tensor).  Inference only: it raises if an input requires grad
+    (the reference's cached branch is never differentiated).  At s0 = 0
+    its y equals :func:`wkv6`'s bit for bit."""
+    if any(t.requires_grad for t in (r, k, v, w, u, s0)):
+        raise RuntimeError("wkv6_state is inference-only: an input requires "
+                           "grad (train through ops.wkv)")
+    if all(t.device.type == "cpu" for t in (r, k, v, w, u, s0)):
+        return plain_state(r, k, v, w, u, s0)
+    _check("wkv6_state", r, k, v, w, u)
+    b, h, _, n = r.shape
+    if (s0.shape != (b, h, n, n) or s0.dtype != torch.float32
+            or s0.device != r.device or not s0.is_contiguous()
+            or s0.data_ptr() % 16):
+        raise ValueError(f"wkv6_state needs s0 ({b}, {h}, {n}, {n}) f32, "
+                         f"contiguous, 16-byte aligned, on {r.device}; got "
+                         f"{tuple(s0.shape)} {s0.dtype} on {s0.device}")
+    global state_launches
+    y = torch.empty_like(r)
+    s_end = torch.empty_like(s0)
+    launch_state(_lib(), wkv_chunk(r.shape[2], n, r.dtype), r, k, v, w, u,
+                 s0, y, s_end)
+    state_launches += 1
+    return y, s_end
 
 
 def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -50,6 +50,12 @@ tuner (``repro_torch.tuning``: a measured entry of the tuning cache, else
 write the Chrome trace, the schema-1 metrics snapshot, its Prometheus
 text and the flight record (``tools/obs_report.py`` renders them);
 ``--slo-ttft-ms``/``--slo-itl-ms`` arm the SLO monitor.
+``--arch`` defaults to ``qwen3_8b``, as the reference's; ``--full``
+serves the FULL config, SMOKE otherwise (``--smoke``, the reference's
+flag, is accepted and changes nothing).  ``--quantize`` serves int8
+weights, quantized from the f32 draws (``serving.quant``).  An RWKV arch
+serves its recurrent state on the dense layout whatever ``--kv`` asks
+(the ``paged kv:`` line then does not appear).
 ``--verify`` re-runs every completed request through a one-slot one-shot
 engine that prefills monolithically and shares no pages, and checks the
 continuous outputs are bit-identical: a dense one for full-precision runs
@@ -68,6 +74,9 @@ import time
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
+
+# The reference's default for --pack_min_flops (ServeConfig.pack_min_flops).
+PACK_MIN_FLOPS = 2.0 * 1024 ** 3
 
 
 def shared_prefix_tokens(group: int, prefix_len: int, vocab_size: int,
@@ -436,9 +445,12 @@ def _verify(cfg, params, trace, results, scfg) -> None:
 
 def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="smollm_360m")
+    ap.add_argument("--arch", default="qwen3_8b")
     ap.add_argument("--full", action="store_true",
                     help="serve the FULL config (default: SMOKE)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="serve the SMOKE config (the default; accepted as "
+                         "the reference's flag)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--batch_slots", type=int, default=4,
                     help="KV-cache slots (0 = resolve from the tuner)")
@@ -538,11 +550,14 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--quantize", action="store_true",
-                    help="int8 weight-only quantization (not ported yet: "
-                         "ROADMAP Queue A item 3)")
+                    help="int8 weight-only quantization (per output "
+                         "channel; dequantized on every weight fetch)")
     ap.add_argument("--mesh", default=None, metavar="D,M",
                     help="a (data, model) pack mesh (not ported yet: "
                          "ROADMAP Queue A item 12)")
+    ap.add_argument("--pack_min_flops", type=float, default=PACK_MIN_FLOPS,
+                    help="the pack mesh's GEMM size threshold (not ported "
+                         "yet: ROADMAP Queue A item 12)")
     ap.add_argument("--gemm-mode", dest="gemm_mode", default="auto",
                     choices=("auto", "kernel", "ref"))
     ap.add_argument("--device", default="cuda")
@@ -555,6 +570,12 @@ def main(argv: Optional[List[str]] = None) -> None:
         raise NotImplementedError(
             "--mesh (the multi-device pack GEMM) is not ported yet: it "
             "comes with ROADMAP Queue A item 12")
+    if args.pack_min_flops != PACK_MIN_FLOPS:
+        raise NotImplementedError(
+            "--pack_min_flops (the multi-device pack GEMM) is not ported "
+            "yet: it comes with ROADMAP Queue A item 12")
+    if args.full and args.smoke:
+        raise SystemExit("--full and --smoke name different configs")
 
     from repro_torch import configs as C, obs
     from repro_torch.models import init_params
@@ -594,8 +615,14 @@ def main(argv: Optional[List[str]] = None) -> None:
         kv_dtype=args.kv_dtype, prefix_cache=args.prefix_cache,
         prefill_chunk=None if args.prefill_chunk < 0 else args.prefill_chunk,
         token_budget=args.token_budget, policy=args.policy)
-    params = init_params(cfg, seed=1, device=args.device)
+    params = init_params(cfg, seed=1, device=args.device,
+                         quantize=args.quantize)
     engine = ServeEngine(cfg, params, scfg)
+    if engine.quant_stats is not None:
+        qs = engine.quant_stats
+        print(f"[serve] int8 weights: quantized={qs['quantized']} "
+              f"kept={qs['kept']} bytes {qs['bytes_before']} -> "
+              f"{qs['bytes_after']}")
     if (args.batch_slots == 0 or args.prefill_chunk < 0
             or (args.kv == "paged" and args.page_size == 0)):
         from repro_torch.tuning import dispatch
@@ -692,7 +719,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         if args.metrics_out:
             run_section = {k: v for k, v in rep.items() if k != "results"}
             run_section["arch"] = cfg.name
-            run_section["kv_mode"] = engine.scfg.kv
+            run_section["kv_mode"] = engine.kv_mode
             run_section["prefill_chunk"] = engine.prefill_chunk
             run_section["device"] = str(engine.device)
             obs.write_metrics(

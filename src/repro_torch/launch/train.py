@@ -60,16 +60,23 @@ def main(argv: Optional[List[str]] = None) -> dict:
             f"(ROADMAP Queue A item 11)")
     dev = resolve_device(args.device)
 
+    from repro_torch.models.layers import gemm_mode
+
+    # The plain GEMMs for this run only: the mode is process-wide, and a
+    # serving engine started later in the process must find its own.
+    with gemm_mode("ref"):
+        return _train(args, dev)
+
+
+def _train(args, dev) -> dict:
     import torch
 
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.models import init_params, param_count
-    from repro_torch.models.layers import set_gemm_mode
     from repro_torch.optim import adamw
     from repro_torch.training.trainer import (TrainConfig, Trainer,
                                               make_train_step)
 
-    set_gemm_mode("ref")
     cfg = C.get_smoke(args.arch) if args.smoke else C.get(args.arch)
     kind = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")

@@ -137,10 +137,10 @@ def attention(
     if use_cached_kv or kv_from is not None:
         raise NotImplementedError(
             "cross-attention comes with the enc-dec architectures "
-            "(ROADMAP Queue A item 10)")
+            "(ROADMAP Queue A item 10.5)")
     if mrope_sections is not None:
         raise NotImplementedError(
-            "M-RoPE comes with qwen2_vl (ROADMAP Queue A item 10)")
+            "M-RoPE comes with qwen2_vl (ROADMAP Queue A item 10.6)")
     b, s, _ = x.shape
     q = L.dense(p["wq"], x).reshape(b, s, n_heads, d_head)
     k = L.dense(p["wk"], x).reshape(b, s, n_kv_heads, d_head)

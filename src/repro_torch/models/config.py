@@ -4,8 +4,8 @@ A model is a stack of ``n_layers`` blocks cycling through ``pattern`` (a
 tuple of BlockSpec).  Dtype names map to ``torch`` dtypes.  The sub-config
 fields of other architectures (``moe``, ``mamba``, ``rwkv``) are kept so
 the dataclass has the reference's shape; ``rwkv`` holds a
-``models.rwkv.RwkvConfig``, the others wait for the other-architectures
-slice (ROADMAP Queue A item 10).
+``models.rwkv.RwkvConfig``, the others wait for their slices (ROADMAP
+Queue A items 10.3-10.4).
 """
 
 from __future__ import annotations
@@ -93,14 +93,50 @@ class ModelConfig:
         return torch_dtype(self.cache_dtype)
 
     def gemm_shapes(self) -> dict:
-        """The weight GEMMs a dense attention decoder runs per forward
-        step: name -> (K, N, launches), the launches summed over the
-        layers (k and v share a shape, as do gate and up) and the head."""
+        """The weight GEMMs one forward step runs: name -> (K, N,
+        launches), the launches summed over the layers and the head.
+
+        An attention block runs wq, wk, wv and wo (k and v share a shape)
+        and its FFN: gate, up and down (SwiGLU; gate and up share a
+        shape) or up and down (``ffn_kind="gelu"``).  An RWKV-6 block
+        runs the ddlerp lora (``lora_a``, then one ``lora_b`` slice per
+        mixed input), the r/k/v/g/o projections, the decay lora and the
+        channel mix's wk, wv and wr."""
         d, f, v, n = self.d_model, self.d_ff, self.vocab_size, self.n_layers
-        qn, kvn = self.n_heads * self.d_head, self.n_kv_heads * self.d_head
-        return {"wq": (d, qn, n), "wk/wv": (d, kvn, 2 * n), "wo": (qn, d, n),
-                "gate/up": (d, f, 2 * n), "down": (f, d, n),
-                "lm_head": (d, v, 1)}
+        out: dict = {}
+
+        def add(name, k, n_, launches):
+            if name in out:
+                launches += out[name][2]
+            out[name] = (k, n_, launches)
+
+        for spec in self.pattern:
+            g = self.n_groups
+            if spec.mixer == "rwkv":
+                rc = self.rwkv
+                add("lora_a", d, 5 * rc.lora_mix, g)
+                add("lora_b", rc.lora_mix, d, 5 * g)
+                add("wr/wk/wv/wg/wo", d, d, 5 * g)
+                add("w_lora_a", d, rc.lora_decay, g)
+                add("w_lora_b", rc.lora_decay, d, g)
+            else:
+                qn = self.n_heads * self.d_head
+                kvn = self.n_kv_heads * self.d_head
+                add("wq", d, qn, g)
+                add("wk/wv", d, kvn, 2 * g)
+                add("wo", qn, d, g)
+            if spec.ffn == "rwkv_cm":
+                add("cm_wk", d, f, g)
+                add("cm_wv", f, d, g)
+                add("cm_wr", d, d, g)
+            elif self.ffn_kind == "swiglu":
+                add("gate/up", d, f, 2 * g)
+                add("down", f, d, g)
+            else:
+                add("up", d, f, g)
+                add("down", f, d, g)
+        add("lm_head", d, v, 1)
+        return out
 
     def n_params(self) -> int:
         """Total parameter count, as the reference counts it (analytic:
@@ -117,7 +153,7 @@ class ModelConfig:
                 raise NotImplementedError(
                     f"{self.name}: only ('attn', 'dense') and ('rwkv', "
                     f"'rwkv_cm') decoder blocks are ported (ROADMAP Queue A "
-                    f"item 10)")
+                    f"items 10.3-10.5)")
             if spec.mixer == "attn":
                 n = d * (self.n_heads + 2 * self.n_kv_heads) * self.d_head
                 n += self.n_heads * self.d_head * d

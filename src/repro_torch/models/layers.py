@@ -2,21 +2,25 @@
 MLP, embeddings, cross-entropy (counterpart of ``repro/models/layers.py``).
 
 All layers are plain functions over dicts of tensors.  Every matmul goes
-through :func:`gemm`, the GAMA integration point.  For serving, dense
-weights and the embedding table are in the compute dtype already (the
-bridge and ``init_params`` cast them once at load); training keeps them in
-f32, and a weight of another dtype is cast per call, as the reference's
-``maybe_dequant`` does.
+through :func:`gemm`, the GAMA integration point.  Every weight is
+fetched through ``models.quant.maybe_dequant``, as in the reference: an
+int8 ``{"q", "scale"}`` leaf is dequantized to the compute dtype, any
+other weight cast to it.  For serving, dense weights and the embedding
+table are in the compute dtype already (the bridge and ``init_params``
+cast them once at load), so the cast is a no-op; training keeps them in
+f32.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.models.quant import maybe_dequant
 
 Params = Dict[str, Any]
 
@@ -36,6 +40,18 @@ def set_gemm_mode(mode: str) -> None:
     if mode not in ops.MODES:
         raise ValueError(f"gemm mode must be one of {ops.MODES}, got {mode!r}")
     _GEMM_MODE = mode
+
+
+@contextlib.contextmanager
+def gemm_mode(mode: str):
+    """``set_gemm_mode(mode)`` for the duration of a block; the mode that
+    was set before is restored after it."""
+    prev = _GEMM_MODE
+    set_gemm_mode(mode)
+    try:
+        yield
+    finally:
+        set_gemm_mode(prev)
 
 
 def gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -73,9 +89,16 @@ def norm_init(d: int, dtype=torch.float32, device="cpu") -> Params:
 
 
 def mlp_init(gen: torch.Generator, d_model: int, d_ff: int,
-             dtype=torch.float32, device="cpu") -> Params:
-    return {"gate": dense_init(gen, d_model, d_ff, dtype, device),
-            "up": dense_init(gen, d_model, d_ff, dtype, device),
+             kind: str = "swiglu", dtype=torch.float32,
+             device="cpu") -> Params:
+    """SwiGLU draws gate, up, down; the non-gated FFN has no gate and
+    draws up first, where the reference's draw order puts it (``up``
+    takes ``r1``, gate's key under SwiGLU)."""
+    if kind == "swiglu":
+        return {"gate": dense_init(gen, d_model, d_ff, dtype, device),
+                "up": dense_init(gen, d_model, d_ff, dtype, device),
+                "down": dense_init(gen, d_ff, d_model, dtype, device)}
+    return {"up": dense_init(gen, d_model, d_ff, dtype, device),
             "down": dense_init(gen, d_ff, d_model, dtype, device)}
 
 
@@ -90,8 +113,7 @@ def embedding_init(gen: torch.Generator, vocab: int, d_model: int,
 
 
 def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
-    w = p["w"]
-    y = gemm(x, w if w.dtype == x.dtype else w.to(x.dtype))
+    y = gemm(x, maybe_dequant(p["w"], x.dtype))
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
@@ -111,24 +133,18 @@ def layernorm_init(d: int, dtype=torch.float32, device="cpu") -> Params:
 
 
 def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm with f32 statistics, as the reference."""
-    xf = x.float()
-    mu = xf.mean(-1, keepdim=True)
-    var = (xf - mu).square().mean(-1, keepdim=True)
-    out = (xf - mu) * torch.rsqrt(var + eps)
-    return (out * p["scale"].float() + p["bias"].float()).to(x.dtype)
+    """LayerNorm with f32 statistics, as the reference: ``ops.layernorm``,
+    the fixed-order kernel on the card (a served row's bits do not depend
+    on its batch; training differentiates it) and the plain version on the
+    CPU."""
+    return ops.layernorm(x, p["scale"], p["bias"], eps=eps)
 
 
 def groupnorm(x: torch.Tensor, n_groups: int, scale: torch.Tensor,
               bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """GroupNorm over the channel dim with f32 statistics (RWKV's wkv
-    output, one group per head)."""
-    *lead, d = x.shape
-    xf = x.float().reshape(*lead, n_groups, d // n_groups)
-    mu = xf.mean(-1, keepdim=True)
-    var = (xf - mu).square().mean(-1, keepdim=True)
-    out = ((xf - mu) * torch.rsqrt(var + eps)).reshape(*lead, d)
-    return (out * scale.float() + bias.float()).to(x.dtype)
+    output, one group per head), through ``ops.layernorm`` as above."""
+    return ops.layernorm(x, scale, bias, eps=eps, groups=n_groups)
 
 
 # ---------------------------------------------------------------------------
@@ -162,36 +178,49 @@ def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
 
 
 def mlp(p: Params, x: torch.Tensor, kind: str = "swiglu") -> torch.Tensor:
-    if kind != "swiglu":
-        raise NotImplementedError(
-            f"ffn_kind={kind!r}: only SwiGLU is ported (ROADMAP Queue A "
-            f"item 10)")
-    h = F.silu(dense(p["gate"], x)) * dense(p["up"], x)
+    """SwiGLU, or (any other ``kind``, as the reference) the non-gated
+    ``down(gelu(up(x)))`` with ``jax.nn.gelu``'s default tanh
+    approximation."""
+    if kind == "swiglu":
+        h = F.silu(dense(p["gate"], x)) * dense(p["up"], x)
+    else:
+        h = F.gelu(dense(p["up"], x), approximate="tanh")
     return dense(p["down"], h)
 
 
 def embed(p: Params, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Rows of the table in ``dtype``.  ``F.embedding``: on the card its
     backward sums repeated tokens' gradients in a fixed order (sorted
-    indices, no atomics), so a training step is reproducible."""
+    indices, no atomics), so a training step is reproducible.  An int8
+    table is gathered first and only its rows are dequantized: the same
+    values as the reference's whole-table dequantize, then gather."""
     table = p["table"]
-    return F.embedding(tokens, table if table.dtype == dtype
-                       else table.to(dtype))
+    if isinstance(table, dict):
+        rows = {"q": F.embedding(tokens, table["q"]),
+                "scale": table["scale"]}
+        return maybe_dequant(rows, dtype)
+    return F.embedding(tokens, maybe_dequant(table, dtype))
 
 
 def logits(p: Params, x: torch.Tensor, head: Optional[Params]) -> torch.Tensor:
     """Tied (embedding transposed) or separate head; f32 logits.  The GEMM
     runs in the compute dtype and is rounded to it before the f32 cast,
     as in the reference.  The tied operand is ``p["table_t"]``, the
-    (d_model, vocab) transpose that ``models.model.prepare_params`` stores
-    contiguously once, so no step transposes the table."""
+    (d_model, vocab) transpose that ``models.model.tie_head`` stores
+    contiguously once, so no step transposes the table; for an int8
+    table it is the int8 transpose with the table's per-column scales
+    (``{"q_t", "scale"}``), dequantized per step to the same values as
+    the reference's dequantized table, transposed."""
     if head is not None:
         return dense(head, x).float()
     if "table_t" not in p:
         raise KeyError("tied logits need embed['table_t']; build params with "
                        "models.init_params or bridge.params_from_numpy")
     t = p["table_t"]
-    return gemm(x, t if t.dtype == x.dtype else t.to(x.dtype)).float()
+    if isinstance(t, dict):      # a scale a row: (d, V, 1) codes by (d, 1)
+        t = ops.dequantize(t["q_t"][..., None], t["scale"][:, None],
+                           x.dtype)[..., 0]
+    return gemm(x, maybe_dequant(t, x.dtype)).float()
 
 
 def cross_entropy(logits_: torch.Tensor, labels: torch.Tensor,

@@ -1,10 +1,13 @@
 """Top-level model API: init / forward / train loss / prefill / decode
-(counterpart of ``repro/models/model.py``) for the dense decoders (served)
-and RWKV-6 (trained).
+(counterpart of ``repro/models/model.py``) for the dense decoders and
+RWKV-6 (served; RWKV-6 also trained).
 
 Parameters are a dict of tensors::
 
     {"embed": {"table": (V, d), "table_t": (d, V)},   # table_t: tied head
+     # int8 weights (quantize=True): every large "w" and "table" is
+     # {"q": int8, "scale": f32 per output channel}; table_t is then
+     # {"q_t": int8 (d, V), "scale": (d,)}
      "final_norm": {"scale": (d,)},                   # + "bias": layernorm
      "ln0": {"scale": (d,), "bias": (d,)},            # layernorm models
      "blocks": [per-layer dicts],
@@ -30,69 +33,119 @@ from repro_torch import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
+from repro_torch.models import quant
 
 Params = Dict[str, Any]
 Batch = Dict[str, torch.Tensor]
 
 
-def prepare_params(params: Params, cfg: ModelConfig,
-                   dtype: Optional[torch.dtype] = None) -> Params:
-    """Make parameters ready to serve, once: every dense weight and the
-    embedding table cast to the compute dtype (the reference casts them
-    per GEMM, ``layers.py:93``; the rounding is the same), norm scales
-    kept as they are, and the tied lm-head operand ``table.T`` stored
-    contiguously beside the table.  Returns a new dict."""
+def _cast_weights(tree: Any, dtype: torch.dtype) -> Any:
+    """Every float ``w`` and ``table`` leaf cast to ``dtype``; int8
+    ``{"q", "scale"}`` leaves and every other leaf kept as they are."""
+    if isinstance(tree, dict):
+        return {k: (v.to(dtype) if k in ("w", "table")
+                    and isinstance(v, torch.Tensor) and v.is_floating_point()
+                    else _cast_weights(v, dtype))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cast_weights(v, dtype) for v in tree]
+    return tree
+
+
+def tie_head(params: Params) -> Params:
+    """Store the tied lm-head operand ``table.T`` contiguously, once: the
+    table transposed, or for an int8 table its int8 transpose beside its
+    per-column scales (the head never holds a bf16 copy of it)."""
+    table = params["embed"]["table"]
+    if quant.is_quantized(table):
+        params["embed"]["table_t"] = {"q_t": table["q"].t().contiguous(),
+                                      "scale": table["scale"]}
+    else:
+        params["embed"]["table_t"] = table.t().contiguous()
+    return params
+
+
+def finish_params(tree: Params, cfg: ModelConfig,
+                  dtype: Optional[torch.dtype] = None,
+                  quantize: bool = False) -> Params:
+    """Make a (sub)tree of parameters ready to serve: with ``quantize``,
+    int8 weights first (from the f32 values, as the reference quantizes
+    its f32 parameters; ``blocks`` as the reference's stacks of
+    ``n_groups`` layers, ``quant.quantize_params``), then every remaining
+    dense weight and table cast to ``dtype`` (default the compute dtype;
+    the reference casts them per GEMM, ``layers.py:93``, with the same
+    rounding).  Norm scales and int8 weights are kept as they are."""
     dtype = cfg.cdtype if dtype is None else dtype
+    if quantize:
+        tree = quant.quantize_params(tree, cfg.n_groups)[0]
+    return _cast_weights(tree, dtype)
 
-    def cast(tree):
-        if isinstance(tree, dict):
-            return {k: (v.to(dtype) if k in ("w", "table")
-                        and v.is_floating_point() else cast(v))
-                    for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [cast(v) for v in tree]
-        return tree
 
-    out = cast(params)
-    if cfg.tie_embeddings:
-        out["embed"]["table_t"] = out["embed"]["table"].t().contiguous()
-    return out
+def prepare_params(params: Params, cfg: ModelConfig,
+                   dtype: Optional[torch.dtype] = None,
+                   quantize: bool = False) -> Params:
+    """:func:`finish_params` over a whole tree, then the tied lm-head
+    operand stored beside the table (:func:`tie_head`).  Returns a new
+    dict."""
+    tree = {k: v for k, v in params.items() if k != "embed"}
+    tree["embed"] = {k: v for k, v in params["embed"].items()
+                     if k != "table_t"}
+    out = finish_params(tree, cfg, dtype, quantize)
+    return tie_head(out) if cfg.tie_embeddings else out
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
                 device: Union[str, torch.device] = "cuda",
-                dtype: Optional[torch.dtype] = None) -> Params:
+                dtype: Optional[torch.dtype] = None,
+                quantize: bool = False) -> Params:
     """Random parameters with the reference initialisers' distributions
     (``dense_init``: N(0, 1/d_in); ``embedding_init``: N(0, 0.02^2); norms:
-    ones), drawn from a ``torch.Generator`` seeded with ``seed`` on
-    ``device``, then :func:`prepare_params` (``dtype=torch.float32``
-    keeps f32 parameters for training)."""
+    ones), drawn in f32 from a ``torch.Generator`` seeded with ``seed`` on
+    ``device``, made ready to serve as :func:`prepare_params` does
+    (``dtype=torch.float32`` keeps f32 parameters for training), or with
+    ``quantize`` with every large dense weight and the table in int8
+    (``models.quant``, from the f32 values).
+
+    Each layer, the embedding and the head are cast (or quantized) as they
+    are drawn, so the f32 copy of the whole model never exists: the peak
+    is the served tree plus the largest f32 subtree.  The draws and their
+    order, and so the values, are those of drawing every leaf first."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
+
+    def finish(key, sub):
+        return finish_params({key: sub}, cfg, dtype, quantize)[key]
+
     p: Params = {
-        "embed": L.embedding_init(gen, cfg.vocab_size, cfg.d_model,
-                                  cfg.pdtype, dev),
+        "embed": finish("embed", L.embedding_init(
+            gen, cfg.vocab_size, cfg.d_model, cfg.pdtype, dev)),
         "final_norm": T.init_norm(cfg, dev),
-        "blocks": T.init_stack(gen, cfg, dev),
+        "blocks": [finish("blocks", [T.init_block(gen, cfg, spec, dev)])[0]
+                   for spec in T.layer_specs(cfg)],
     }
     if cfg.norm == "layernorm":
         p["ln0"] = L.layernorm_init(cfg.d_model, cfg.pdtype, dev)
     if not cfg.tie_embeddings:
-        p["head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size,
-                                 cfg.pdtype, dev)
-    return prepare_params(p, cfg, dtype)
+        p["head"] = finish("head", L.dense_init(
+            gen, cfg.d_model, cfg.vocab_size, cfg.pdtype, dev))
+    return tie_head(p) if cfg.tie_embeddings else p
 
 
 def param_count(params: Params) -> int:
     """Parameters as the reference counts them (``table_t`` is a second
-    layout of the embedding table, not a parameter)."""
+    layout of the embedding table, not a parameter; an int8 weight counts
+    its codes, not its scales)."""
     def count(tree, key=None):
+        if key == "table_t":
+            return 0
+        if quant.is_quantized(tree):
+            return tree["q"].numel()
         if isinstance(tree, dict):
             return sum(count(v, k) for k, v in tree.items())
         if isinstance(tree, list):
             return sum(count(v) for v in tree)
-        return 0 if key == "table_t" else tree.numel()
+        return tree.numel()
     return count(params)
 
 

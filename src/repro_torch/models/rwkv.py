@@ -1,6 +1,5 @@
-"""RWKV-6 (Finch) block, cache-free (counterpart of
-``repro/models/rwkv.py``): the time-mix (WKV6) and channel-mix sub-blocks
-of arXiv:2404.05892, as training runs them.
+"""RWKV-6 (Finch) block (counterpart of ``repro/models/rwkv.py``): the
+time-mix (WKV6) and channel-mix sub-blocks of arXiv:2404.05892.
 
 The WKV state per head is an (N, N) matrix,
 
@@ -9,11 +8,14 @@ The WKV state per head is an (N, N) matrix,
 
 with w_t a data-dependent per-channel decay from a low-rank MLP, and
 token-shift interpolation (ddlerp) mixing each input with its
-predecessor.  Without a cache the recurrence runs from the zero state
-through ``ops.wkv`` (the hand-written wkv6 kernels on the card).  The
-cached prefill/decode branch, ``init_rwkv_cache`` and the serving engine's
-recurrent bypass come with the RWKV serving slice (ROADMAP Queue A item
-10) and raise ``NotImplementedError`` until then.
+predecessor.  Without a cache (training) the recurrence runs from the
+zero state through ``ops.wkv`` (the hand-written wkv6 kernels and their
+backward on the card).  With a cache (serving: prefill and decode) the
+token shift starts from the cached last token and the recurrence from the
+cached state, through ``ops.wkv_state`` (the ``wkv6_state`` kernel on the
+card, which also returns the final state); the reference runs the same
+segment as a ``lax.scan`` of its ``_wkv_step``.  The cache is fixed-size
+per sequence, whatever its length.
 """
 
 from __future__ import annotations
@@ -26,15 +28,11 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models.quant import maybe_dequant
 
 Params = Dict[str, Any]
 
 _MIX_NAMES = ("w", "k", "v", "r", "g")
-
-_SERVING = ("the cached RWKV branch comes with the RWKV serving slice "
-            "(ROADMAP Queue A item 10: the cache branch and the engine's "
-            "recurrent bypass)")
-
 
 @dataclasses.dataclass(frozen=True)
 class RwkvConfig:
@@ -86,19 +84,22 @@ def init_channel_mix(gen: torch.Generator, d: int, d_ff: int,
     }
 
 
-def _shift(x: torch.Tensor) -> torch.Tensor:
-    """Token shift from the zero state: x_{t-1}, zeros at t = 0."""
-    return F.pad(x, (0, 0, 1, 0))[:, :-1]
+def _shift(x: torch.Tensor, prev: Optional[torch.Tensor]) -> torch.Tensor:
+    """Token shift: x_{t-1}; at t = 0 the cached last token ``prev`` (B,
+    d), or zeros without a cache."""
+    if prev is None:
+        return F.pad(x, (0, 0, 1, 0))[:, :-1]
+    return torch.cat([prev.to(x.dtype)[:, None], x[:, :-1]], dim=1)
 
 
 def _ddlerp(p: Params, x: torch.Tensor,
             xx: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Data-dependent lerp producing the five mixed inputs (w,k,v,r,g)."""
     x_base = x + xx * p["mu_x"].to(x.dtype)
-    lora = torch.tanh(L.gemm(x_base, p["lora_a"].to(x.dtype)))
+    lora = torch.tanh(L.gemm(x_base, maybe_dequant(p["lora_a"], x.dtype)))
     b, s, _ = x.shape
     lora = lora.reshape(b, s, 5, -1)
-    lora_b = p["lora_b"].to(x.dtype)
+    lora_b = maybe_dequant(p["lora_b"], x.dtype)
     out = {}
     for i, name in enumerate(_MIX_NAMES):
         mix = p["mu"][i].to(x.dtype) + L.gemm(lora[:, :, i], lora_b[i])
@@ -109,13 +110,13 @@ def _ddlerp(p: Params, x: torch.Tensor,
 def time_mix(p: Params, x: torch.Tensor, cfg: RwkvConfig,
              cache: Optional[Params] = None
              ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """x: (B, S, d) -> (out (B, S, d), None)."""
-    if cache is not None:
-        raise NotImplementedError(f"rwkv time_mix with a cache: {_SERVING}")
+    """x: (B, S, d) -> (out (B, S, d), new cache), with ``cache`` =
+    {"shift_tm", "shift_cm": (B, d), "wkv": (B, H, N, N) f32} or None
+    (training: from the zero state, and the new cache is None)."""
     b, s, d = x.shape
     n = cfg.head_size
     h = d // n
-    xx = _shift(x) - x
+    xx = _shift(x, None if cache is None else cache["shift_tm"]) - x
     mixed = _ddlerp(p, x, xx)
 
     r = L.dense(p["wr"], mixed["r"]).reshape(b, s, h, n)
@@ -123,32 +124,49 @@ def time_mix(p: Params, x: torch.Tensor, cfg: RwkvConfig,
     v = L.dense(p["wv"], mixed["v"]).reshape(b, s, h, n)
     g = F.silu(L.dense(p["wg"], mixed["g"]))
     w_lora = L.gemm(torch.tanh(L.gemm(mixed["w"],
-                                      p["w_lora_a"].to(x.dtype))),
-                    p["w_lora_b"].to(x.dtype))
+                                      maybe_dequant(p["w_lora_a"],
+                                                    x.dtype))),
+                    maybe_dequant(p["w_lora_b"], x.dtype))
     # The decay stays in f32: (B, S, d) in (0, 1).
     w = torch.exp(-torch.exp(p["w0"].float() + w_lora.float()))
     w = w.reshape(b, s, h, n)
 
     bhsn = lambda z: z.transpose(1, 2)  # noqa: E731
-    y = ops.wkv(bhsn(r), bhsn(k), bhsn(v), bhsn(w), p["u"].float())
+    u = p["u"].float()
+    new_cache = None
+    if cache is None:
+        y = ops.wkv(bhsn(r), bhsn(k), bhsn(v), bhsn(w), u)
+    else:
+        y, s_final = ops.wkv_state(bhsn(r), bhsn(k), bhsn(v), bhsn(w), u,
+                                   cache["wkv"])
+        new_cache = dict(cache, shift_tm=x[:, -1], wkv=s_final)
     y = y.transpose(1, 2).reshape(b, s, d).to(x.dtype)
     y = L.groupnorm(y, h, p["gn_scale"], p["gn_bias"], eps=64e-5)
-    return L.dense(p["wo"], y * g), None
+    return L.dense(p["wo"], y * g), new_cache
 
 
 def channel_mix(p: Params, x: torch.Tensor,
                 cache: Optional[Params] = None
                 ) -> Tuple[torch.Tensor, Optional[Params]]:
-    if cache is not None:
-        raise NotImplementedError(f"rwkv channel_mix with a cache: {_SERVING}")
-    xx = _shift(x) - x
+    xx = _shift(x, None if cache is None else cache["shift_cm"]) - x
     xk = x + xx * p["mu_k"].to(x.dtype)
     xr = x + xx * p["mu_r"].to(x.dtype)
     k = torch.square(F.relu(L.dense(p["wk"], xk)))
     v = L.dense(p["wv"], k)
     r = torch.sigmoid(L.dense(p["wr"], xr))
-    return r * v, None
+    new_cache = None if cache is None else dict(cache, shift_cm=x[:, -1])
+    return r * v, new_cache
 
 
-def init_rwkv_cache(*args, **kwargs) -> Params:
-    raise NotImplementedError(f"init_rwkv_cache: {_SERVING}")
+def init_rwkv_cache(batch: int, d_model: int, cfg: RwkvConfig,
+                    dtype: torch.dtype = torch.bfloat16,
+                    device: Union[str, torch.device] = "cpu") -> Params:
+    """A zero state: both token shifts (B, d) in ``dtype`` (the cache
+    dtype), the WKV state (B, H, N, N) in f32."""
+    h = d_model // cfg.head_size
+    return {
+        "shift_tm": torch.zeros((batch, d_model), dtype=dtype, device=device),
+        "shift_cm": torch.zeros((batch, d_model), dtype=dtype, device=device),
+        "wkv": torch.zeros((batch, h, cfg.head_size, cfg.head_size),
+                           dtype=torch.float32, device=device),
+    }

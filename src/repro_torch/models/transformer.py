@@ -34,7 +34,7 @@ def check_block(cfg: ModelConfig, spec: BlockSpec) -> None:
             f"{cfg.name}: block {spec} (norm={cfg.norm}, encoder_decoder="
             f"{cfg.encoder_decoder}) is not ported; only ('attn', 'dense') "
             f"rmsnorm and ('rwkv', 'rwkv_cm') layernorm decoders are "
-            f"(ROADMAP Queue A item 10)")
+            f"(ROADMAP Queue A items 10.3-10.5)")
 
 
 def init_norm(cfg: ModelConfig, device) -> Params:
@@ -68,15 +68,18 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, spec: BlockSpec,
                                  cfg.n_kv_heads, cfg.d_head, cfg.qk_norm,
                                  cfg.pdtype, device),
         "ln2": init_norm(cfg, device),
-        "mlp": L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.pdtype, device),
+        "mlp": L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.ffn_kind,
+                          cfg.pdtype, device),
     }
 
 
 def _mixer(p: Params, h: torch.Tensor, cfg: ModelConfig, spec: BlockSpec, *,
            positions, cache, cache_pos, block_tables) -> torch.Tensor:
     if spec.mixer == "rwkv":
-        out, _ = R.time_mix(p["rwkv_tm"], h, cfg.rwkv or R.RwkvConfig(),
-                            None if cache is None else cache.get("rwkv"))
+        out, state = R.time_mix(p["rwkv_tm"], h, cfg.rwkv or R.RwkvConfig(),
+                                None if cache is None else cache["rwkv"])
+        if cache is not None:
+            cache["rwkv"] = state
         return out
     out, _ = A.attention(
         p["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
@@ -90,8 +93,10 @@ def _mixer(p: Params, h: torch.Tensor, cfg: ModelConfig, spec: BlockSpec, *,
 def _ffn(p: Params, h: torch.Tensor, cfg: ModelConfig, spec: BlockSpec,
          cache: Optional[Cache]) -> torch.Tensor:
     if spec.ffn == "rwkv_cm":
-        out, _ = R.channel_mix(p["rwkv_cm"], h,
-                               None if cache is None else cache.get("rwkv"))
+        out, state = R.channel_mix(p["rwkv_cm"], h,
+                                   None if cache is None else cache["rwkv"])
+        if cache is not None:
+            cache["rwkv"] = state
         return out
     return L.mlp(p["mlp"], h, cfg.ffn_kind)
 
@@ -129,20 +134,23 @@ def layer_specs(cfg: ModelConfig) -> List[BlockSpec]:
     return [cfg.pattern[i % len(cfg.pattern)] for i in range(cfg.n_layers)]
 
 
-def init_stack(gen: torch.Generator, cfg: ModelConfig,
-               device: Union[str, torch.device] = "cpu") -> List[Params]:
-    return [init_block(gen, cfg, spec, device) for spec in layer_specs(cfg)]
-
-
 def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int,
                      device: Union[str, torch.device] = "cpu",
                      paged: Optional[Tuple] = None) -> List[Cache]:
-    """Per-layer KV caches.  ``paged=(num_pages, page_size[, kv_dtype])``
-    swaps the dense (batch, Hkv, max_len, D) layout for page pools
-    (``attention.init_paged_kv_cache``; ``batch`` and ``max_len`` are then
-    ignored); the optional ``kv_dtype`` overrides the page dtype."""
+    """Per-layer caches.  An attention layer holds KV: dense (batch, Hkv,
+    max_len, D), or with ``paged=(num_pages, page_size[, kv_dtype])``
+    page pools (``attention.init_paged_kv_cache``; ``batch`` and
+    ``max_len`` are then ignored; the optional ``kv_dtype`` overrides the
+    page dtype).  An RWKV layer holds its fixed-size state,
+    ``{"rwkv": rwkv.init_rwkv_cache(...)}`` (shifts in the cache dtype,
+    the WKV state in f32), whatever ``max_len``."""
     if any(spec.mixer == "rwkv" for spec in cfg.pattern):
-        R.init_rwkv_cache()     # raises until the RWKV serving slice
+        if paged is not None:
+            raise ValueError(f"{cfg.name}: a recurrent state has no pages")
+        return [{"rwkv": R.init_rwkv_cache(batch, cfg.d_model,
+                                           cfg.rwkv or R.RwkvConfig(),
+                                           cfg.kvdtype, device)}
+                for _ in layer_specs(cfg)]
     if paged is not None:
         return [{"attn": A.init_paged_kv_cache(
             paged[0], cfg.n_kv_heads, paged[1], cfg.d_head, cfg.kvdtype,

@@ -1,4 +1,5 @@
-"""Continuous-batching serving of the port (dense KV)."""
+"""Continuous-batching serving of the port: dense, paged and int8-paged
+KV, the prefix cache, and int8 weight-only quantization."""
 
 from repro_torch.serving.engine import ServeConfig, ServeEngine
 

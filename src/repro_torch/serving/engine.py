@@ -21,6 +21,12 @@ step beside the older in-flight requests.
   chunk a step).  Greedy outputs are bit-identical to monolithic prefill:
   every op on the path computes a row independently of the rows beside it
   (the GEMM, attention and rmsnorm kernels by construction).
+* **Recurrent archs** (RWKV-6) keep a fixed-size state per slot, so they
+  bypass what only attention KV supports, as the reference does:
+  ``kv="paged"`` serves the dense layout (``kv_mode`` says so), a page
+  dtype is refused, prefill runs at the exact prompt length (a padded
+  prompt would advance the state past it) and whole (no chunks, so no
+  prefix cache either).
 * ``kv="paged"`` swaps the dense ``slots x max_len`` reservation for the
   ``repro_torch.serving.kvpool`` page pool: pages are allocated on demand,
   the youngest admission is preempted when the pool is exhausted (and
@@ -48,9 +54,10 @@ tuning cache, else the analytic 8 slots, pages of 32 and monolithic
 prefill), as the reference does.  ``pretune`` resolves the kernel plan of
 every GEMM shape the engine can issue before the first step (a cache hit
 or the analytic plan; ``tuned_gemm_hits`` counts the hits), so a step's
-lookups are memo hits.  Weight-only quantization, enc-dec encoders and
-the pack mesh raise ``NotImplementedError`` naming the ROADMAP item that
-brings them; none falls back to another path.
+lookups are memo hits.  ``quantize=True`` serves int8 weights
+(``serving.quant``; ``quant_stats`` as the reference's).  Enc-dec
+encoders and the pack mesh raise ``NotImplementedError`` naming the
+ROADMAP item that brings them; none falls back to another path.
 
 Observability (``repro_torch.obs``) follows the reference series for
 series and span for span: the engine instruments the process bundle's
@@ -76,12 +83,14 @@ import torch
 
 from repro_torch.kernels.ops import op_cost_model
 from repro_torch.models import (decode_step, forward, init_cache,
-                                init_paged_cache)
+                                init_paged_cache, paged_eligible,
+                                prepare_params)
 from repro_torch.models.config import ModelConfig, torch_dtype
 from repro_torch.obs import FlightRecorder, SLOMonitor, StepProfiler, get_obs
 from repro_torch.obs.efficiency import model_flops_per_token
 from repro_torch.serving.kvpool import (BlockTables, PagePool, PrefixCache,
                                         pages_for)
+from repro_torch.serving import quant
 from repro_torch.serving.quant import KV_PAGE_DTYPES, quantize_kv_row
 from repro_torch.serving.scheduler import (DECODE, PREFILLING, Request,
                                            Scheduler, Slot)
@@ -129,10 +138,8 @@ class ServeConfig:
 # (field, predicate on the value that the port cannot serve yet, the
 # ROADMAP item that brings it).
 _UNSUPPORTED = (
-    ("quantize", bool,
-     "int8 weight-only quantization (ROADMAP Queue A item 3)"),
     ("enc_len", lambda v: v > 0,
-     "the enc-dec architectures' encoder (ROADMAP Queue A item 10)"),
+     "the enc-dec architectures' encoder (ROADMAP Queue A item 10.5)"),
     ("pack_mesh", lambda v: v is not None,
      "the multi-device pack GEMM (ROADMAP Queue A item 12)"),
     ("pack_data_axis", lambda v: v is not None,
@@ -147,14 +154,27 @@ def model_gemm_shapes(cfg: ModelConfig, batch: int, seq: int,
     projections, ``ModelConfig.gemm_shapes``): prefill sees M = batch*seq
     tokens, decode M = batch (``include_decode=False`` keeps only the
     prefill block, used when warming per-slot prompt buckets).  GEMM
-    sites of one layer and the head, not unique shapes: k and v, and gate
-    and up, are listed apart."""
-    sites = [(k, n) for name, (k, n, _) in cfg.gemm_shapes().items()
-             for _ in name.split("/")]
+    sites of one pattern period of layers and the head, not unique
+    shapes: k and v, and gate and up, are listed apart."""
+    sites = [(k, n) for name, (k, n, c) in cfg.gemm_shapes().items()
+             for _ in range(c if name == "lm_head" else c // cfg.n_groups)]
     return [(m, k, n)
             for m in ((batch * seq, batch) if include_decode
                       else (batch * seq,))
             for k, n in sites]
+
+
+def _weights(tree: Any):
+    """Every ``w`` and ``table`` tensor of a parameter tree."""
+    if isinstance(tree, dict):
+        for key, v in tree.items():
+            if key in ("w", "table") and isinstance(v, torch.Tensor):
+                yield v
+            else:
+                yield from _weights(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _weights(v)
 
 
 def prefill_buckets(max_len: int, lo: int = 8) -> List[int]:
@@ -251,18 +271,34 @@ class ServeEngine:
                 f"ServeConfig.prefix_cache requires kv='paged' — the dense "
                 f"layout has no page pool to share prefixes through (got "
                 f"kv={scfg.kv!r})")
-        if any(spec.mixer != "attn" for spec in cfg.pattern):
-            raise NotImplementedError(
-                f"arch {cfg.name!r}: recurrent mixers are served by a later "
-                f"slice (ROADMAP Queue A item 10)")
-        device = params["embed"]["table"].get_device()
+        if scfg.kv_dtype is not None and not paged_eligible(cfg):
+            raise ValueError(
+                f"arch {cfg.name!r} cannot honor kv_dtype="
+                f"{scfg.kv_dtype!r}: its recurrent state bypasses the page "
+                f"pool to the dense layout, which would silently store "
+                f"full-precision state.  Drop kv_dtype or serve an "
+                f"attention-only arch")
+        table = params["embed"]["table"]
+        self.device = (table["q"] if quant.is_quantized(table)
+                       else table).device
+        device = self.device.index if self.device.type == "cuda" else -1
+        self.quant_stats = None
+        if scfg.quantize:
+            params = self._quantized(cfg, params)
+        # Paged KV needs every position in an attention page; a recurrent
+        # state is fixed-size per slot, so such an arch keeps the dense
+        # layout (the reference's engine.py:258-264): kv_mode is the live
+        # path.
+        self.kv_mode = scfg.kv
+        if scfg.kv == "paged" and not paged_eligible(cfg):
+            self.kv_mode = "dense"
         # The tuner-resolved sizes (the reference's engine.py:249-300): a
         # measured entry of the tuning cache for this arch and max_len,
         # else the analytic 8 slots, pages of 32 and monolithic prefill.
         if scfg.batch_slots == 0:
             scfg = dataclasses.replace(scfg, batch_slots=dispatch.serve_slots(
                 cfg, scfg.max_len, cfg.cdtype, device))
-        if scfg.kv == "paged" and not scfg.page_size:
+        if self.kv_mode == "paged" and not scfg.page_size:
             scfg = dataclasses.replace(scfg, page_size=dispatch.serve_page_size(
                 cfg, scfg.max_len, cfg.cdtype, device))
         if scfg.prefill_chunk is None:
@@ -270,12 +306,16 @@ class ServeEngine:
                 scfg, prefill_chunk=dispatch.serve_prefill_chunk(
                     cfg, scfg.max_len, cfg.cdtype, device))
         self.cfg, self.params, self.scfg = cfg, params, scfg
-        self.device = params["embed"]["table"].device
+        # A recurrent mixer (and RWKV's channel mix) threads its state
+        # through every token, pad or not: such archs prefill at the exact
+        # prompt length, attention-only ones in power-of-two buckets.
+        self._exact_prefill = any(spec.mixer != "attn" or spec.ffn ==
+                                  "rwkv_cm" for spec in cfg.pattern)
         self._closed = False
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(scfg.seed)
         self.caches = None            # allocated at first step
-        self.paged = scfg.kv == "paged"
+        self.paged = self.kv_mode == "paged"
         self.prefix = None
         if self.paged:
             ps = scfg.page_size
@@ -299,6 +339,9 @@ class ServeEngine:
         if chunk < 0:
             raise ValueError(f"ServeConfig.prefill_chunk must be >= 0 (or "
                              f"None = tuner), got {chunk}")
+        if chunk and not paged_eligible(cfg):
+            # A recurrent state cannot stop mid-prompt and resume: whole.
+            chunk = 0
         if self.prefix is not None and chunk == 0:
             # A prefix hit moves the chunk cursor: with no chunk size, one
             # chunk covers the whole uncached suffix.
@@ -421,12 +464,34 @@ class ServeEngine:
 
     # -- helpers ------------------------------------------------------------
 
+    def _quantized(self, cfg: ModelConfig, params: Any) -> Any:
+        """``quantize=True``: the parameters with int8 weights, and
+        ``quant_stats`` as the reference's ``quantize_params`` gives them
+        for its f32 tree.  Parameters built with ``quantize=True``
+        (``init_params``, ``bridge.params_from_numpy``) are served as
+        they are.  Otherwise every weight to quantize must still be f32
+        (an f32-compute config, or training's parameters): codes and
+        scales taken from bf16 copies would differ from the reference's."""
+        if not quant.is_quantized(params["embed"]["table"]):
+            if any(w.dtype != torch.float32 for w in _weights(params)):
+                raise ValueError(
+                    "ServeConfig.quantize needs f32 weights to quantize "
+                    "(as the reference quantizes its f32 parameters); "
+                    "build them with init_params(..., quantize=True) or "
+                    "bridge.params_from_numpy(..., quantize=True)")
+            params = prepare_params(params, cfg, quantize=True)
+        self.quant_stats = quant.weight_stats(params, len(cfg.pattern),
+                                              cfg.pdtype.itemsize)
+        return params
+
     def _all_gemm_shapes(self) -> List[tuple]:
         """GEMM shapes the engine can issue: the uniform-batch shapes, every
-        per-slot prefill bucket (M = bucket) and, chunked, M = chunk."""
+        per-slot prefill bucket (M = bucket; not for exact-length prefill)
+        and, chunked, M = chunk."""
         shapes = model_gemm_shapes(self.cfg, self.scfg.batch_slots,
                                    self.scfg.max_len)
-        for bucket in prefill_buckets(self.scfg.max_len):
+        for bucket in (() if self._exact_prefill
+                       else prefill_buckets(self.scfg.max_len)):
             shapes += model_gemm_shapes(self.cfg, 1, bucket,
                                         include_decode=False)
         if self.prefill_chunk:
@@ -449,15 +514,17 @@ class ServeEngine:
 
     def token_kv_bytes(self) -> int:
         """Bytes of attention KV one token occupies across the stack (k and
-        v, every layer), at the page dtype; an int8 row also carries its
+        v, every attention layer: none for RWKV, whose state does not grow
+        with the tokens), at the page dtype; an int8 row also carries its
         f32 scale, so it costs D + 4 bytes per KV head."""
         cfg = self.cfg
+        n_attn = sum(spec.mixer == "attn" for spec in cfg.pattern)
         kv_dtype = self.scfg.kv_dtype if self.paged else None
         row = cfg.d_head * (1 if kv_dtype == "int8" else torch_dtype(
             kv_dtype or cfg.cache_dtype).itemsize)
         if kv_dtype == "int8":
             row += 4
-        return 2 * cfg.n_layers * cfg.n_kv_heads * row
+        return 2 * n_attn * cfg.n_groups * cfg.n_kv_heads * row
 
     def kv_bytes_reserved(self) -> int:
         """Attention-KV bytes held for the engine's lifetime: the page pool
@@ -487,12 +554,13 @@ class ServeEngine:
 
     def _insert_slot(self, one: List, slot: int) -> None:
         """Overwrite slot ``slot`` of the persistent cache with a freshly
-        prefilled single-slot cache, in place.  Replacing the whole row is
-        what makes slot reuse leak-free: nothing from the previous
-        occupant survives."""
+        prefilled single-slot cache, in place: KV, or an RWKV layer's
+        shifts and WKV state.  Replacing the whole row is what makes slot
+        reuse leak-free: nothing from the previous occupant survives."""
         for full, fresh in zip(self.caches, one):
-            for key in ("k", "v"):
-                full["attn"][key][slot].copy_(fresh["attn"][key][0])
+            for kind, leaves in fresh.items():
+                for key, t in leaves.items():
+                    full[kind][key][slot].copy_(t[0])
 
     def _insert_pages(self, one: List, pages: List[int], first: int) -> None:
         """Scatter pages ``first, first + 1, ...`` of a single-slot dense
@@ -951,13 +1019,15 @@ class ServeEngine:
 
     def _prefill_slot(self, slot: Slot, req: Request) -> torch.Tensor:
         """Prefill one admission into its slot: pad the prompt to its
-        bucket, run it against a *fresh* single-slot dense cache (zero KV —
-        no leakage from the previous occupant), copy that cache into the
+        bucket (a recurrent arch: the exact length), run it against a
+        *fresh* single-slot dense cache (zero KV and zero state — no
+        leakage from the previous occupant), copy that cache into the
         slot's row (dense) or scatter its pages into the pool (paged), and
         return the first generated token (greedy from the prompt's
         last-position logits) as an unsynced device tensor."""
         plen = req.prompt_len
-        bucket = _bucket_for(plen, self.scfg.max_len)
+        bucket = (plen if self._exact_prefill
+                  else _bucket_for(plen, self.scfg.max_len))
         with self._obs.tracer.span("prefill", cat="engine", rid=req.rid,
                                    plen=plen, bucket=bucket):
             toks = np.zeros((1, bucket), np.int64)

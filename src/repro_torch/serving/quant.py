@@ -1,16 +1,16 @@
-"""int8 KV pages (counterpart of the KV part of ``repro/serving/quant.py``).
+"""int8 quantization for serving (counterpart of
+``repro/serving/quant.py``): KV pages, and the weight half, which lives
+in ``models.quant`` (the model layer fetches every weight through it) and
+is re-exported here.
 
-Page layout: beside each int8 pool tensor (P, Hkv, page_size, D) lives an
-f32 *scale-row* tensor (P, Hkv, page_size): one symmetric scale per token
-row per KV head.  Per-row scales make the layout append-friendly: decode
-quantizes exactly the one row it writes, and no existing row is ever
-requantized.  Dequantization (q * scale) happens inside the paged decode
-kernel as each tile enters shared memory, so int8 pages stream at one
-byte per value with no separate dequantization pass.
-
-Weight-only int8 quantization (the reference's ``quantize_params``) is not
-ported: ``ServeConfig(quantize=True)`` raises and names ROADMAP Queue A
-item 3.
+**KV pages** (``kv_dtype="int8"``): beside each int8 pool tensor (P, Hkv,
+page_size, D) lives an f32 *scale-row* tensor (P, Hkv, page_size): one
+symmetric scale per token row per KV head.  Per-row scales make the
+layout append-friendly: decode quantizes exactly the one row it writes,
+and no existing row is ever requantized.  Dequantization (q * scale)
+happens inside the paged decode kernel as each tile enters shared memory,
+so int8 pages stream at one byte per value with no separate
+dequantization pass.
 """
 
 from __future__ import annotations
@@ -18,6 +18,13 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+from repro_torch.models.quant import (dequantize_weight,  # noqa: F401
+                                      is_quantized, maybe_dequant,
+                                      quantize_params, quantize_weight,
+                                      weight_stats)
+
+# -- int8 KV pages (kvpool kv_dtype="int8") ---------------------------------
 
 KV_PAGE_DTYPES = ("int8", "bfloat16", "float32")
 

@@ -1108,3 +1108,25 @@ def test_cuda_rmsnorm_matches_plain_and_rows_do_not_depend_on_the_call(
         odd = torch.empty(512 * d + 1, dtype=dtype, device="cuda")[1:]
         odd = odd.view(512, d).copy_(x)
         assert torch.equal(rmsnorm(odd, scale), whole)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_shape,s_shape", [
+    ((3, 40, 32), (3, 32)), ((960, 49152, 1), (960, 1)),
+    ((2, 5, 48), (48,)), ((3, 7, 10), (3, 10)), ((17, 5, 1), (17, 1))])
+def test_cuda_dequant_bit_equal_to_plain(q_shape, s_shape):
+    """The dequant kernel against its plain version, bit for bit, in f32
+    and bf16: the 16-code path (N a multiple of 16, or one scale a row),
+    the one-code path, and a code view off the 16-byte boundary."""
+    _require_cuda()
+    from repro_torch.kernels.dequant import dequantize
+    g = torch.Generator(device="cuda").manual_seed(q_shape[-1])
+    q = torch.randint(-127, 128, q_shape, generator=g, device="cuda",
+                      dtype=torch.int8)
+    scale = torch.rand(s_shape, generator=g, device="cuda") * 0.02
+    for dtype in (torch.float32, torch.bfloat16):
+        got = dequantize(q, scale, dtype)
+        assert torch.equal(got, tops.dequantize(q, scale, dtype, mode="ref"))
+        odd = torch.empty(q.numel() + 1, dtype=torch.int8,
+                          device="cuda")[1:].view(q_shape).copy_(q)
+        assert torch.equal(dequantize(odd, scale, dtype), got)

@@ -395,7 +395,7 @@ def test_launcher_output_flags_write_valid_files(tmp_path, capsys):
     assert "flash_paged_decode" in report.stdout
     with pytest.raises(NotImplementedError, match="Queue A item 12"):
         tserve.main(["--mesh", "1,8", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        tserve.main(["--quantize", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="Queue A item 12"):
+        tserve.main(["--pack_min_flops", "1e9", "--device", "cpu"])
     with pytest.raises(SystemExit, match="greedy"):
         tserve.main(["--verify", "--temperature", "0.7", "--device", "cpu"])

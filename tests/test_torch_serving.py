@@ -244,7 +244,7 @@ def test_submit_validation_and_close_as_reference():
 
 @pytest.mark.parametrize("option,value,item", [
     ("enc_len", 16, "item 10"), ("pack_data_axis", "data", "item 12"),
-    ("quantize", True, "item 3"), ("pack_mesh", object(), "item 12")])
+    ("pack_mesh", object(), "item 12")])
 def test_unported_options_raise(option, value, item):
     _, tcfg, _, tparams = _setup()
     scfg = dataclasses.replace(ServeConfig(batch_slots=2, max_len=32),

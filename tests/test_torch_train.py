@@ -172,6 +172,39 @@ def test_wkv_validates_and_kernel_mode_needs_cuda():
         tops.wkv(arrs[0], arrs[1][:, :, :4], *arrs[2:])
 
 
+@pytest.mark.parametrize("groups", [1, 4])
+def test_layernorm_function_differentiates_the_plain_expression(groups):
+    """``kernels.rmsnorm.LayerNorm``, the route RWKV-6 trains through on
+    the card: its forward is the wrapper's (the plain version for these CPU
+    tensors), its gradient autograd's of the plain expression, bit for bit,
+    and held to JAX's LayerNorm/GroupNorm VJP."""
+    from repro.models import layers as jlayers
+    from repro_torch.kernels.rmsnorm import LayerNorm
+    rng = np.random.default_rng(groups)
+    x, gy = (rng.standard_normal((3, 5, 64)).astype(np.float32)
+             for _ in range(2))
+    scale, bias = (rng.standard_normal(64).astype(np.float32)
+                   for _ in range(2))
+    want_in = [torch.from_numpy(a).requires_grad_() for a in (x, scale, bias)]
+    want = tref.layernorm(*want_in, 1e-5, groups)
+    want.backward(torch.from_numpy(gy))
+    got_in = [torch.from_numpy(a).requires_grad_() for a in (x, scale, bias)]
+    got = LayerNorm.apply(*got_in, 1e-5, groups)
+    got.backward(torch.from_numpy(gy))
+    assert torch.equal(got, want)
+    for name, g, w_ in zip(("x", "scale", "bias"), got_in, want_in):
+        assert torch.equal(g.grad, w_.grad), name
+
+    def jnorm(x_, s_, b_):
+        if groups == 1:
+            return jlayers.layernorm({"scale": s_, "bias": b_}, x_, 1e-5)
+        return jlayers.groupnorm(x_, groups, s_, b_, 1e-5)
+    _, vjp = jax.vjp(jnorm, x, scale, bias)
+    for name, g, w_ in zip(("x", "scale", "bias"), got_in, vjp(gy)):
+        np.testing.assert_allclose(g.grad.numpy(), np.asarray(w_), rtol=1e-4,
+                                   atol=1e-4, err_msg=name)
+
+
 # ---------------------------------------------------------------------------
 # RWKV-6 blocks and the whole model
 # ---------------------------------------------------------------------------
@@ -201,10 +234,15 @@ def test_time_mix_and_channel_mix_match_jax():
     np.testing.assert_allclose(got_cm.numpy(), np.asarray(want_cm),
                                rtol=1e-5, atol=1e-5)
     assert cache is None
-    with pytest.raises(NotImplementedError, match="RWKV serving slice"):
-        trwkv.time_mix(tm, torch.from_numpy(x), cfg, cache={})
-    with pytest.raises(NotImplementedError, match="RWKV serving slice"):
-        tmodel.init_cache(TC.get_smoke(ARCH), 2, 16, device="cpu")
+    # The serving slice's cached branch from a zero state is the training
+    # branch (held to the reference's in tests/test_torch_rwkv_serve.py).
+    zero = trwkv.init_rwkv_cache(2, 64, cfg, torch.float32)
+    cached, state = trwkv.time_mix(tm, torch.from_numpy(x), cfg, cache=zero)
+    np.testing.assert_allclose(cached.numpy(), got_tm.numpy(),
+                               rtol=1e-5, atol=1e-5)
+    assert state["wkv"].shape == (2, 4, 16, 16)
+    caches = tmodel.init_cache(TC.get_smoke(ARCH), 2, 16, device="cpu")
+    assert set(caches[0]["rwkv"]) == {"shift_tm", "shift_cm", "wkv"}
 
 
 @functools.lru_cache(maxsize=None)
