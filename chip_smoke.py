@@ -114,6 +114,21 @@
    replay under ``--verify``'s check with its routes held to the
    launches, each model's decode step timed (wall and device) with its
    ``max_memory_allocated``.
+   Hybrid: ``selective_scan`` (Mamba's recurrence; no Pallas
+   counterpart) against its plain loop from a nonzero state at
+   Jamba-v0.1 52B's decode (8 slots), a serial prompt and a 448-token
+   one, in bf16 and f32 (a control with the state 1% off must fail; each
+   slot alone equal to its rows of the batch bit for bit) and at the
+   SMOKE width; ``gama_gemm`` at every Jamba weight GEMM (the MoE router
+   in f32) at M = 2, 8 and 448, rows independent of M, and at the MoE
+   and hybrid SMOKE configs' GEMMs.  Then the serve launcher's Jamba
+   (dense, and ``--kv paged`` asked: the Mamba state stays dense),
+   Kimi-K2 and Llama-4 Maverick SMOKE runs under ``--verify``, and
+   Jamba-v0.1 52B FULL with int8 weights: one MoE layer's token rows
+   alone equal to their drop-free batch, smoke6 on 2 slots under
+   ``--verify``, the 8 x 448 trace on 8 slots twice (equal tokens, the
+   MoE's dropped assignments counted), and its 8-slot decode step (wall,
+   device time by kind, launches by kernel checked, routes held).
 5. Train: the wkv6 forward and backward kernels against their plain
    versions at the training shape, a ragged length and a long one, and
    the head-16 builds the SMOKE config runs (bf16, and f32 at the
@@ -164,6 +179,8 @@ from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels.dequant import dequantize as dequant_kernel  # noqa: E402,E501
 from repro_torch.kernels.rmsnorm import layernorm as layernorm_kernel  # noqa: E402,E501
 from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_kernel  # noqa: E402
+from repro_torch.kernels.selective_scan import (  # noqa: E402
+    selective_scan as scan_kernel)
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_chunk, flash_decode, flash_paged_decode)
 from repro_torch.kernels.flash_attention import blocks as attn_blocks  # noqa: E402
@@ -180,6 +197,7 @@ from repro_torch.launch import train as TL  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.models import (  # noqa: E402
     decode_step, forward, init_cache, init_paged_cache, init_params, loss_fn)
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.layers import set_gemm_mode  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.training.trainer import (  # noqa: E402
@@ -211,7 +229,8 @@ SOURCES = {"gama_gemm": "src/repro_torch/csrc/gemm.cu",
            "wkv6_state": "src/repro_torch/csrc/wkv.cu",
            "rmsnorm": "src/repro_torch/csrc/rmsnorm.cu",
            "layernorm": "src/repro_torch/csrc/rmsnorm.cu",
-           "dequant": "src/repro_torch/csrc/dequant.cu"}
+           "dequant": "src/repro_torch/csrc/dequant.cu",
+           "selective_scan": "src/repro_torch/csrc/selective_scan.cu"}
 # wkv6_bwd replaces the VJP that JAX derives through the same pallas_call;
 # wkv6_state the same kernel's recurrence run from a carried state (the
 # reference's cached RWKV branch scans it in jnp, src/repro/models/rwkv.py).
@@ -228,7 +247,10 @@ REPLACES = {"gama_gemm": "src/repro/kernels/gemm.py:113",
                          "groupnorm at src/repro/models/layers.py:115, "
                          ":125)",
             "dequant": "none: no Pallas counterpart (jnp dequantize_weight "
-                       "at src/repro/serving/quant.py:44)"}
+                       "at src/repro/serving/quant.py:44)",
+            "selective_scan": "none: no Pallas counterpart (jnp "
+                              "_ssm_scan_chunked and the decode step at "
+                              "src/repro/models/mamba.py:83, :151)"}
 # The long replay: 8 requests of 448-token prompts and 32 new tokens on 8
 # slots; max_len = 488 is also its last prefill bucket, and its scratch
 # cache has pages_for(488, 16) * 16 = 496 rows.
@@ -297,9 +319,11 @@ def bound(nbytes: float, ops_: float, dtype: torch.dtype):
                                        else "operations")
 
 
-def max_err(got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
+def max_err(got: torch.Tensor, want: torch.Tensor, tol: float,
+            floor: float | None = None) -> float:
     """Max |got - want|; fails unless |got - want| <= tol * (1 + |want|)
-    elementwise (tol = 0: exact)."""
+    elementwise (tol = 0: exact), or, given ``floor``, unless
+    |got - want| <= tol * |want| + floor."""
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"shape/dtype {tuple(got.shape)} {got.dtype} vs "
                              f"{tuple(want.shape)} {want.dtype}")
@@ -307,9 +331,12 @@ def max_err(got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
     if not torch.isfinite(g).all():
         raise AssertionError("kernel output has non-finite values")
     err = (g - w).abs()
-    if (err > tol * (1 + w.abs())).any():
+    limit, form = ((tol * (1 + w.abs()), f"{tol:g} * (1 + |plain|)")
+                   if floor is None else
+                   (tol * w.abs() + floor, f"{tol:g} * |plain| + {floor:g}"))
+    if (err > limit).any():
         raise AssertionError(f"max abs err {err.max().item():.3e} over "
-                             f"tolerance {tol:g} * (1 + |plain|)")
+                             f"tolerance {form}")
     return err.max().item()
 
 
@@ -398,14 +425,17 @@ def check_gemm(label, m, k, n, dtype, out_dtype, scale, tol, seed, main=False,
 
 def gemm_rows_independent(cfgs, ms):
     """Rows independent of the batch (what ``--verify`` needs of the serve
-    path): at every weight GEMM of ``cfgs``, each row of an M-row product
-    must be ``torch.equal`` to the same row computed alone (M = 1)."""
+    path): at every weight GEMM of ``cfgs``, in its site's dtype (the
+    FULL configs' bf16; the MoE router in f32),
+    each row of an M-row product must be ``torch.equal`` to the same row
+    computed alone (M = 1)."""
     checked = 0
     for cfg in cfgs:
         for label, (k, n, _) in cfg.gemm_shapes().items():
+            dtype = cfg.gemm_dtype(label)
             gen = _gen(k + n)
-            a = _rand((max(ms), k), torch.bfloat16, gen)
-            b = _rand((k, n), torch.bfloat16, gen, scale=k ** -0.5)
+            a = _rand((max(ms), k), dtype, gen)
+            b = _rand((k, n), dtype, gen, scale=k ** -0.5)
             alone = torch.cat([gama_gemm(a[i:i + 1], b)
                                for i in range(max(ms))])
             for m in ms:
@@ -570,12 +600,14 @@ def check_layernorm_grad(label, m, d, groups, dtype, seed):
 
 
 def check_dequant(label, q_shape, s_shape, dtype, seed, main=False,
-                  per_step=None):
+                  per_step=None, reps=24):
     """The dequant kernel against its plain version, bit for bit (the
     product in f32, rounded once), also for a code view off the 16-byte
     boundary; timed beside its bound (each code read once, each value
     written once, the scales read once), the plain version (three passes)
-    and one ``torch.mul`` into an output of ``dtype``."""
+    and one ``torch.mul`` into an output of ``dtype``, ``reps`` calls a
+    timed graph (fewer for a tensor of gigabytes, whose outputs the graph
+    holds)."""
     gen = _gen(seed)
 
     def inputs():
@@ -608,12 +640,13 @@ def check_dequant(label, q_shape, s_shape, dtype, seed, main=False,
         return make
 
     kern = device_ms(mk(lambda qq, ss: dequant_kernel(qq, ss, dtype)),
-                     nbytes)
+                     nbytes, reps)
     plain = device_ms(mk(lambda qq, ss: ops.dequantize(qq, ss, dtype,
-                                                       mode="ref")), nbytes)
+                                                       mode="ref")),
+                      nbytes, reps)
     lib = device_ms(mk(lambda qq, ss: torch.mul(
         qq, ss.view(*s_shape[:-1], *mid, s_shape[-1]),
-        out=torch.empty(q_shape, dtype=dtype, device=DEV))), nbytes)
+        out=torch.empty(q_shape, dtype=dtype, device=DEV))), nbytes, reps)
     bms, by = bound(nbytes, float(elems), torch.float32)
     print(f"[kernel] dequant {label} q={tuple(q_shape)} scale="
           f"{tuple(s_shape)} -> {str(dtype)[6:]} vec="
@@ -1075,8 +1108,8 @@ def logits_kernel_vs_ref(cfg, params, prompt, max_len, steps=4):
         toks = torch.zeros((1, bucket), dtype=torch.long, device=DEV)
         toks[0, :len(prompt)] = torch.as_tensor(prompt, device=DEV)
         c0 = K.launch_counts()
-        lg, caches = forward(params, {"tokens": toks}, cfg, caches=caches,
-                             cache_pos=0)
+        lg, caches, _ = forward(params, {"tokens": toks}, cfg,
+                                caches=caches, cache_pos=0)
         c1 = K.launch_counts()
         out = [lg[0, len(prompt) - 1]]
         tok = torch.argmax(out[-1])[None]
@@ -1174,6 +1207,7 @@ _COUNTED_KINDS = {
     "rmsnorm (rmsnorm kernel)": ("rmsnorm",),
     "layernorm (layernorm kernel)": ("layernorm",),
     "dequantize (dequant kernel)": ("dequant",),
+    "selective scan (selective_scan kernel)": ("selective_scan",),
     "prefill attention (flash_attention)": ("flash_attention",),
     "decode attention (flash_decode, flash_paged_decode)": (
         "flash_decode", "flash_paged_decode"),
@@ -1289,7 +1323,8 @@ def profile_decode_norms(cfg, params, steps=5):
 # must equal on a path (every ``.ref`` counter reads 0 there).
 ROUTES = {"ops.matmul": "gama_gemm", "ops.decode": "flash_decode",
           "ops.decode_paged": "flash_paged_decode",
-          "ops.wkv_state": "wkv6_state"}
+          "ops.wkv_state": "wkv6_state",
+          "ops.selective_scan": "selective_scan"}
 
 
 def check_routes(label, metrics, counts):
@@ -1401,6 +1436,8 @@ def replay(cfg, params, trace, scfg, label, verify=True, warm=True):
         must = ["gama_gemm", "flash_attention", "rmsnorm",
                 "flash_paged_decode" if engine.kv_mode == "paged"
                 else "flash_decode"]
+    if any(spec.mixer == "mamba" for spec in cfg.pattern):
+        must.append("selective_scan")
     if engine.quant_stats is not None:
         must.append("dequant")
     missing = [n for n in must if counts[n] == 0]
@@ -1454,8 +1491,8 @@ def prefill_attention_kernel_vs_ref(cfg, params, prompt_len, bucket,
         caches = init_cache(cfg, 1, cache_len, DEV)
         before = K.launch_counts()["flash_attention"]
         with op_mode("attention", mode):
-            lg, _ = forward(params, {"tokens": toks}, cfg, caches=caches,
-                            cache_pos=0)
+            lg, _, _ = forward(params, {"tokens": toks}, cfg,
+                               caches=caches, cache_pos=0)
         torch.cuda.synchronize()
         return (lg[0, :prompt_len].float(),
                 K.launch_counts()["flash_attention"] - before)
@@ -2412,6 +2449,8 @@ def _kind(name):
         return "layernorm (layernorm kernel)"
     if low.startswith("dequant"):
         return "dequantize (dequant kernel)"
+    if low.startswith("selective_scan"):
+        return "selective scan (selective_scan kernel)"
     if low.startswith("flash_attention"):
         return "prefill attention (flash_attention)"
     if low.startswith(("flash_decode", "paged_decode")):
@@ -2916,8 +2955,12 @@ def decode_step_times(cfg, params, label, positions=SHORT_POS,
     if by_name and not lost:
         device = sum(us for _, us in by_name.values()) / 1e3 / steps
         n_kernels = sum(c for c, _ in by_name.values()) // steps
+        kinds = {k: round(us / 1e3 / steps, 3)
+                 for k, (_, us) in sorted(_by_kind(by_name).items(),
+                                          key=lambda kv: -kv[1][1])}
         dev = (f"device_ms={device:.3f} device_idle_share="
-               f"{1 - device / wall:.3f} kernels_per_step={n_kernels}")
+               f"{1 - device / wall:.3f} kernels_per_step={n_kernels} "
+               f"device_ms_by_kind {json.dumps(kinds)}")
     else:
         dev = f"device time not measured ({_unmeasured(lost)})"
     print(f"[archs] {label} decode step ({slots} slots at positions "
@@ -2954,6 +2997,20 @@ def dequant_bytes(params):
     return (f"dequantize moves {nbytes} bytes a decode step (int8 read, "
             f"bf16 written): {nbytes / HBM_BYTES_S * 1e3:.3f} ms at "
             f"{HBM_BYTES_S / 1e12:.2f} TB/s")
+
+
+def quantized_leaves(params):
+    """The int8 leaves a decode step dequantizes, one ``dequant`` launch
+    each: every weight and expert stack, and the table's gathered rows
+    (at FULL width every GEMM weight is int8: Jamba's 193, its 48 expert
+    stacks and the rows, 242)."""
+    if isinstance(params, dict):
+        if "q" in params or "q_t" in params:
+            return 1
+        return sum(quantized_leaves(v) for v in params.values())
+    if isinstance(params, list):
+        return sum(quantized_leaves(v) for v in params)
+    return 0
 
 
 def _free():
@@ -3121,6 +3178,344 @@ def archs_phase():
     return total
 
 
+# ---------------------------------------------------------------------------
+# MoE and Mamba: selective_scan, Jamba's GEMMs, the MoE archs served
+# ---------------------------------------------------------------------------
+
+
+def _scan_inputs(gen, b, t, di, n, dtype):
+    """Mamba-like inputs: dt in the softplus'd bias range, A = -(1..N) per
+    channel (the S4D-real init), a nonzero state."""
+    dt = (torch.rand((b, t, di), generator=gen, device=DEV) * 0.099
+          + 0.001).to(dtype)
+    x, bm, c = (torch.randn(shape, generator=gen, device=DEV).to(dtype)
+                for shape in ((b, t, di), (b, t, n), (b, t, n)))
+    a = -torch.arange(1, n + 1, dtype=torch.float32, device=DEV)[None].repeat(
+        di, 1)
+    h0 = torch.randn((b, di, n), generator=gen, device=DEV) * 0.5
+    return dt, x, bm, c, a, h0
+
+
+def check_selective_scan(label, b, t, di, n, dtype, seed, main=False,
+                         per_step=None):
+    """selective_scan against its plain version (the per-token loop) from
+    a nonzero state: in f32, y and the final state within 1e-5 * (1 +
+    |plain|) (the same f32 operations, the contraction over N summed in
+    another order); in bf16, y within one bf16 ulp, 2**-7 * |plain| +
+    2**-16 (the floor covers the two f32 contractions' difference before
+    the cast, the same sum over N in another order: the f32 cases measure
+    it, about 1e-6 at these inputs, a tenth of the floor), and the f32 state
+    within 1e-5 * (1 + |plain|).  A control in either dtype: h0 x 1.01
+    must break those bounds.  Two calls repeat their bits, and each
+    sequence alone gives its rows of the batch bit for bit.  Timed beside
+    its bound (dt, x, B, C, A and h0 read once, y and the state written
+    once; 7 f32 operations a state a step) and the plain loop."""
+    gen = _gen(seed)
+    args = _scan_inputs(gen, b, t, di, n, dtype)
+    y, h = scan_kernel(*args)
+    y2, h2 = scan_kernel(*args)
+    want_y, want_h = ops.selective_scan(*args, mode="ref")
+    torch.cuda.synchronize()
+    f32 = dtype == torch.float32
+    tol_y, floor_y = (1e-5, None) if f32 else (2.0 ** -7, 2.0 ** -16)
+    err_y = max_err(y, want_y, tol_y, floor_y)
+    err_h = max_err(h, want_h, 1e-5)
+    if not (torch.equal(y, y2) and torch.equal(h, h2)):
+        raise AssertionError(f"selective_scan {label}: two runs differ")
+    yc, hc = scan_kernel(*args[:5], args[5] * 1.01)
+    caught = []
+    for name, got, want, tol, floor in (("y", yc, want_y, tol_y, floor_y),
+                                        ("hT", hc, want_h, 1e-5, None)):
+        try:
+            max_err(got, want, tol, floor)
+        except AssertionError:
+            caught.append(name)
+    if not caught:
+        raise AssertionError(f"selective_scan {label}: h0 * 1.01 passed "
+                             f"the tolerance: the check cannot see h0")
+    del yc, hc
+    for i in range(b if b > 1 else 0):
+        yi, hi = scan_kernel(*(v[i:i + 1] for v in args[:4]), args[4],
+                             args[5][i:i + 1])
+        if not (torch.equal(yi, y[i:i + 1]) and torch.equal(hi, h[i:i + 1])):
+            raise AssertionError(f"selective_scan {label}: sequence {i} "
+                                 f"alone differs from its rows of the batch")
+    del want_y, want_h, y2, h2
+    e = y.element_size()
+    nbytes = ((3 * b * t * di + 2 * b * t * n) * e + di * n * 4
+              + 2 * b * di * n * 4)
+    flops = 7.0 * b * t * di * n
+
+    def mk(fn):
+        def make():     # fresh inputs per copy, rotated past the L2
+            fresh = _scan_inputs(gen, b, t, di, n, dtype)
+            return lambda: fn(*fresh)
+        return make
+
+    kern = device_ms(mk(scan_kernel), nbytes)
+    plain = device_ms(mk(ref.selective_scan), nbytes,
+                      reps=24 if t <= 16 else 1)
+    bms, by = bound(nbytes, flops, torch.float32)
+    res = RESULTS["selective_scan"]
+    res["max_abs_err"] = max(res["max_abs_err"], err_y, err_h)
+    print(f"[kernel] selective_scan {label} B={b} T={t} di={di} N={n} "
+          f"{'f32' if f32 else 'bf16'} h0=N(0,0.25) max_abs_err y="
+          f"{err_y:.3e} (tol "
+          + (f"{tol_y:g}*(1+|plain|)" if f32 else
+             f"2^-7*|plain|+2^-16, one bf16 ulp")
+          + f") hT={err_h:.3e} (tol 1e-5*(1+|plain|)) control: h0*1.01 "
+          f"fails on {'+'.join(caught)}; repeat bits OK; "
+          f"{'alone == batch rows bitwise; ' if b > 1 else ''}"
+          f"kernel_ms={kern:.5f} plain_ms={plain:.5f} bound_ms={bms:.6f} "
+          f"({by}: {nbytes / 1e6:.3f} MB, {flops / 1e9:.4f} GFLOP f32) "
+          f"library_ms=null bound/kernel={bms / kern:.3f}"
+          + ("" if per_step is None else
+             f" launches_per_decode_step={per_step}"))
+    if main:
+        res.update(ms=kern, plain_ms=plain, library_ms=None, bound_ms=bms,
+                   bound_by=by, shape=f"B={b} T={t} di={di} N={n} "
+                   f"{'f32' if f32 else 'bf16'} from h0 ({label})")
+
+
+def hybrid_kernel_phase():
+    """The kernels at the shapes the MoE and Mamba archs serve: dequant
+    at Jamba-v0.1 52B's int8 expert stacks (a scale per expert and
+    column) into bf16 and at its router into f32; selective_scan at
+    Jamba-v0.1 52B's decode (8 slots, d_inner 8192, 16
+    states; the kernels line), a serial prompt (T = 11) and a 448-token
+    one, in bf16 and f32, and the SMOKE config's 128 x 8 in f32;
+    gama_gemm at every Jamba weight GEMM (in_proj, x_proj N = 288,
+    dt_proj K = 256, out_proj, attention, the f32 router N = 16, the
+    dense FFN, the head) at M = 2, 8 and 448 with its rows bitwise
+    independent of M, and at the three SMOKE configs' f32 GEMMs."""
+    jamba = C.get("jamba_v01_52b")
+    mc = jamba.mamba
+    di, n = mc.expand * jamba.d_model, mc.d_state
+    n_mamba = sum(s.mixer == "mamba" for s in jamba.pattern) * jamba.n_groups
+    n_moe = sum(s.ffn == "moe" for s in jamba.pattern) * jamba.n_groups
+    e, f, d = jamba.moe.num_experts, jamba.moe.d_ff, jamba.d_model
+    check_dequant(f"{jamba.name} expert gate/up", (e, d, f), (e, f),
+                  torch.bfloat16, seed=95, per_step=2 * n_moe, reps=2)
+    check_dequant(f"{jamba.name} expert down", (e, f, d), (e, d),
+                  torch.bfloat16, seed=96, per_step=n_moe, reps=2)
+    check_dequant(f"{jamba.name} router", (d, e), (e,), torch.float32,
+                  seed=97, per_step=n_moe)
+    _free()
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        check_selective_scan(f"decode-{tag}", LONG_REQS, 1, di, n, dtype,
+                             seed=90, main=dtype == torch.bfloat16,
+                             per_step=n_mamba)
+        check_selective_scan(f"prompt-11-{tag}", 1, 11, di, n, dtype,
+                             seed=91)
+        check_selective_scan(f"prompt-448-{tag}", 1, LONG_PROMPT, di, n,
+                             dtype, seed=92)
+    smoke = C.get_smoke("jamba_v01_52b")
+    sdi, sn = smoke.mamba.expand * smoke.d_model, smoke.mamba.d_state
+    check_selective_scan("smoke-decode", 3, 1, sdi, sn, torch.float32,
+                         seed=93)
+    check_selective_scan("smoke-prompt", 1, 12, sdi, sn, torch.float32,
+                         seed=94)
+    for m in (2, LONG_REQS, LONG_PROMPT):
+        for label, (k, n_, per_step) in jamba.gemm_shapes().items():
+            dtype = jamba.gemm_dtype(label)
+            check_gemm(f"{jamba.name}:{label}", m, k, n_, dtype, dtype, 1.0,
+                       1e-4 if dtype == torch.float32 else 1e-2,
+                       seed=m + k + n_ + 2,
+                       per_step=per_step if m <= 16 else None)
+    gemm_rows_independent([jamba], (2, LONG_REQS, LONG_PROMPT))
+    for name in ("jamba_v01_52b", "kimi_k2_1t_a32b",
+                 "llama4_maverick_400b_a17b"):
+        arch = C.get_smoke(name)
+        for m in (3, 12):
+            for label, (k, n_, _) in arch.gemm_shapes().items():
+                check_gemm(f"{arch.name}:{label}", m, k, n_, torch.float32,
+                           torch.float32, 1.0, 1e-4, seed=m + k + n_ + 3)
+
+
+@contextlib.contextmanager
+def counting_drops(slots):
+    """Count the MoE's dropped (token, expert) assignments while the block
+    runs: ``moe.moe_ffn`` wrapped to tag each call by its input, (slots, 1,
+    d) a decode step's and any other a prefill's (one slot's prompt, or
+    a smaller batch), and ``moe.route`` wrapped so each call adds its
+    drops to that kind's device tally (no host sync on the served path).
+    Yields {"decode": [dropped, assigned], "prefill": [...]}, read
+    (synchronised) after the block."""
+    orig_ffn, orig_route = moe_mod.moe_ffn, moe_mod.route
+    tally = {kind: [torch.zeros((), dtype=torch.long, device=DEV), 0]
+             for kind in ("decode", "prefill")}
+    kind = []
+
+    def tagged(p, x, cfg, **kw):
+        kind.append("decode" if tuple(x.shape[:2]) == (slots, 1)
+                    else "prefill")
+        try:
+            return orig_ffn(p, x, cfg, **kw)
+        finally:
+            kind.pop()
+
+    def counted(p, xg, cfg):
+        r = orig_route(p, xg, cfg)
+        t = tally[kind[-1]]
+        t[0] += (~r.keep).sum()
+        t[1] += r.keep.numel()
+        return r
+
+    moe_mod.moe_ffn, moe_mod.route = tagged, counted
+    try:
+        yield tally
+    finally:
+        moe_mod.moe_ffn, moe_mod.route = orig_ffn, orig_route
+        for t in tally.values():
+            t[0] = int(t[0])
+
+
+def moe_rows_alone_equal_batch(cfg, params):
+    """With the served weights of the first MoE layer: an 8-token decode
+    batch whose routing drops nothing (the first of ten seeded draws that
+    does not), each token's ``moe_ffn`` output alone ``torch.equal`` to
+    its row of the batch (capacity 4 either way, so the expert products
+    have one shape)."""
+    specs = [cfg.pattern[i % len(cfg.pattern)] for i in range(cfg.n_layers)]
+    layer = next(i for i, s in enumerate(specs) if s.ffn == "moe")
+    p = params["blocks"][layer]["moe"]
+    for seed in range(10):
+        x = torch.randn((LONG_REQS, 1, cfg.d_model), generator=_gen(100 + seed),
+                        device=DEV).to(cfg.cdtype)
+        if bool(moe_mod.route(p, x.reshape(1, LONG_REQS, -1),
+                              cfg.moe).keep.all()):
+            break
+    else:
+        raise AssertionError("no drop-free 8-token batch in ten draws")
+    batch, _ = moe_mod.moe_ffn(p, x, cfg.moe, with_aux=False)
+    for i in range(LONG_REQS):
+        alone, _ = moe_mod.moe_ffn(p, x[i:i + 1], cfg.moe, with_aux=False)
+        if not torch.equal(alone, batch[i:i + 1]):
+            raise AssertionError(f"{cfg.name} layer {layer}: token {i}'s MoE "
+                                 f"output alone differs from its batch row")
+    print(f"[hybrid] {cfg.name} FULL int8 layer {layer} moe_ffn: each of "
+          f"{LONG_REQS} tokens alone torch.equal to its row of the "
+          f"drop-free batch (draw {seed}, capacity "
+          f"{moe_mod.capacity(LONG_REQS, cfg.moe)} = "
+          f"{moe_mod.capacity(1, cfg.moe)} alone) OK")
+
+
+def hybrid_phase():
+    """The MoE and Mamba archs served.  SMOKE through the serve launcher,
+    each under ``--verify``: Jamba smoke6 dense and with ``--kv paged``
+    asked (its state stays dense: no ``paged kv:`` line), Kimi-K2 and
+    Llama-4 Maverick.  Jamba-v0.1 52B FULL (32 layers, int8 weights drawn
+    from seed 1 and quantized layer by layer): its resident bytes and
+    peak memory; the MoE rows check; smoke6 on 2 slots (4 assignments a
+    decode step, never over capacity 4) under ``--verify``'s bit-identity
+    check; the 8 x 448 trace on 8 slots twice, the two runs' tokens equal
+    and the dropped assignments counted; one 8-slot decode step at 449-487
+    positions (wall, device time, launches by kernel: 28 selective_scan,
+    193 gama_gemm, 242 dequant, 4 flash_decode, 65 rmsnorm) with every
+    route counter held to the launches.  Returns the replays' launch
+    counts."""
+    set_gemm_mode("kernel")
+    total = {n: 0 for n in K.KERNEL_COUNTERS}
+
+    def add(counts):
+        for n in total:
+            total[n] += counts.get(n, 0)
+
+    for arch, kv in (("jamba_v01_52b", []),
+                     ("jamba_v01_52b", ["--kv", "paged", "--page_size", "16"]),
+                     ("kimi_k2_1t_a32b", []),
+                     ("llama4_maverick_400b_a17b", [])):
+        argv = ["--arch", arch, "--trace", "smoke6", "--batch_slots", "3",
+                *kv, "--verify"]
+        text, counts = _launcher(argv)
+        must = ["gama_gemm", "flash_attention", "flash_decode", "rmsnorm"]
+        if arch == "jamba_v01_52b":
+            must.append("selective_scan")
+        missing = [n for n in must if counts[n] == 0]
+        if (missing or "paged kv:" in text or counts["flash_paged_decode"]
+                or (arch != "jamba_v01_52b" and counts["selective_scan"])):
+            raise AssertionError(f"launcher {argv}: kernels never launched "
+                                 f"{missing}, or Jamba took the page pool")
+
+    cfg = C.get("jamba_v01_52b")
+    t_model = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, seed=1, device=DEV, quantize=True)
+    torch.cuda.synchronize()
+    print(f"[hybrid] {cfg.name} FULL: layers={cfg.n_layers} d_model="
+          f"{cfg.d_model} params={cfg.n_params()} active_params="
+          f"{cfg.n_active_params()} int8_weights=True init_s="
+          f"{time.perf_counter() - t_model:.1f} resident_bytes="
+          f"{torch.cuda.memory_allocated()} max_memory_allocated="
+          f"{torch.cuda.max_memory_allocated()} ({dequant_bytes(params)})")
+    moe_rows_alone_equal_batch(cfg, params)
+    smoke6 = S.load_trace(S.resolve_trace_path("smoke6"), cfg.vocab_size,
+                          seed=0)
+    with counting_drops(2) as drops:
+        counts, _, _ = replay(cfg, params, smoke6, ServeConfig(
+            batch_slots=2, max_len=36, quantize=True),
+            f"{cfg.name} FULL int8 weights dense smoke6 (2 slots)",
+            warm=False)
+    add(counts)
+    print(f"[hybrid] {cfg.name} FULL smoke6 on 2 slots: dropped / assigned "
+          f"(token, expert) pairs {json.dumps(drops)}")
+    if drops["decode"][0]:
+        raise AssertionError("2 slots dropped at decode: 4 assignments "
+                             "cannot exceed a capacity of 4")
+    long8 = S.synth_trace(LONG_REQS, LONG_PROMPT, LONG_NEW, 3,
+                          cfg.vocab_size, seed=0)
+    scfg = ServeConfig(batch_slots=LONG_REQS, max_len=LONG_LEN, quantize=True)
+    runs = []
+    for i in range(2):
+        with counting_drops(LONG_REQS) as drops:
+            counts, rep, _ = replay(cfg, params, long8, scfg,
+                                    f"{cfg.name} FULL int8 weights dense "
+                                    f"synth 8x448+32 (run {i + 1})",
+                                    verify=False, warm=False)
+        add(counts)
+        runs.append(rep["results"])
+        print(f"[hybrid] {cfg.name} FULL 8x448 run {i + 1}: dropped / "
+              f"assigned (token, expert) pairs {json.dumps(drops)}")
+    if any(not (runs[0][k] == runs[1][k]).all() for k in runs[0]):
+        raise AssertionError(f"{cfg.name} 8x448: the two runs' tokens differ")
+    print(f"[hybrid] {cfg.name} FULL 8x448: both runs' tokens equal "
+          f"({len(runs[0])} requests)")
+    if drops["decode"][0] + drops["prefill"][0] == 0:
+        S._verify(cfg, params, long8, runs[1], scfg)
+    else:
+        print(f"[hybrid] {cfg.name} FULL 8x448: the MoE dropped "
+              f"assignments, so a batched stream may differ from its "
+              f"one-slot stream by the reference's design (ROADMAP Queue "
+              f"C); held by the two runs' equality instead of --verify")
+    reg = obs.get_obs().registry
+    reg.reset_values()
+    K.reset_launch_counts()
+    _, _, per_step = decode_step_times(cfg, params, f"{cfg.name} FULL int8",
+                                       LONG_POS, max_len=LONG_LEN)
+    torch.cuda.synchronize()
+    check_routes(f"{cfg.name} decode steps", reg.snapshot(),
+                 K.launch_counts())
+    n_mamba = sum(s.mixer == "mamba" for s in cfg.pattern) * cfg.n_groups
+    gemms = sum(c for _, _, c in cfg.gemm_shapes().values())
+    want = {"selective_scan": n_mamba, "gama_gemm": gemms,
+            "dequant": quantized_leaves(params),
+            "flash_decode": cfg.n_layers - n_mamba,
+            "rmsnorm": 2 * cfg.n_layers + 1}
+    got = {k: per_step.get(k, 0) for k in want}
+    if got != want or set(per_step) - set(want):
+        raise AssertionError(f"{cfg.name}: launches a decode step "
+                             f"{json.dumps(per_step)}, expected "
+                             f"{json.dumps(want)}")
+    print(f"[hybrid] {cfg.name} FULL decode step launches by kernel "
+          f"{json.dumps(per_step)} as expected; every ops.*.ref 0")
+    del params
+    _free()
+    print(f"[hybrid] {cfg.name} FULL int8: {time.perf_counter() - t_model:.1f}"
+          f" s")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
@@ -3171,6 +3566,9 @@ def _main(card, kind) -> int:
         counts[name] += n
     timed("archs kernels", archs_kernel_phase)
     for name, n in timed("serve archs", archs_phase).items():
+        counts[name] = counts.get(name, 0) + n
+    timed("hybrid kernels", hybrid_kernel_phase)
+    for name, n in timed("serve hybrid", hybrid_phase).items():
         counts[name] = counts.get(name, 0) + n
     for name, n in timed("tune", tune_phase, cfg).items():
         counts[name] += n

@@ -33,13 +33,15 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
 
     * the stacked leading ``n_groups`` axis of ``blocks`` (one stack per
       pattern position, ``repro/models/transformer.py:206-214``) is
-      unstacked into one dict per layer, in layer order;
-    * dense weights and the embedding table are cast to the compute dtype
-      (``dtype``, default ``cfg.compute_dtype``) once, here;
+      unstacked into one dict per layer, in layer order; only that axis:
+      an MoE expert stack keeps its E axis ((E, K, N) a layer);
+    * dense weights, expert stacks and the embedding table are cast to
+      the compute dtype (``dtype``, default ``cfg.compute_dtype``) once,
+      here; the MoE router stays f32, as the reference keeps it;
     * the tied lm-head operand ``table.T`` is stored contiguously once;
     * int8 weight leaves (``{"q", "scale"}``, the reference's
-      ``quantize_params`` output) are carried as they are, each layer's
-      codes and scales unstacked with it; ``quantize=True`` quantizes
+      ``quantize_params`` output, expert stacks' included) are carried as
+      they are, each layer's codes and scales unstacked with it; ``quantize=True`` quantizes
       the (f32) tree here instead, leaf by leaf as it is converted, as
       the reference's engine quantizes its f32 parameters.
 

@@ -2,7 +2,7 @@
 PyTorch versions, and the ``ops`` dispatch wrappers over them."""
 
 from repro_torch.kernels import (decode_attention, dequant, flash_attention,
-                                 gemm, rmsnorm, wkv)
+                                 gemm, rmsnorm, selective_scan, wkv)
 
 # Every ported kernel: its wrapper's module and the name of the launch
 # counter there (flash_decode and flash_paged_decode share a module and
@@ -18,6 +18,7 @@ KERNEL_COUNTERS = {
     "rmsnorm": (rmsnorm, "launches"),
     "layernorm": (rmsnorm, "ln_launches"),
     "dequant": (dequant, "launches"),
+    "selective_scan": (selective_scan, "launches"),
 }
 
 

@@ -22,7 +22,8 @@ then today's analytic plan) unless the caller passes ``plan``, as the
 reference resolves its tiles (``repro/kernels/ops.py:57-63``,
 ``:150-155``).  The CPU route takes no plan.
 
-``matmul``, ``decode``, ``decode_paged`` and ``wkv_state`` tick the
+``matmul``, ``decode``, ``decode_paged``, ``wkv_state`` and
+``selective_scan`` tick the
 reference's route counters ``ops.<op>.kernel`` or ``ops.<op>.ref`` (the
 last the port's own) on the process registry
 (``repro_torch.obs``).  The reference ticks them once per compiled program
@@ -45,6 +46,9 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gemm import gama_gemm
 from repro_torch.kernels.rmsnorm import LayerNorm
 from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_kernel
+from repro_torch.kernels.selective_scan import check_shapes as _scan_shapes
+from repro_torch.kernels.selective_scan import \
+    selective_scan as selective_scan_kernel
 from repro_torch.kernels.wkv import WKV6, wkv6_state
 from repro_torch.obs import get_obs
 from repro_torch.tuning import dispatch
@@ -286,6 +290,23 @@ def wkv_state(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return ref.ref_wkv_state(r, k, v, w, u, s0)
     _count("ops.wkv_state.kernel")
     return wkv6_state(*(t.contiguous() for t in (r, k, v, w, u, s0)))
+
+
+def selective_scan(dt: torch.Tensor, x: torch.Tensor, bm: torch.Tensor,
+                   c: torch.Tensor, a: torch.Tensor, h0: torch.Tensor, *,
+                   mode: str = "auto"):
+    """Mamba's selective scan from the state ``h0``: dt, x (B, T, di) and
+    bm, c (B, T, N) in the compute dtype; a (di, N) and h0 (B, di, N) f32
+    -> (y (B, T, di) in x's dtype, the final state (B, di, N) f32).  The
+    ``selective_scan`` kernel for CUDA tensors, ``ref.selective_scan`` for
+    CPU tensors and in mode ``ref``.  Ticks ``ops.selective_scan.kernel``
+    or ``ops.selective_scan.ref``."""
+    _scan_shapes(dt, x, bm, c, a, h0)
+    if not _use_kernel(mode, dt, x, bm, c, a, h0):
+        _count("ops.selective_scan.ref")
+        return ref.selective_scan(dt, x, bm, c, a, h0)
+    _count("ops.selective_scan.kernel")
+    return selective_scan_kernel(dt, x, bm, c, a, h0)
 
 
 def op_cost_model(op: str, *, m: int = 0, k: int = 0, n: int = 0,

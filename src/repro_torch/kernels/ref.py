@@ -414,3 +414,29 @@ def ref_wkv_bwd_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       (("r", r.dtype), ("k", k.dtype), ("v", v.dtype),
                        ("w", w.dtype)))
     return gr, gk, gv, gw, gu.sum((0, 2)).to(u.dtype)
+
+
+def selective_scan(dt: torch.Tensor, x: torch.Tensor, bm: torch.Tensor,
+                   c: torch.Tensor, a: torch.Tensor, h0: torch.Tensor):
+    """Plain selective scan, Mamba's S6 recurrence from the state ``h0``.
+    dt, x (B, T, di) in the compute dtype; bm, c (B, T, N); a (di, N) f32
+    (``-exp(a_log)``); h0 (B, di, N) f32 -> (y (B, T, di) in x's dtype,
+    the final state (B, di, N) f32), a step at a time in f32 with the
+    reference's rounding points (``repro/models/mamba.py:140-158``)::
+
+        h_t = exp(dt_t a) h_{t-1} + (dt_t x_t) B_t
+        y_t = sum_n h_t[:, n] C_t[n]
+
+    Plain torch ops throughout, so torch autograd differentiates it."""
+    dtf, cf = dt.float(), c.float()
+    dtx = dtf * x.float()
+    bf = bm.float()
+    h = h0.float()
+    ys = []
+    for i in range(dt.shape[1]):
+        h = (torch.exp(dtf[:, i, :, None] * a) * h
+             + dtx[:, i, :, None] * bf[:, i, None, :])
+        ys.append((h * cf[:, i, None, :]).sum(-1))
+    if not ys:
+        return x.new_empty(x.shape), h
+    return torch.stack(ys, dim=1).to(x.dtype), h

@@ -53,9 +53,10 @@ text and the flight record (``tools/obs_report.py`` renders them);
 ``--arch`` defaults to ``qwen3_8b``, as the reference's; ``--full``
 serves the FULL config, SMOKE otherwise (``--smoke``, the reference's
 flag, is accepted and changes nothing).  ``--quantize`` serves int8
-weights, quantized from the f32 draws (``serving.quant``).  An RWKV arch
-serves its recurrent state on the dense layout whatever ``--kv`` asks
-(the ``paged kv:`` line then does not appear).
+weights, quantized from the f32 draws (``serving.quant``).  A recurrent
+arch (RWKV-6, the Jamba hybrid's Mamba layers) serves its state on the
+dense layout whatever ``--kv`` asks (the ``paged kv:`` line then does not
+appear).
 ``--verify`` re-runs every completed request through a one-slot one-shot
 engine that prefills monolithically and shares no pages, and checks the
 continuous outputs are bit-identical: a dense one for full-precision runs

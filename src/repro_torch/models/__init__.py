@@ -1,5 +1,6 @@
-"""Model zoo of the port: the dense GQA decoder, with dense or paged KV
-caches, and RWKV-6 for training."""
+"""Model zoo of the port: the dense and MoE GQA decoders (dense or paged
+KV caches), the Jamba Mamba/attention hybrid and RWKV-6 (their recurrent
+state on the dense layout), and RWKV-6 for training."""
 
 from repro_torch.models.config import BlockSpec, ModelConfig
 from repro_torch.models.model import (decode_step, forward, init_cache,

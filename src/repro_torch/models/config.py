@@ -1,11 +1,14 @@
 """Model configuration: a JAX-free copy of ``repro/models/config.py``.
 
 A model is a stack of ``n_layers`` blocks cycling through ``pattern`` (a
-tuple of BlockSpec).  Dtype names map to ``torch`` dtypes.  The sub-config
-fields of other architectures (``moe``, ``mamba``, ``rwkv``) are kept so
-the dataclass has the reference's shape; ``rwkv`` holds a
-``models.rwkv.RwkvConfig``, the others wait for their slices (ROADMAP
-Queue A items 10.3-10.4).
+tuple of BlockSpec): dense transformers use a single ("attn","dense")
+entry; MoE models ("attn","moe") (Llama-4 alternates it with a dense
+block); RWKV ("rwkv","rwkv_cm"); Jamba an 8-entry hybrid of Mamba and
+attention mixers with dense and MoE FFNs.  Dtype names map to ``torch``
+dtypes.  The sub-configs are copies of the reference's: :class:`MoEConfig`
+(``repro/models/moe.py``) and :class:`MambaConfig`
+(``repro/models/mamba.py``) here, ``rwkv`` a ``models.rwkv.RwkvConfig``.
+Enc-dec models (seamless) wait for ROADMAP Queue A item 10.5.
 """
 
 from __future__ import annotations
@@ -27,6 +30,40 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    """Capacity-based top-k routing (``models/moe.py``), field for field
+    the reference's."""
+    num_experts: int
+    top_k: int
+    d_ff: int                      # per-expert hidden size
+    capacity_factor: float = 1.25
+    min_capacity: int = 4
+    n_shared: int = 0              # shared (always-on) experts
+    shared_d_ff: int = 0           # hidden size of the shared branch
+    aux_loss_weight: float = 0.01
+    # Combine formulation: "gather" indexes the expert outputs by token,
+    # "scatter" sends each expert slot back to its token.  The port sums a
+    # token's contributions in a fixed order either way (no atomics).
+    combine: str = "scatter"
+    # Routing and capacity per group of T/G tokens (1: global dispatch).
+    dispatch_groups: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class MambaConfig:
+    """The selective SSM block (``models/mamba.py``), field for field the
+    reference's."""
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: Optional[int] = None      # default ceil(d_model / 16)
+    chunk: int = 256                   # the reference's scan chunk length
+
+    def resolve_dt_rank(self, d_model: int) -> int:
+        return self.dt_rank or -(-d_model // 16)
+
+
+@dataclasses.dataclass(frozen=True)
 class BlockSpec:
     mixer: str = "attn"      # "attn" | "mamba" | "rwkv"
     ffn: str = "dense"       # "dense" | "moe" | "rwkv_cm" | "none"
@@ -44,10 +81,9 @@ class ModelConfig:
     vocab_size: int
     pattern: Tuple[BlockSpec, ...] = (BlockSpec(),)
 
-    # Sub-configs of the other block kinds (rwkv: models.rwkv.RwkvConfig;
-    # moe and mamba wait for their slice).
-    moe: Optional[Any] = None
-    mamba: Optional[Any] = None
+    # Sub-configs (rwkv: models.rwkv.RwkvConfig).
+    moe: Optional[MoEConfig] = None
+    mamba: Optional[MambaConfig] = None
     rwkv: Optional[Any] = None
 
     # Attention details.
@@ -93,16 +129,21 @@ class ModelConfig:
         return torch_dtype(self.cache_dtype)
 
     def gemm_shapes(self) -> dict:
-        """The weight GEMMs one forward step runs: name -> (K, N,
-        launches), the launches summed over the layers and the head.
+        """The weight GEMMs one forward step runs through ``layers.gemm``:
+        name -> (K, N, launches), the launches summed over the layers and
+        the head.
 
-        An attention block runs wq, wk, wv and wo (k and v share a shape)
-        and its FFN: gate, up and down (SwiGLU; gate and up share a
-        shape) or up and down (``ffn_kind="gelu"``).  An RWKV-6 block
-        runs the ddlerp lora (``lora_a``, then one ``lora_b`` slice per
-        mixed input), the r/k/v/g/o projections, the decay lora and the
-        channel mix's wk, wv and wr."""
-        d, f, v, n = self.d_model, self.d_ff, self.vocab_size, self.n_layers
+        An attention block runs wq, wk, wv and wo (k and v share a shape);
+        a Mamba block in_proj (d -> 2 di), x_proj (di -> dt_rank + 2 N),
+        dt_proj (dt_rank -> di) and out_proj (di -> d); an RWKV-6 block the
+        ddlerp lora (``lora_a``, then one ``lora_b`` slice per mixed
+        input), the r/k/v/g/o projections, the decay lora and the channel
+        mix's wk, wv and wr.  A dense FFN runs gate, up and down (SwiGLU;
+        gate and up share a shape) or up and down (``ffn_kind="gelu"``);
+        an MoE FFN its router (in f32: :meth:`gemm_dtype`) and the shared
+        expert's SwiGLU, its experts being batched products outside the
+        GEMM (as the reference's einsums are)."""
+        d, f, v = self.d_model, self.d_ff, self.vocab_size
         out: dict = {}
 
         def add(name, k, n_, launches):
@@ -110,8 +151,8 @@ class ModelConfig:
                 launches += out[name][2]
             out[name] = (k, n_, launches)
 
+        g = self.n_groups
         for spec in self.pattern:
-            g = self.n_groups
             if spec.mixer == "rwkv":
                 rc = self.rwkv
                 add("lora_a", d, 5 * rc.lora_mix, g)
@@ -119,6 +160,13 @@ class ModelConfig:
                 add("wr/wk/wv/wg/wo", d, d, 5 * g)
                 add("w_lora_a", d, rc.lora_decay, g)
                 add("w_lora_b", rc.lora_decay, d, g)
+            elif spec.mixer == "mamba":
+                mc = self.mamba or MambaConfig()
+                di, r = mc.expand * d, mc.resolve_dt_rank(d)
+                add("in_proj", d, 2 * di, g)
+                add("x_proj", di, r + 2 * mc.d_state, g)
+                add("dt_proj", r, di, g)
+                add("out_proj", di, d, g)
             else:
                 qn = self.n_heads * self.d_head
                 kvn = self.n_kv_heads * self.d_head
@@ -129,6 +177,13 @@ class ModelConfig:
                 add("cm_wk", d, f, g)
                 add("cm_wv", f, d, g)
                 add("cm_wr", d, d, g)
+            elif spec.ffn == "moe":
+                mo = self.moe
+                add("router", d, mo.num_experts, g)
+                if mo.n_shared:
+                    sf = mo.shared_d_ff or mo.d_ff * mo.n_shared
+                    add("shared gate/up", d, sf, 2 * g)
+                    add("shared down", sf, d, g)
             elif self.ffn_kind == "swiglu":
                 add("gate/up", d, f, 2 * g)
                 add("down", f, d, g)
@@ -138,30 +193,59 @@ class ModelConfig:
         add("lm_head", d, v, 1)
         return out
 
+    def gemm_dtype(self, site: str) -> torch.dtype:
+        """The dtype a :meth:`gemm_shapes` site runs in: the compute dtype,
+        but f32 for the MoE router (the reference routes on f32
+        activations, ``repro/models/moe.py:90``)."""
+        return torch.float32 if site == "router" else self.cdtype
+
     def n_params(self) -> int:
         """Total parameter count, as the reference counts it (analytic:
-        the rwkv loras at their default ranks, norms and mixing vectors
-        left out), for the blocks the port has: attention/dense-FFN and
-        rwkv/channel-mix (other mixers and FFNs wait for their slice)."""
+        the rwkv loras at their default ranks, norms, biases and mixing
+        vectors left out).  Enc-dec models wait for their slice."""
+        if self.encoder_decoder:
+            raise NotImplementedError(
+                f"{self.name}: enc-dec models are not ported (ROADMAP Queue "
+                f"A item 10.5)")
         d, f, v = self.d_model, self.d_ff, self.vocab_size
-        total = v * d
+        total = v * d  # embedding
         if not self.tie_embeddings:
             total += v * d
         for spec in self.pattern:
-            if self.encoder_decoder or (spec.mixer, spec.ffn) not in (
-                    ("attn", "dense"), ("rwkv", "rwkv_cm")):
-                raise NotImplementedError(
-                    f"{self.name}: only ('attn', 'dense') and ('rwkv', "
-                    f"'rwkv_cm') decoder blocks are ported (ROADMAP Queue A "
-                    f"items 10.3-10.5)")
+            n = 0
             if spec.mixer == "attn":
-                n = d * (self.n_heads + 2 * self.n_kv_heads) * self.d_head
+                n += d * (self.n_heads + 2 * self.n_kv_heads) * self.d_head
                 n += self.n_heads * self.d_head * d
-                n += (3 if self.ffn_kind == "swiglu" else 2) * d * f
-            else:
-                n = 5 * d * d                        # r,k,v,g,o
+            elif spec.mixer == "mamba":
+                mc = self.mamba or MambaConfig()
+                di = mc.expand * d
+                n += d * 2 * di + di * d            # in/out proj
+                n += mc.d_conv * di
+                n += di * (mc.resolve_dt_rank(d) + 2 * mc.d_state)
+                n += mc.resolve_dt_rank(d) * di + di * mc.d_state
+            elif spec.mixer == "rwkv":
+                n += 5 * d * d                       # r,k,v,g,o
                 n += d * 5 * 32 + 5 * 32 * d         # ddlerp loras
                 n += d * 64 + 64 * d                 # decay lora
-                n += 2 * d * f + d * d               # channel mix
+            if spec.ffn == "dense":
+                n += (3 if self.ffn_kind == "swiglu" else 2) * d * f
+            elif spec.ffn == "moe":
+                mo = self.moe
+                n += d * mo.num_experts
+                n += 3 * d * mo.d_ff * mo.num_experts
+                if mo.n_shared:
+                    n += 3 * d * (mo.shared_d_ff or mo.d_ff * mo.n_shared)
+            elif spec.ffn == "rwkv_cm":
+                n += 2 * d * f + d * d
             total += n * self.n_groups
         return total
+
+    def n_active_params(self) -> int:
+        """Active params per token (MoE: top_k + shared experts only)."""
+        if self.moe is None:
+            return self.n_params()
+        moe_layers = sum(1 for s in self.pattern if s.ffn == "moe") \
+            * self.n_groups
+        per_expert = 3 * self.d_model * self.moe.d_ff * moe_layers
+        return (self.n_params() - per_expert * self.moe.num_experts
+                + per_expert * self.moe.top_k)

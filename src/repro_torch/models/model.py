@@ -1,11 +1,12 @@
 """Top-level model API: init / forward / train loss / prefill / decode
-(counterpart of ``repro/models/model.py``) for the dense decoders and
-RWKV-6 (served; RWKV-6 also trained).
+(counterpart of ``repro/models/model.py``) for the dense and MoE
+decoders, RWKV-6 and the Jamba hybrid (served; RWKV-6 also trained).
 
 Parameters are a dict of tensors::
 
     {"embed": {"table": (V, d), "table_t": (d, V)},   # table_t: tied head
-     # int8 weights (quantize=True): every large "w" and "table" is
+     # int8 weights (quantize=True): every large "w" and "table", and
+     # every MoE expert stack ("gate"/"up"/"down", (E, K, N)), is
      # {"q": int8, "scale": f32 per output channel}; table_t is then
      # {"q_t": int8 (d, V), "scale": (d,)}
      "final_norm": {"scale": (d,)},                   # + "bias": layernorm
@@ -40,10 +41,13 @@ Batch = Dict[str, torch.Tensor]
 
 
 def _cast_weights(tree: Any, dtype: torch.dtype) -> Any:
-    """Every float ``w`` and ``table`` leaf cast to ``dtype``; int8
-    ``{"q", "scale"}`` leaves and every other leaf kept as they are."""
+    """Every float ``w`` and ``table`` leaf, and every MoE expert stack
+    (``gate``/``up``/``down`` leaves), cast to ``dtype``; the MoE router
+    (f32 in the reference whatever the parameter dtype), int8 ``{"q",
+    "scale"}`` leaves and every other leaf kept as they are."""
     if isinstance(tree, dict):
-        return {k: (v.to(dtype) if k in ("w", "table")
+        return {k: (v if k == "router" else
+                    v.to(dtype) if k in quant.WEIGHT_KEYS
                     and isinstance(v, torch.Tensor) and v.is_floating_point()
                     else _cast_weights(v, dtype))
                 for k, v in tree.items()}
@@ -163,11 +167,16 @@ def forward(params: Params, batch: Batch, cfg: ModelConfig, *,
             caches: Optional[List] = None,
             cache_pos: Union[int, torch.Tensor, None] = None,
             block_tables: Optional[torch.Tensor] = None,
-            remat: bool = False, remat_policy: str = "full"
-            ) -> Tuple[torch.Tensor, Optional[List]]:
-    """Returns (logits (B, S, V) f32, caches updated in place).
-    ``block_tables`` addresses a paged cache (decode only); ``remat`` and
-    ``remat_policy`` are training's (``transformer.apply_stack``)."""
+            remat: bool = False, remat_policy: str = "full",
+            with_aux: bool = False
+            ) -> Tuple[torch.Tensor, Optional[List], Optional[torch.Tensor]]:
+    """Returns (logits (B, S, V) f32, caches updated in place, aux), the
+    reference's three outputs: aux is the MoE layers' summed auxiliary
+    loss, an f32 scalar (zero without MoE layers), with ``with_aux``, and
+    None without it (serving skips that work, as the reference's jitted
+    serving steps drop it).  ``block_tables`` addresses a paged cache
+    (decode only); ``remat`` and ``remat_policy`` are training's
+    (``transformer.apply_stack``)."""
     tokens = batch["tokens"]
     x = L.embed(params["embed"], tokens, cfg.cdtype)
     if "ln0" in params:
@@ -177,35 +186,39 @@ def forward(params: Params, batch: Batch, cfg: ModelConfig, *,
     if pos is None:
         pos = _positions(b, s, 0 if cache_pos is None else cache_pos,
                          x.device)
-    x, caches = T.apply_stack(params["blocks"], x, cfg, positions=pos,
-                              caches=caches, cache_pos=cache_pos,
-                              block_tables=block_tables, remat=remat,
-                              remat_policy=remat_policy)
+    x, caches, aux = T.apply_stack(params["blocks"], x, cfg, positions=pos,
+                                   caches=caches, cache_pos=cache_pos,
+                                   block_tables=block_tables, remat=remat,
+                                   remat_policy=remat_policy,
+                                   with_aux=with_aux)
     x = T.apply_norm(cfg, params["final_norm"], x)
-    return L.logits(params["embed"], x, params.get("head")), caches
+    return L.logits(params["embed"], x, params.get("head")), caches, aux
 
 
 def loss_fn(params: Params, batch: Batch, cfg: ModelConfig,
             remat: bool = True, remat_policy: str = "full"
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Mean next-token cross-entropy plus the auxiliary loss (zero: no
-    ported block has one).  Returns (loss, {"ce", "aux"})."""
-    lg, _ = forward(params, batch, cfg, remat=remat,
-                    remat_policy=remat_policy)
+    """Mean next-token cross-entropy plus the MoE layers' auxiliary loss,
+    summed in layer order (zero without MoE layers).  Returns (loss,
+    {"ce", "aux"})."""
+    lg, _, aux = forward(params, batch, cfg, remat=remat,
+                         remat_policy=remat_policy, with_aux=True)
     ce = L.cross_entropy(lg, batch["labels"], batch.get("mask"))
-    aux = torch.zeros((), dtype=torch.float32, device=lg.device)
     return ce + aux, {"ce": ce, "aux": aux}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: Union[str, torch.device] = "cuda") -> List:
-    """Dense KV caches, (batch, Hkv, max_len, D) per layer, zeroed."""
+    """Per-layer caches, zeroed: dense KV (batch, Hkv, max_len, D) for an
+    attention layer, the fixed-size state for a Mamba or RWKV layer
+    (``transformer.init_stack_cache``)."""
     return T.init_stack_cache(cfg, batch, max_len, resolve_device(device))
 
 
 def paged_eligible(cfg: ModelConfig) -> bool:
     """True when the arch can decode through the paged KV pool: every
-    mixer is attention and there is no enc-dec cross cache."""
+    mixer is attention (a recurrent Mamba or RWKV state is fixed-size per
+    slot: nothing to page) and there is no enc-dec cross cache."""
     return (not cfg.encoder_decoder
             and all(spec.mixer == "attn" for spec in cfg.pattern))
 
@@ -229,7 +242,7 @@ def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
 def prefill(params: Params, batch: Batch, cfg: ModelConfig,
             caches: List) -> Tuple[torch.Tensor, List]:
     """Run the prompt, fill caches; returns (last-token logits, caches)."""
-    lg, caches = forward(params, batch, cfg, caches=caches, cache_pos=0)
+    lg, caches, _ = forward(params, batch, cfg, caches=caches, cache_pos=0)
     return lg[:, -1], caches
 
 
@@ -244,7 +257,7 @@ def decode_step(params: Params, token: torch.Tensor,
     ``block_tables`` (B, max_pages) maps each slot's positions onto pool
     pages and ``pos`` must be the per-slot vector.  Returns (logits (B, V),
     caches)."""
-    lg, caches = forward(params, {"tokens": token[:, None]}, cfg,
+    lg, caches, _ = forward(params, {"tokens": token[:, None]}, cfg,
                          caches=caches, cache_pos=pos,
                          block_tables=block_tables)
     return lg[:, 0], caches

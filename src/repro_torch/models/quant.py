@@ -27,10 +27,13 @@ from repro_torch.kernels import ops
 
 Params = Dict[str, Any]
 
-# Leaf names that hold (in, out) matmul weights.  The reference also
-# accepts "gate", "up" and "down", which name dicts, never leaves, in its
-# tree and in the port's.
-_QUANT_KEYS = ("w", "table")
+# Leaf names that hold (in, out) matmul weights, as the reference's
+# (``repro/serving/quant.py:50-58``): "w" and "table", and the MoE expert
+# stacks "gate", "up" and "down" ((E, K, N), a scale per expert and
+# column; in a dense MLP those names hold dicts, whose leaves are "w").
+# The router's "w" is quantized like any other; Mamba's conv_w, a_log and
+# d are not.
+WEIGHT_KEYS = ("w", "table", "gate", "up", "down")
 _MIN_SIZE = 1 << 14      # don't quantize tiny vectors/norms
 
 
@@ -38,11 +41,14 @@ def quantize_weight(w: torch.Tensor) -> Dict[str, torch.Tensor]:
     """(..., K, N) -> {"q": int8 (..., K, N), "scale": f32 (..., N)}.
 
     Computed in f32 as the reference: ``torch.round`` rounds half to
-    even, as ``jnp.round`` does, and an all-zero channel gets scale 0."""
+    even, as ``jnp.round`` does, and an all-zero channel gets scale 0.
+    ``max |w|`` is taken as ``max(max w, -min w)`` and the codes rounded
+    and clamped in place, so an f32 weight needs one temporary of its
+    size (a Jamba expert stack is 3.76 GB)."""
     wf = w.float()
-    scale = wf.abs().amax(dim=-2) / 127.0
+    scale = torch.maximum(wf.amax(dim=-2), -wf.amin(dim=-2)) / 127.0
     safe = torch.where(scale > 0, scale, torch.ones_like(scale))
-    q = torch.clamp(torch.round(wf / safe[..., None, :]), -127, 127)
+    q = torch.div(wf, safe[..., None, :]).round_().clamp_(-127, 127)
     return {"q": q.to(torch.int8), "scale": scale}
 
 
@@ -74,7 +80,7 @@ def _is_quantizable(name: str, leaf: Any, groups: int = 0) -> bool:
     if leaf.dim() + (groups > 0) < 2 or leaf.numel() * max(groups, 1) \
             < _MIN_SIZE:
         return False
-    return name in _QUANT_KEYS
+    return name in WEIGHT_KEYS
 
 
 def quantize_params(params: Params, groups: int = 1

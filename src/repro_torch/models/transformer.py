@@ -1,12 +1,13 @@
 """Block stacks (counterpart of ``repro/models/transformer.py``) for the
-``("attn", "dense")`` decoder block (RMSNorm) and the RWKV-6
-``("rwkv", "rwkv_cm")`` block (LayerNorm).
+ported decoder blocks: attention or Mamba mixers with a dense or MoE FFN
+(RMSNorm; Jamba interleaves all four) and the RWKV-6 ``("rwkv",
+"rwkv_cm")`` block (LayerNorm).
 
 The reference stacks each pattern position's parameters over ``n_groups``
 and runs them with ``lax.scan``; here a stack is a plain list with one
-entry per layer, run by a Python loop.  Caches are per-layer lists too.
-Training's rematerialisation wraps layers or sub-blocks in
-``torch.utils.checkpoint``.
+entry per layer, run by a Python loop.  Caches are per-layer lists too,
+each layer's from its own block spec.  Training's rematerialisation wraps
+layers or sub-blocks in ``torch.utils.checkpoint``.
 """
 
 from __future__ import annotations
@@ -18,13 +19,18 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
+from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as R
-from repro_torch.models.config import BlockSpec, ModelConfig
+from repro_torch.models.config import BlockSpec, MambaConfig, ModelConfig
 
 Params = Dict[str, Any]
 Cache = Dict[str, Any]
 
-_BLOCKS = {("attn", "dense"): "rmsnorm", ("rwkv", "rwkv_cm"): "layernorm"}
+# (mixer, ffn) -> the norm the ported block runs with.
+_BLOCKS = {("attn", "dense"): "rmsnorm", ("attn", "moe"): "rmsnorm",
+           ("mamba", "dense"): "rmsnorm", ("mamba", "moe"): "rmsnorm",
+           ("rwkv", "rwkv_cm"): "layernorm"}
 REMAT_POLICIES = ("full", "tp_outs")
 
 
@@ -32,9 +38,14 @@ def check_block(cfg: ModelConfig, spec: BlockSpec) -> None:
     if _BLOCKS.get((spec.mixer, spec.ffn)) != cfg.norm or cfg.encoder_decoder:
         raise NotImplementedError(
             f"{cfg.name}: block {spec} (norm={cfg.norm}, encoder_decoder="
-            f"{cfg.encoder_decoder}) is not ported; only ('attn', 'dense') "
-            f"rmsnorm and ('rwkv', 'rwkv_cm') layernorm decoders are "
-            f"(ROADMAP Queue A items 10.3-10.5)")
+            f"{cfg.encoder_decoder}) is not ported; the ported decoder "
+            f"blocks are {sorted(_BLOCKS)} with the norms "
+            f"{sorted(set(_BLOCKS.values()))} (enc-dec: ROADMAP Queue A item "
+            f"10.5)")
+
+
+def _mamba_cfg(cfg: ModelConfig) -> MambaConfig:
+    return cfg.mamba or MambaConfig()
 
 
 def init_norm(cfg: ModelConfig, device) -> Params:
@@ -51,26 +62,30 @@ def apply_norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, spec: BlockSpec,
                device: Union[str, torch.device] = "cpu") -> Params:
+    """One layer's parameters, drawn mixer first, then the FFN."""
     check_block(cfg, spec)
+    p: Params = {"ln1": init_norm(cfg, device)}
     if spec.mixer == "rwkv":
-        return {
-            "ln1": init_norm(cfg, device),
-            "rwkv_tm": R.init_time_mix(gen, cfg.d_model,
+        p["rwkv_tm"] = R.init_time_mix(gen, cfg.d_model,
                                        cfg.rwkv or R.RwkvConfig(),
-                                       cfg.pdtype, device),
-            "ln2": init_norm(cfg, device),
-            "rwkv_cm": R.init_channel_mix(gen, cfg.d_model, cfg.d_ff,
-                                          cfg.pdtype, device),
-        }
-    return {
-        "ln1": init_norm(cfg, device),
-        "attn": A.init_attention(gen, cfg.d_model, cfg.n_heads,
-                                 cfg.n_kv_heads, cfg.d_head, cfg.qk_norm,
-                                 cfg.pdtype, device),
-        "ln2": init_norm(cfg, device),
-        "mlp": L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.ffn_kind,
-                          cfg.pdtype, device),
-    }
+                                       cfg.pdtype, device)
+    elif spec.mixer == "mamba":
+        p["mamba"] = M.init_mamba(gen, cfg.d_model, _mamba_cfg(cfg),
+                                  cfg.pdtype, device)
+    else:
+        p["attn"] = A.init_attention(gen, cfg.d_model, cfg.n_heads,
+                                     cfg.n_kv_heads, cfg.d_head, cfg.qk_norm,
+                                     cfg.pdtype, device)
+    p["ln2"] = init_norm(cfg, device)
+    if spec.ffn == "rwkv_cm":
+        p["rwkv_cm"] = R.init_channel_mix(gen, cfg.d_model, cfg.d_ff,
+                                          cfg.pdtype, device)
+    elif spec.ffn == "moe":
+        p["moe"] = MOE.init_moe(gen, cfg.d_model, cfg.moe, cfg.pdtype, device)
+    else:
+        p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.ffn_kind,
+                              cfg.pdtype, device)
+    return p
 
 
 def _mixer(p: Params, h: torch.Tensor, cfg: ModelConfig, spec: BlockSpec, *,
@@ -80,6 +95,12 @@ def _mixer(p: Params, h: torch.Tensor, cfg: ModelConfig, spec: BlockSpec, *,
                                 None if cache is None else cache["rwkv"])
         if cache is not None:
             cache["rwkv"] = state
+        return out
+    if spec.mixer == "mamba":
+        out, state = M.mamba_forward(p["mamba"], h, _mamba_cfg(cfg),
+                                     None if cache is None else cache["mamba"])
+        if cache is not None:
+            cache["mamba"] = state
         return out
     out, _ = A.attention(
         p["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
@@ -91,14 +112,18 @@ def _mixer(p: Params, h: torch.Tensor, cfg: ModelConfig, spec: BlockSpec, *,
 
 
 def _ffn(p: Params, h: torch.Tensor, cfg: ModelConfig, spec: BlockSpec,
-         cache: Optional[Cache]) -> torch.Tensor:
+         cache: Optional[Cache], with_aux: bool
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(out, the MoE aux loss or None)."""
     if spec.ffn == "rwkv_cm":
         out, state = R.channel_mix(p["rwkv_cm"], h,
                                    None if cache is None else cache["rwkv"])
         if cache is not None:
             cache["rwkv"] = state
-        return out
-    return L.mlp(p["mlp"], h, cfg.ffn_kind)
+        return out, None
+    if spec.ffn == "moe":
+        return MOE.moe_ffn(p["moe"], h, cfg.moe, with_aux=with_aux)
+    return L.mlp(p["mlp"], h, cfg.ffn_kind), None
 
 
 def apply_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -106,12 +131,14 @@ def apply_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
                 cache: Optional[Cache] = None,
                 cache_pos: Union[int, torch.Tensor, None] = None,
                 block_tables: Optional[torch.Tensor] = None,
-                remat_sub_blocks: bool = False
-                ) -> Tuple[torch.Tensor, Optional[Cache]]:
-    """Returns (x, cache updated in place).  ``remat_sub_blocks`` wraps
-    the mixer and the FFN (each with its norm) in a checkpoint of its own,
-    so only their outputs are kept for the backward (the ``tp_outs``
-    policy)."""
+                remat_sub_blocks: bool = False, with_aux: bool = False
+                ) -> Tuple[torch.Tensor, Optional[Cache],
+                           Optional[torch.Tensor]]:
+    """Returns (x, cache updated in place, the MoE aux loss: None unless
+    the block has an MoE FFN and ``with_aux``).  ``remat_sub_blocks``
+    wraps the mixer and the FFN (each with its norm) in a checkpoint of
+    its own, so only their outputs are kept for the backward (the
+    ``tp_outs`` policy)."""
     check_block(cfg, spec)
 
     def mixer(x):
@@ -120,13 +147,16 @@ def apply_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
                       block_tables=block_tables)
 
     def ffn(x):
-        return _ffn(p, apply_norm(cfg, p["ln2"], x), cfg, spec, cache)
+        return _ffn(p, apply_norm(cfg, p["ln2"], x), cfg, spec, cache,
+                    with_aux)
 
     if remat_sub_blocks:
         x = x + checkpoint(mixer, x, use_reentrant=False)
-        return x + checkpoint(ffn, x, use_reentrant=False), cache
+        out, aux = checkpoint(ffn, x, use_reentrant=False)
+        return x + out, cache, aux
     x = x + mixer(x)
-    return x + ffn(x), cache
+    out, aux = ffn(x)
+    return x + out, cache, aux
 
 
 def layer_specs(cfg: ModelConfig) -> List[BlockSpec]:
@@ -137,28 +167,38 @@ def layer_specs(cfg: ModelConfig) -> List[BlockSpec]:
 def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int,
                      device: Union[str, torch.device] = "cpu",
                      paged: Optional[Tuple] = None) -> List[Cache]:
-    """Per-layer caches.  An attention layer holds KV: dense (batch, Hkv,
-    max_len, D), or with ``paged=(num_pages, page_size[, kv_dtype])``
-    page pools (``attention.init_paged_kv_cache``; ``batch`` and
-    ``max_len`` are then ignored; the optional ``kv_dtype`` overrides the
-    page dtype).  An RWKV layer holds its fixed-size state,
-    ``{"rwkv": rwkv.init_rwkv_cache(...)}`` (shifts in the cache dtype,
-    the WKV state in f32), whatever ``max_len``."""
-    if any(spec.mixer == "rwkv" for spec in cfg.pattern):
-        if paged is not None:
-            raise ValueError(f"{cfg.name}: a recurrent state has no pages")
-        return [{"rwkv": R.init_rwkv_cache(batch, cfg.d_model,
-                                           cfg.rwkv or R.RwkvConfig(),
-                                           cfg.kvdtype, device)}
-                for _ in layer_specs(cfg)]
-    if paged is not None:
-        return [{"attn": A.init_paged_kv_cache(
-            paged[0], cfg.n_kv_heads, paged[1], cfg.d_head, cfg.kvdtype,
-            kv_dtype=paged[2] if len(paged) > 2 else None, device=device)}
-            for _ in layer_specs(cfg)]
-    return [{"attn": A.init_kv_cache(batch, cfg.n_kv_heads, max_len,
-                                     cfg.d_head, cfg.kvdtype, device)}
-            for _ in layer_specs(cfg)]
+    """Per-layer caches, each from its layer's block spec.  An attention
+    layer holds KV: dense (batch, Hkv, max_len, D), or with
+    ``paged=(num_pages, page_size[, kv_dtype])`` page pools
+    (``attention.init_paged_kv_cache``; ``batch`` and ``max_len`` are then
+    ignored; the optional ``kv_dtype`` overrides the page dtype).  A Mamba
+    layer holds ``{"mamba": mamba.init_mamba_cache(...)}`` (the conv window
+    in the cache dtype, the SSM state in f32) and an RWKV layer
+    ``{"rwkv": rwkv.init_rwkv_cache(...)}`` (shifts in the cache dtype, the
+    WKV state in f32), whatever ``max_len``; a recurrent state has no
+    paged form, so ``paged`` raises for an arch with one."""
+    specs = layer_specs(cfg)
+    if paged is not None and any(s.mixer != "attn" for s in specs):
+        raise ValueError(f"{cfg.name}: a recurrent state has no pages")
+    caches: List[Cache] = []
+    for spec in specs:
+        if spec.mixer == "rwkv":
+            caches.append({"rwkv": R.init_rwkv_cache(
+                batch, cfg.d_model, cfg.rwkv or R.RwkvConfig(), cfg.kvdtype,
+                device)})
+        elif spec.mixer == "mamba":
+            caches.append({"mamba": M.init_mamba_cache(
+                batch, cfg.d_model, _mamba_cfg(cfg), cfg.kvdtype, device)})
+        elif paged is not None:
+            caches.append({"attn": A.init_paged_kv_cache(
+                paged[0], cfg.n_kv_heads, paged[1], cfg.d_head, cfg.kvdtype,
+                kv_dtype=paged[2] if len(paged) > 2 else None,
+                device=device)})
+        else:
+            caches.append({"attn": A.init_kv_cache(
+                batch, cfg.n_kv_heads, max_len, cfg.d_head, cfg.kvdtype,
+                device)})
+    return caches
 
 
 def apply_stack(stack: List[Params], x: torch.Tensor, cfg: ModelConfig, *,
@@ -166,9 +206,13 @@ def apply_stack(stack: List[Params], x: torch.Tensor, cfg: ModelConfig, *,
                 caches: Optional[List[Cache]] = None,
                 cache_pos: Union[int, torch.Tensor, None] = None,
                 block_tables: Optional[torch.Tensor] = None,
-                remat: bool = False, remat_policy: str = "full"
-                ) -> Tuple[torch.Tensor, Optional[List[Cache]]]:
-    """Run every layer in order.  Returns (x, caches updated in place).
+                remat: bool = False, remat_policy: str = "full",
+                with_aux: bool = False
+                ) -> Tuple[torch.Tensor, Optional[List[Cache]],
+                           Optional[torch.Tensor]]:
+    """Run every layer in order.  Returns (x, caches updated in place,
+    aux): with ``with_aux`` the MoE layers' aux losses summed in layer
+    order (an f32 zero without MoE layers), else None.
 
     ``remat`` (training) recomputes activations in the backward instead of
     keeping them: policy ``"full"`` checkpoints each layer (only its input
@@ -181,13 +225,19 @@ def apply_stack(stack: List[Params], x: torch.Tensor, cfg: ModelConfig, *,
             f"{REMAT_POLICIES}); 'dots' waits for ROADMAP Queue A item 11")
     if remat and caches is not None:
         raise ValueError("remat is for training: it takes no caches")
+    aux = (torch.zeros((), dtype=torch.float32, device=x.device)
+           if with_aux else None)
     for i, (p, spec) in enumerate(zip(stack, layer_specs(cfg))):
         kw = dict(positions=positions,
                   cache=None if caches is None else caches[i],
-                  cache_pos=cache_pos, block_tables=block_tables)
+                  cache_pos=cache_pos, block_tables=block_tables,
+                  with_aux=with_aux)
         if remat and remat_policy == "full":
-            x = checkpoint(lambda x, p=p, spec=spec, kw=kw: apply_block(
-                p, x, cfg, spec, **kw)[0], x, use_reentrant=False)
+            x, a = checkpoint(lambda x, p=p, spec=spec, kw=kw: apply_block(
+                p, x, cfg, spec, **kw)[::2], x, use_reentrant=False)
         else:
-            x, _ = apply_block(p, x, cfg, spec, remat_sub_blocks=remat, **kw)
-    return x, caches
+            x, _, a = apply_block(p, x, cfg, spec, remat_sub_blocks=remat,
+                                  **kw)
+        if a is not None:
+            aux = aux + a
+    return x, caches, aux

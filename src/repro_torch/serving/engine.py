@@ -149,19 +149,21 @@ _UNSUPPORTED = (
 
 def model_gemm_shapes(cfg: ModelConfig, batch: int, seq: int,
                       include_decode: bool = True) -> List[tuple]:
-    """The (M, K, N) GEMMs a forward pass issues, for warming the plan
-    lookups (the reference's ``model_gemm_shapes`` over the port's
-    projections, ``ModelConfig.gemm_shapes``): prefill sees M = batch*seq
-    tokens, decode M = batch (``include_decode=False`` keeps only the
-    prefill block, used when warming per-slot prompt buckets).  GEMM
-    sites of one pattern period of layers and the head, not unique
-    shapes: k and v, and gate and up, are listed apart."""
-    sites = [(k, n) for name, (k, n, c) in cfg.gemm_shapes().items()
+    """The (M, K, N, dtype) GEMMs a forward pass issues, for warming the
+    plan lookups (the reference's ``model_gemm_shapes`` over the port's
+    projections, ``ModelConfig.gemm_shapes``, each in its site's
+    ``ModelConfig.gemm_dtype``): prefill sees M = batch*seq tokens,
+    decode M = batch (``include_decode=False`` keeps only the prefill
+    block, used when warming per-slot prompt buckets).  GEMM sites of one
+    pattern period of layers and the head, not unique shapes: k and v,
+    and gate and up, are listed apart."""
+    sites = [(k, n, cfg.gemm_dtype(name))
+             for name, (k, n, c) in cfg.gemm_shapes().items()
              for _ in range(c if name == "lm_head" else c // cfg.n_groups)]
-    return [(m, k, n)
+    return [(m, k, n, dt)
             for m in ((batch * seq, batch) if include_decode
                       else (batch * seq,))
-            for k, n in sites]
+            for k, n, dt in sites]
 
 
 def _weights(tree: Any):
@@ -485,9 +487,9 @@ class ServeEngine:
         return params
 
     def _all_gemm_shapes(self) -> List[tuple]:
-        """GEMM shapes the engine can issue: the uniform-batch shapes, every
-        per-slot prefill bucket (M = bucket; not for exact-length prefill)
-        and, chunked, M = chunk."""
+        """(M, K, N, dtype) GEMMs the engine can issue: the uniform-batch
+        shapes, every per-slot prefill bucket (M = bucket; not for
+        exact-length prefill) and, chunked, M = chunk."""
         shapes = model_gemm_shapes(self.cfg, self.scfg.batch_slots,
                                    self.scfg.max_len)
         for bucket in (() if self._exact_prefill
@@ -514,9 +516,10 @@ class ServeEngine:
 
     def token_kv_bytes(self) -> int:
         """Bytes of attention KV one token occupies across the stack (k and
-        v, every attention layer: none for RWKV, whose state does not grow
-        with the tokens), at the page dtype; an int8 row also carries its
-        f32 scale, so it costs D + 4 bytes per KV head."""
+        v, every attention layer: none for a Mamba or RWKV layer, whose
+        state does not grow with the tokens), at the page dtype; an int8
+        row also carries its f32 scale, so it costs D + 4 bytes per KV
+        head."""
         cfg = self.cfg
         n_attn = sum(spec.mixer == "attn" for spec in cfg.pattern)
         kv_dtype = self.scfg.kv_dtype if self.paged else None
@@ -554,8 +557,9 @@ class ServeEngine:
 
     def _insert_slot(self, one: List, slot: int) -> None:
         """Overwrite slot ``slot`` of the persistent cache with a freshly
-        prefilled single-slot cache, in place: KV, or an RWKV layer's
-        shifts and WKV state.  Replacing the whole row is what makes slot
+        prefilled single-slot cache, in place, layer by layer: KV, a
+        Mamba layer's conv window and SSM state, or an RWKV layer's shifts
+        and WKV state.  Replacing the whole row is what makes slot
         reuse leak-free: nothing from the previous occupant survives."""
         for full, fresh in zip(self.caches, one):
             for kind, leaves in fresh.items():
@@ -1033,7 +1037,7 @@ class ServeEngine:
             toks = np.zeros((1, bucket), np.int64)
             toks[0, :plen] = req.prompt
             fresh = init_cache(self.cfg, 1, self._fresh_len, self.device)
-            logits, fresh = forward(
+            logits, fresh, _ = forward(
                 self.params,
                 {"tokens": torch.from_numpy(toks).to(self.device)},
                 self.cfg, caches=fresh, cache_pos=0)
@@ -1092,7 +1096,7 @@ class ServeEngine:
             toks = np.zeros((1, buf), np.int64)
             toks[0, :take] = req.prompt[c0:c0 + take]
             scratch = self._scratch[slot.index]
-            logits, _ = forward(
+            logits, _, _ = forward(
                 self.params,
                 {"tokens": torch.from_numpy(toks).to(self.device)},
                 self.cfg, caches=scratch, cache_pos=c0)

@@ -294,13 +294,15 @@ def serve_prefix_cache(cfg, max_len: int, dtype, device=None) -> bool:
     return serve_config(cfg, max_len, dtype, device).prefix_cache
 
 
-def warm_gemm_shapes(shapes: Sequence[Tuple[int, int, int]], dtype,
+def warm_gemm_shapes(shapes: Sequence[tuple], dtype,
                      device=None) -> int:
     """Resolve the plans of a model's GEMM shapes at engine start, so the
-    first forward never reads the cache file.  Returns how many came from
+    first forward never reads the cache file.  A shape is (M, K, N) in
+    ``dtype``, or (M, K, N, its own dtype).  Returns how many came from
     the persistent cache."""
-    return sum(gemm_config(m, k, n, dtype, device).source == "cache"
-               for (m, k, n) in shapes)
+    return sum(gemm_config(m, k, n, own[0] if own else dtype,
+                           device).source == "cache"
+               for (m, k, n, *own) in shapes)
 
 
 # ---------------------------------------------------------------------------

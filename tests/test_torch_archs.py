@@ -77,8 +77,8 @@ def test_prefill_and_ragged_decode_logits_match_jax(arch):
     jlg, jcache, _ = jax.jit(lambda p, t, c: jmodel.forward(
         p, {"tokens": t}, jcfg, caches=c, cache_pos=jnp.zeros((), jnp.int32))
     )(jparams, jnp.asarray(toks), jcache)
-    tlg, tcache = tmodel.forward(tp, {"tokens": torch.from_numpy(toks)}, tcfg,
-                                 caches=tcache, cache_pos=0)
+    tlg, tcache, _ = tmodel.forward(tp, {"tokens": torch.from_numpy(toks)},
+                                    tcfg, caches=tcache, cache_pos=0)
     np.testing.assert_allclose(tlg.numpy(), np.asarray(jlg), **TOL)
     pos = np.asarray([8, 5], np.int32)
     tok = rng.integers(0, jcfg.vocab_size, size=(2,)).astype(np.int32)

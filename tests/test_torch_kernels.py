@@ -1130,3 +1130,53 @@ def test_cuda_dequant_bit_equal_to_plain(q_shape, s_shape):
         odd = torch.empty(q.numel() + 1, dtype=torch.int8,
                           device="cuda")[1:].view(q_shape).copy_(q)
         assert torch.equal(dequantize(odd, scale, dtype), got)
+
+
+def _cuda_scan_case(g, b, t, di, n, dtype):
+    dt = (torch.rand((b, t, di), generator=g, device="cuda") * 0.2).to(dtype)
+    x, bm, c = (torch.randn(shape, generator=g, device="cuda").to(dtype)
+                for shape in ((b, t, di), (b, t, n), (b, t, n)))
+    a = -torch.arange(1, n + 1, dtype=torch.float32, device="cuda")[None] \
+        * (0.2 + torch.rand((di, 1), generator=g, device="cuda"))
+    h0 = torch.randn((b, di, n), generator=g, device="cuda")
+    return dt, x, bm, c, a, h0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,di,n,dtype", [
+    (8, 1, 8192, 16, torch.bfloat16), (1, 11, 8192, 16, torch.bfloat16),
+    (1, 448, 8192, 16, torch.bfloat16), (8, 1, 8192, 16, torch.float32),
+    (1, 448, 8192, 16, torch.float32), (3, 12, 128, 8, torch.float32),
+    (2, 40, 100, 5, torch.float32)])
+def test_cuda_selective_scan_matches_plain_and_rows_do_not_depend_on_batch(
+        b, t, di, n, dtype):
+    """Within 1e-5 relative of the plain version in f32 (y and the final
+    state); in bf16, y within one bf16 ulp (2**-7 * |plain|, plus 2**-16
+    for the f32 contraction's other summation order before the cast) and
+    the f32 state within 1e-5; h0 x 1.01 breaks those bounds in either
+    dtype; each sequence alone gives its rows of the batch bit for bit,
+    and two calls repeat their bits."""
+    _require_cuda()
+    from repro_torch.kernels.selective_scan import selective_scan
+    g = torch.Generator(device="cuda").manual_seed(t + n)
+    args = _cuda_scan_case(g, b, t, di, n, dtype)
+    y, h = selective_scan(*args)
+    y2, h2 = selective_scan(*args)
+    want_y, want_h = tops.selective_scan(*args, mode="ref")
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+
+    def within(got, want, is_y):
+        err = (got.double() - want.double()).abs()
+        w = want.double().abs()
+        if not is_y or dtype == torch.float32:
+            return bool((err <= 1e-5 * (1 + w)).all())
+        return bool((err <= 2.0 ** -7 * w + 2.0 ** -16).all())
+
+    assert within(y, want_y, True) and within(h, want_h, False)
+    yc, hc = selective_scan(*args[:5], args[5] * 1.01)
+    assert not (within(yc, want_y, True) and within(hc, want_h, False))
+    for i in range(b):
+        yi, hi = selective_scan(*(v[i:i + 1] for v in args[:4]), args[4],
+                                args[5][i:i + 1])
+        assert torch.equal(yi, y[i:i + 1]) and torch.equal(hi, h[i:i + 1])

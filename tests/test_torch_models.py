@@ -22,8 +22,10 @@ from repro_torch.bridge import params_from_numpy
 from repro_torch.models import model as tmodel
 
 ARCHS = ["smollm_360m", "qwen3_8b"]
-# Every ported config, including RWKV-6 (trained, not served).
-CONFIG_ARCHS = ARCHS + ["rwkv6_3b"]
+# Every ported config, including RWKV-6 (trained, not served) and the
+# MoE and hybrid ones.
+CONFIG_ARCHS = ARCHS + ["rwkv6_3b", "kimi_k2_1t_a32b",
+                        "llama4_maverick_400b_a17b", "jamba_v01_52b"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
@@ -61,7 +63,7 @@ def test_port_configs_equal_reference():
 
 def test_unported_arch_raises():
     with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        TC.get("jamba_v01_52b")
+        TC.get("seamless_m4t_large_v2")
 
 
 @pytest.mark.parametrize("arch", CONFIG_ARCHS)
@@ -125,8 +127,8 @@ def test_forward_prefill_and_ragged_decode_match_jax(arch):
                                                               c))
     jlg, jcache, _ = jforward(jparams, jnp.asarray(toks), jcache,
                               jnp.zeros((), jnp.int32))
-    tlg, tcache = tmodel.forward(tp, {"tokens": torch.from_numpy(toks)},
-                                 tcfg, caches=tcache, cache_pos=0)
+    tlg, tcache, _ = tmodel.forward(tp, {"tokens": torch.from_numpy(toks)},
+                                    tcfg, caches=tcache, cache_pos=0)
     np.testing.assert_allclose(tlg.numpy(), np.asarray(jlg), **TOL)
     pos = np.asarray([5, 12, 1], np.int32)
     for _ in range(2):

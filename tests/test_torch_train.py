@@ -267,7 +267,7 @@ def test_rwkv_smoke_loss_and_every_gradient_match_jax(remat, policy):
     _, tcfg, _, _ = _jax_setup()
     tp = _port_params()
     batch = {k: torch.from_numpy(v) for k, v in _batch(11).items()}
-    lg, _ = tmodel.forward(tp, batch, tcfg)
+    lg, _, _ = tmodel.forward(tp, batch, tcfg)
     np.testing.assert_allclose(lg.detach().numpy(), jlg, rtol=1e-5,
                                atol=1e-5)
     leaves = adamw.leaves(tp)
