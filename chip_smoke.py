@@ -2,6 +2,7 @@
 """Drive the PyTorch port on one NVIDIA H100 and check it end to end.
 
     python3 chip_smoke.py          # from the repository root, no arguments
+    python3 chip_smoke.py --phases "encdec kernels,serve vl"   # a part
 
 1. Device: the card's name and power limit (``nvidia-smi``).
 2. Build: every CUDA kernel of ``src/repro_torch/csrc`` with ``nvcc``
@@ -129,6 +130,27 @@
    ``--verify``, the 8 x 448 trace on 8 slots twice (equal tokens, the
    MoE's dropped assignments counted), and its 8-slot decode step (wall,
    device time by kind, launches by kernel checked, routes held).
+   Enc-dec and M-RoPE: the kernels at the shapes SeamlessM4T-large-v2
+   (GQA group 1) and Qwen2-VL-72B (group 8, heads of 128) serve, each
+   with a control that must fail its tolerance: ``flash_attention``
+   without the causal mask (the encoder's 448 x 448, the cross attention
+   at prefill against 448 encoder rows, rows independent of their
+   neighbours), ``flash_decode`` over 448 cross rows and 449-487 self
+   rows, ``flash_paged_decode``, ``gama_gemm`` at every decode and prefill
+   GEMM (Seamless's lm head N = 256206 on the unaligned path, Qwen2-VL's
+   K = 8192 x N = 29568 and 152064), ``dequant`` at Qwen2-VL's int8
+   weights, and the SMOKE f32 forms.  Then SeamlessM4T-large-v2 FULL
+   (bf16, seed 1) through the engine API with a 448-frame encoder input
+   a request: smoke6 on 3 slots and 8 x 448 on 8 slots, each stream equal
+   to a one-slot one-shot engine's, ``kv="paged"`` asked (dense), its
+   8-slot decode step and the encoder's device time; the serve launcher's
+   SMOKE runs of both ids (Qwen2-VL ``verify OK``, Seamless failing with
+   KeyError 'enc_embeds' as the reference launcher does); Qwen2-VL-72B
+   FULL with int8 weights: resident bytes and init peak, smoke6 on 3
+   slots under ``--verify``, 8 x 448 dense and on bf16 pages with equal
+   tokens, its 8-slot decode step; and Qwen2-VL SMOKE from patch
+   embeddings at distinct (t, h, w) positions, kernels against the plain
+   route on the card.
 5. Train: the wkv6 forward and backward kernels against their plain
    versions at the training shape, a ragged length and a long one, and
    the head-16 builds the SMOKE config runs (bf16, and f32 at the
@@ -145,6 +167,8 @@
    "device": ...}`` line.
 
 Any failure raises and exits non-zero before the last line is printed.
+``--phases`` runs only the named phases (the names of the ``[phase]``
+lines) and then stops without the kernels line or the ``ok`` line.
 """
 
 from __future__ import annotations
@@ -166,6 +190,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
@@ -319,6 +344,19 @@ def bound(nbytes: float, ops_: float, dtype: torch.dtype):
                                        else "operations")
 
 
+def must_fail(label, got, wrong, tol, floor=None):
+    """A control: ``got`` held against a deliberately wrong plain result
+    must fail the tolerance the check uses, or the check could not see
+    that error."""
+    try:
+        err = max_err(got, wrong, tol, floor)
+    except AssertionError as e:
+        print(f"[control] {label}: fails as it must ({e})")
+        return
+    raise AssertionError(f"control {label} passed the tolerance (max abs err "
+                         f"{err:.3e}): the check cannot see this error")
+
+
 def max_err(got: torch.Tensor, want: torch.Tensor, tol: float,
             floor: float | None = None) -> float:
     """Max |got - want|; fails unless |got - want| <= tol * (1 + |want|)
@@ -370,10 +408,11 @@ def decode_bound(b, hq, hkv, d, lengths, q_elt, kv_elt, table_entries=0):
 
 
 def check_gemm(label, m, k, n, dtype, out_dtype, scale, tol, seed, main=False,
-               per_step=None):
+               per_step=None, control=False):
     """gama_gemm against its plain version, timed beside torch.matmul (or
     torch._int_mm).  The plain version is timed only for weights up to
-    256 MB (it widens B to f32 on every call)."""
+    256 MB (it widens B to f32 on every call).  With ``control`` the plain
+    version of B x 1.05 must fail the tolerance."""
     gen = _gen(seed)
     a = _rand((m, k), dtype, gen)
     b = _rand((k, n), dtype, gen, scale=k ** -0.5)
@@ -382,6 +421,11 @@ def check_gemm(label, m, k, n, dtype, out_dtype, scale, tol, seed, main=False,
     torch.cuda.synchronize()
     err = max_err(got, want, tol)
     del want
+    if control:
+        must_fail(f"gama_gemm {label} M={m}: the kernel against the plain "
+                  f"version of B x 1.05", got, ops.matmul(
+                      a, b * 1.05, out_dtype=out_dtype, scale=scale,
+                      mode="ref"), tol)
     RESULTS["gama_gemm"]["max_abs_err"] = max(
         RESULTS["gama_gemm"]["max_abs_err"], err)
     elt = a.element_size()
@@ -600,7 +644,7 @@ def check_layernorm_grad(label, m, d, groups, dtype, seed):
 
 
 def check_dequant(label, q_shape, s_shape, dtype, seed, main=False,
-                  per_step=None, reps=24):
+                  per_step=None, reps=24, control=False):
     """The dequant kernel against its plain version, bit for bit (the
     product in f32, rounded once), also for a code view off the 16-byte
     boundary; timed beside its bound (each code read once, each value
@@ -625,6 +669,10 @@ def check_dequant(label, q_shape, s_shape, dtype, seed, main=False,
     if not (torch.equal(got, want)
             and torch.equal(dequant_kernel(odd, scale, dtype), got)):
         raise AssertionError(f"dequant {label}: not the plain version's bits")
+    if control:
+        must_fail(f"dequant {label}: the kernel against the plain version "
+                  f"of scale x 1.001", got, ops.dequantize(
+                      q, scale * 1.001, dtype, mode="ref"), 0.0)
     del got, want, odd
     r = RESULTS["dequant"]
     r["max_abs_err"] = max(r["max_abs_err"], err)
@@ -671,20 +719,31 @@ def _attn_bound(b, hq, hkv, sq, d, elt, keys_per_row, kv_rows):
 
 
 def check_attention(label, b, hq, hkv, sq, sk, d, q_offset, dtype, tol, seed,
-                    main=False, kv_len=None):
+                    main=False, kv_len=None, causal=True, control=False):
+    """flash_attention against its plain version, timed beside its bound,
+    the plain version and SDPA.  ``causal=False`` (an encoder's
+    self-attention, cross attention at prefill): every row sees keys
+    [0, kv_len); with ``control`` the plain version of the other mask must
+    fail the tolerance."""
     gen = _gen(seed)
     q = _rand((b, hq, sq, d), dtype, gen)
     k = _rand((b, hkv, sk, d), dtype, gen)
     v = _rand((b, hkv, sk, d), dtype, gen)
     kv = sk if kv_len is None else kv_len
-    args = dict(causal=True, q_offset=q_offset, kv_len=kv)
+    args = dict(causal=causal, q_offset=q_offset, kv_len=kv)
     got = flash_attention(q, k, v, **args)
     want = ops.attention(q, k, v, mode="ref", **args)
     torch.cuda.synchronize()
     err = max_err(got, want, tol)
+    if control:
+        must_fail(f"flash_attention {label}: the kernel against the plain "
+                  f"version with causal={not causal}", got, ops.attention(
+                      q, k, v, mode="ref", **{**args, "causal": not causal}),
+                  tol)
     r = RESULTS["flash_attention"]
     r["max_abs_err"] = max(r["max_abs_err"], err)
-    per_row = [max(0, min(kv, q_offset + i + 1)) for i in range(sq)]
+    per_row = [max(0, min(kv, q_offset + i + 1)) if causal else kv
+               for i in range(sq)]
     nbytes, flops = _attn_bound(b, hq, hkv, sq, d, q.element_size(),
                                 sum(per_row), max(per_row))
     kern = device_ms(lambda: (lambda: flash_attention(q, k, v, **args)),
@@ -698,7 +757,7 @@ def check_attention(label, b, hq, hkv, sq, sk, d, q_offset, dtype, tol, seed,
     vq = v.repeat_interleave(hq // hkv, 1)
     if q_offset == 0 and kv == sk:
         lib = device_ms(lambda: (lambda: F.scaled_dot_product_attention(
-            q, kq, vq, is_causal=True)), nbytes)
+            q, kq, vq, is_causal=causal)), nbytes)
     else:
         k_pos = torch.arange(sk, device=DEV)[None, :]
         mask = ((k_pos <= torch.arange(sq, device=DEV)[:, None] + q_offset)
@@ -708,7 +767,8 @@ def check_attention(label, b, hq, hkv, sq, sk, d, q_offset, dtype, tol, seed,
     bms, by = bound(nbytes, flops, dtype)
     p = attn_plan(b, hq, hkv, sq, sk, d, dtype)
     print(f"[kernel] flash_attention {label} B={b} Hq={hq} Hkv={hkv} Sq={sq} "
-          f"Sk={sk} D={d} q_offset={q_offset} kv_len={kv} {str(dtype)[6:]} "
+          f"Sk={sk} D={d} q_offset={q_offset} kv_len={kv} causal={causal} "
+          f"{str(dtype)[6:]} "
           f"plan={tuple(p)} blocks={attn_blocks(p, b, hq, sq)} "
           f"max_abs_err={err:.3e} tol={tol:g}*(1+|plain|) "
           f"kernel_ms={kern:.5f} "
@@ -767,14 +827,15 @@ def _sdpa_decode(q, kc, vc, length):
 
 
 def check_decode(label, hq, hkv, sk, d, lengths, dtype, tol, seed,
-                 main=False):
+                 main=False, control=False):
     """flash_decode against its plain version, timed over copies of the
     cache that cover twice the L2 (a decode step finds its layer's cache
     in device memory) beside its bound, the plain version and SDPA on the
     same cache.  Bit for bit: every slot alone (B=1) equals its row of the
     batch, and, when no length passes Sk, so does the batch against a
     cache zero-padded to 2 * Sk (the chunks depend on key positions
-    only)."""
+    only).  With ``control`` the plain version at half the lengths must
+    fail the tolerance."""
     gen = _gen(seed)
     b = len(lengths)
     q = _rand((b, hq, d), dtype, gen)
@@ -785,6 +846,10 @@ def check_decode(label, hq, hkv, sk, d, lengths, dtype, tol, seed,
     want = ops.decode(q, k, v, length=length, mode="ref")
     torch.cuda.synchronize()
     err = max_err(got, want, tol)
+    if control:
+        must_fail(f"flash_decode {label}: the kernel against the plain "
+                  f"version at half the lengths", got, ops.decode(
+                      q, k, v, length=(length + 1) // 2, mode="ref"), tol)
     alone = all(torch.equal(flash_decode(
         q[i:i + 1], k[i:i + 1].contiguous(), v[i:i + 1].contiguous(),
         length=length[i:i + 1]), got[i:i + 1]) for i in range(b))
@@ -835,7 +900,7 @@ def check_decode(label, hq, hkv, sk, d, lengths, dtype, tol, seed,
 
 
 def check_paged_decode(label, hq, hkv, d, ps, lengths, pool, tol, seed,
-                       main=False, dtype=torch.bfloat16):
+                       main=False, dtype=torch.bfloat16, control=False):
     """flash_paged_decode (both buffering variants) against its plain
     version, on q in ``dtype`` with pools in q's dtype (``pool="float"``)
     or int8 whose pages sit in a shuffled order, timed over copies of the
@@ -871,6 +936,11 @@ def check_paged_decode(label, hq, hkv, d, ps, lengths, pool, tol, seed,
                             mode="ref", **sc)
     torch.cuda.synchronize()
     err = max_err(got[2], want, tol)
+    if control:     # the plain version at half the lengths must fail
+        must_fail(f"flash_paged_decode {label}: the kernel against the plain "
+                  f"version at half the lengths", got[2], ops.decode_paged(
+                      q, kp, vp, block_tables=table, length=(length + 1) // 2,
+                      mode="ref", **sc), tol)
     same_buffers = torch.equal(got[1], got[2])
     # The null sink (page n_pool) full of NaN: never read, so no change.
     kn, vn = kp.clone(), vp.clone()
@@ -2912,18 +2982,19 @@ LONG_POS = (449, 454, 459, 465, 470, 476, 481, 487)   # 8 x 448's last steps
 
 
 def decode_step_times(cfg, params, label, positions=SHORT_POS,
-                      max_len=48, steps=5):
+                      max_len=48, steps=5, enc_len=0):
     """A decode step of one slot per entry of ``positions`` on a dense
     cache, each slot at its position (smoke6's first decode steps by
     default; ``LONG_POS``, at max_len ``LONG_LEN``, is the last steps of
     the 8 x 448 replays): the wall per step (host clock, synchronised,
     profiler off, mean of two runs) and the device time of its kernels
-    (``torch.profiler``), and the launches of one step.  Returns (wall_ms,
-    device_ms or None, launches per step)."""
+    (``torch.profiler``), and the launches of one step.  An enc-dec model
+    reads a cross cache of ``enc_len`` rows.  Returns (wall_ms, device_ms
+    or None, launches per step)."""
     slots = len(positions)
     tok = torch.zeros(slots, dtype=torch.long, device=DEV)
     pos = torch.tensor(positions, dtype=torch.int32, device=DEV)
-    caches = init_cache(cfg, slots, max_len, DEV)
+    caches = init_cache(cfg, slots, max_len, DEV, enc_len=enc_len)
 
     def run():
         t0 = time.perf_counter()
@@ -3516,7 +3587,510 @@ def hybrid_phase():
     return total
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# Enc-dec (SeamlessM4T-large-v2) and M-RoPE (Qwen2-VL-72B)
+# ---------------------------------------------------------------------------
+
+# SeamlessM4T-large-v2's encoder input: 448 frames of d_model a request
+# (the speech frontend is a stub), drawn by numpy from a seed; the engine's
+# cross cache holds ENC_LEN rows a slot.
+ENC_LEN = 448
+# The last decode steps of the 8 x 448 replay: lengths 449-487 against a
+# LONG_LEN-row dense cache (the kernel phase's long_lens).
+LONG_LENS = [LONG_PROMPT + 1 + (LONG_LEN - LONG_PROMPT - 2) * i // 7
+             for i in range(8)]
+
+
+def noncausal_rows_independent(hq, hkv, d, sq, sk, cut, seed):
+    """Non-causal attention (an encoder, cross attention at prefill): a
+    row's bits do not depend on the rows beside it.  The ``sq`` rows whole
+    must equal, under torch.equal, rows [0, cut) and [cut, sq) computed
+    apart against the same keys, and every row of a B=2 call the same row
+    of each B=1 call."""
+    gen = _gen(seed)
+    q = _rand((2, hq, sq, d), torch.bfloat16, gen)
+    k = _rand((2, hkv, sk, d), torch.bfloat16, gen)
+    v = _rand((2, hkv, sk, d), torch.bfloat16, gen)
+    whole = flash_attention(q, k, v, causal=False)
+    parts = [flash_attention(q[:, :, lo:hi].contiguous(), k, v, causal=False)
+             for lo, hi in ((0, cut), (cut, sq))]
+    alone = [flash_attention(q[i:i + 1].contiguous(), k[i:i + 1].contiguous(),
+                             v[i:i + 1].contiguous(), causal=False)
+             for i in range(2)]
+    torch.cuda.synchronize()
+    if not (torch.equal(torch.cat(parts, dim=2), whole)
+            and all(torch.equal(a, whole[i:i + 1])
+                    for i, a in enumerate(alone))):
+        raise AssertionError(f"flash_attention causal=False: rows depend on "
+                             f"the rows beside them (Hq={hq} D={d})")
+    print(f"[kernel] flash_attention causal=False rows independent: Hq={hq} "
+          f"Hkv={hkv} D={d} Sq={sq} Sk={sk}: whole == [0, {cut}) + "
+          f"[{cut}, {sq}) and B=2 == B=1, torch.equal, OK")
+
+
+def encdec_kernel_phase():
+    """The kernels at the shapes SeamlessM4T-large-v2 (16 query heads over
+    16 KV heads of 64: GQA group 1) and Qwen2-VL-72B (64 over 8 heads of
+    128: group 8) serve, each against its plain version within the
+    tolerance the earlier checks use, beside a control that must fail it,
+    its bound and its library call: flash_attention without the causal
+    mask at Seamless's encoder (448 x 448) and its cross attention at
+    prefill (smoke6's 16-token and the 8 x 448 replay's 488-token bucket
+    against 448 encoder rows), rows independent of their neighbours;
+    Seamless's causal decoder prefill at group 1 and Qwen2-VL's 488 x 496
+    at group 8; flash_decode at the cross attention's 8 slots of 448 rows
+    and the self-attention's 449-487, both archs; flash_paged_decode at
+    Qwen2-VL's 8 slots on bf16 pages of 16; gama_gemm at every decode and
+    prefill GEMM of both (Seamless's lm head N = 256206, not a multiple of
+    8, on the unaligned-B path; Qwen2-VL's K = 8192 x N = 29568 and
+    152064) at M = 8 and the prefill Ms, rows independent of M; dequant at
+    Qwen2-VL's int8 weights; and the SMOKE configs' f32 forms (D = 16,
+    group 1 and group 4)."""
+    sm, vl = C.get("seamless_m4t_large_v2"), C.get("qwen2_vl_72b")
+    sms, vls = C.get_smoke("seamless_m4t_large_v2"), C.get_smoke(
+        "qwen2_vl_72b")
+    bf, f32 = torch.bfloat16, torch.float32
+    hd = sm.d_head
+    for label, sq, sk, causal, seed in (
+            ("seamless-encoder", ENC_LEN, ENC_LEN, False, 90),
+            ("seamless-cross-prefill-16", 16, ENC_LEN, False, 91),
+            (f"seamless-cross-prefill-{LONG_LEN}", LONG_LEN, ENC_LEN, False,
+             92),
+            (f"seamless-self-prefill-{LONG_LEN}", LONG_LEN, LONG_LEN, True,
+             93)):
+        check_attention(label, 1, sm.n_heads, sm.n_kv_heads, sq, sk, hd, 0,
+                        bf, 2e-2, seed=seed, causal=causal, control=True)
+    noncausal_rows_independent(sm.n_heads, sm.n_kv_heads, hd, LONG_LEN,
+                               ENC_LEN, 200, seed=94)
+    long_cache = pages_for(LONG_LEN, 16) * 16
+    check_attention(f"qwen2-vl-prefill-{LONG_LEN}", 1, vl.n_heads,
+                    vl.n_kv_heads, LONG_LEN, long_cache, vl.d_head, 0, bf,
+                    2e-2, seed=95, control=True)
+    check_attention("qwen2-vl-prefill-16", 1, vl.n_heads, vl.n_kv_heads, 16,
+                    36, vl.d_head, 0, bf, 2e-2, seed=96)
+    check_attention("seamless-smoke-encoder", 1, sms.n_heads, sms.n_kv_heads,
+                    12, 12, sms.d_head, 0, f32, 2e-5, seed=97, causal=False,
+                    control=True)
+    check_attention("seamless-smoke-cross", 1, sms.n_heads, sms.n_kv_heads,
+                    16, 12, sms.d_head, 0, f32, 2e-5, seed=98, causal=False)
+    check_attention("qwen2-vl-smoke-prefill", 1, vls.n_heads, vls.n_kv_heads,
+                    16, 36, vls.d_head, 0, f32, 2e-5, seed=99, control=True)
+    # Decode: the cross attention reads all 448 rows of every slot.
+    check_decode("seamless-cross", sm.n_heads, sm.n_kv_heads, ENC_LEN, hd,
+                 [ENC_LEN] * LONG_REQS, bf, 2e-2, seed=100, control=True)
+    check_decode("seamless-self", sm.n_heads, sm.n_kv_heads, LONG_LEN, hd,
+                 LONG_LENS, bf, 2e-2, seed=101, control=True)
+    check_decode("qwen2-vl", vl.n_heads, vl.n_kv_heads, LONG_LEN, vl.d_head,
+                 LONG_LENS, bf, 2e-2, seed=102, control=True)
+    check_decode("seamless-smoke-cross", sms.n_heads, sms.n_kv_heads, 12,
+                 sms.d_head, [12, 12, 12], f32, 2e-5, seed=103, control=True)
+    check_decode("qwen2-vl-smoke", vls.n_heads, vls.n_kv_heads, 36,
+                 vls.d_head, [28, 20, 13], f32, 2e-5, seed=104, control=True)
+    check_paged_decode("qwen2-vl", vl.n_heads, vl.n_kv_heads, vl.d_head, 16,
+                       LONG_LENS, "float", 2e-2, seed=105, control=True)
+    check_paged_decode("qwen2-vl-smoke", vls.n_heads, vls.n_kv_heads,
+                       vls.d_head, 16, [28, 20, 13], "float", 2e-5, seed=106,
+                       dtype=f32, control=True)
+    # GEMMs: every decode-step site at M = 8 (the kernels line's shapes),
+    # the prefill sites at the prefill Ms (Seamless's encoder and cross K/V
+    # at its 448 encoder rows), each lm head with a control.
+    for arch, ms in ((sm, (8, 16, LONG_LEN)), (vl, (8, LONG_LEN))):
+        decode = arch.gemm_shapes()
+        for label, (k, n, per_step) in arch.gemm_shapes("prefill").items():
+            for m in ((ENC_LEN,) if label not in decode else ms):
+                check_gemm(f"{arch.name}:{label}", m, k, n, bf, bf, 1.0,
+                           1e-2, seed=m + k + n + 2,
+                           per_step=per_step if label in decode and m == 8
+                           else None,
+                           control=label == "lm_head" and m == 8)
+    gemm_rows_independent([sm, vl], (8, 16, LONG_LEN))
+    for arch in (sms, vls):
+        for label, (k, n, _) in arch.gemm_shapes("prefill").items():
+            check_gemm(f"{arch.name}:{label}", 3, k, n, f32, f32, 1.0, 1e-4,
+                       seed=k + n + 3, control=label == "lm_head")
+    # Qwen2-VL's int8 weights: the FFN's gate/up and down, the lm head (a
+    # scale a column) and the table's gathered rows of a decode step.
+    check_dequant("qwen2-vl-72b gate/up", (vl.d_model, vl.d_ff), (vl.d_ff,),
+                  bf, seed=107, reps=4, control=True)
+    check_dequant("qwen2-vl-72b down", (vl.d_ff, vl.d_model), (vl.d_model,),
+                  bf, seed=108, reps=4)
+    check_dequant("qwen2-vl-72b lm head", (vl.d_model, vl.vocab_size),
+                  (vl.vocab_size,), bf, seed=109, reps=2)
+    check_dequant("qwen2-vl-72b embedding rows", (LONG_REQS, 1, vl.d_model),
+                  (vl.d_model,), bf, seed=110)
+
+
+def encdec_replay(cfg, params, trace, encs, scfg, label):
+    """One replay of an enc-dec model through the engine API (the launcher
+    builds no encoder inputs, as the reference's): every request submitted
+    at its step arrival with its encoder input ``encs[id]``, launch counts,
+    the metrics registry and the tracer set to 0 just before and read just
+    after, tokens checked, the route counters held to the launches, every
+    stream then held bit for bit to a one-slot one-shot engine's
+    ``generate(..., enc_embeds=)`` (``--verify``'s check).  Returns the
+    launch counts."""
+    engine = ServeEngine(cfg, params, scfg)
+    bundle = obs.get_obs()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        bundle.registry.reset_values()
+        bundle.tracer.clear()
+        t0 = time.perf_counter()
+        rids = {engine.submit(t["prompt"], t["max_new"], arrival=t["arrival"],
+                              enc_embeds=encs[t["id"]]): t["id"]
+                for t in trace}
+        out = engine.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = K.launch_counts()
+        metrics = bundle.registry.snapshot()
+        stats = dict(engine.stats)
+    finally:
+        engine.close()
+    routes = check_routes(label, metrics, counts)
+    results = {rids[r]: toks for r, toks in out.items()}
+    for t in trace:
+        toks = results.get(t["id"])
+        if toks is None or toks.shape != (t["max_new"],) or not (
+                (toks >= 0) & (toks < cfg.vocab_size)).all():
+            raise AssertionError(f"{label} request {t['id']}: bad tokens "
+                                 f"{toks}")
+    missing = [n for n in ("gama_gemm", "flash_attention", "flash_decode",
+                           "rmsnorm") if counts[n] == 0]
+    if missing or counts["flash_paged_decode"] or engine.kv_mode != "dense":
+        raise AssertionError(f"{label}: kernels never launched {missing}, or "
+                             f"the cross cache took the page pool")
+    hist = metrics["histograms"]
+    tokens = sum(len(v) for v in results.values())
+    print(f"[encdec] {label}: arch={cfg.name} layers={cfg.n_layers}+"
+          f"{cfg.n_encoder_layers} d_model={cfg.d_model} dtype="
+          f"{cfg.compute_dtype} slots={scfg.batch_slots} max_len="
+          f"{scfg.max_len} enc_len={scfg.enc_len} kv_mode={engine.kv_mode} "
+          f"requests={len(results)} tokens={tokens} wall_s={wall:.4f} "
+          f"tok_s={tokens / wall:.2f} itl_p50_ms="
+          f"{hist['serve.inter_token_ms']['p50']:.3f} itl_p99_ms="
+          f"{hist['serve.inter_token_ms']['p99']:.3f} ttft_p50_ms="
+          f"{hist['serve.ttft_ms']['p50']:.3f} prefills={stats['prefills']} "
+          f"decode_steps={stats['decode_steps']} max_memory_allocated="
+          f"{torch.cuda.max_memory_allocated()}")
+    print(f"[encdec] {label}: launches {json.dumps(counts)} routes "
+          f"{json.dumps(routes)}")
+    one = ServeEngine(cfg, params, dataclasses.replace(
+        scfg, batch_slots=1, kv="dense", prefill_chunk=0))
+    try:
+        bad = [t["id"] for t in trace if not np.array_equal(
+            one.generate(t["prompt"][None, :], t["max_new"],
+                         enc_embeds=encs[t["id"]])[0], results[t["id"]])]
+    finally:
+        one.close()
+    if bad:
+        raise AssertionError(f"{label}: VERIFY FAILED for ids {bad}")
+    print(f"[encdec] {label}: verify OK: {len(trace)} requests bit-identical "
+          f"to one-shot dense generate(enc_embeds=)")
+    return counts
+
+
+def encoder_device_ms(cfg, params, enc):
+    """Device time of one request's encoder pass (24 layers over its
+    ``enc`` frames, no causal mask), from ``torch.profiler``'s kernels,
+    with its launches."""
+    from repro_torch.models.model import _encode
+    x = torch.from_numpy(enc).to(DEV)
+    _encode(params, {"enc_embeds": x}, cfg)           # warm-up
+    _, by_name, launched, lost = _profiled(
+        lambda: _encode(params, {"enc_embeds": x}, cfg), "encoder",
+        host=False)
+    if not by_name or lost:
+        return f"device time not measured ({_unmeasured(lost)})"
+    ms = sum(us for _, us in by_name.values()) / 1e3
+    return (f"device_ms={ms:.3f} launches "
+            f"{json.dumps({k: v for k, v in launched.items() if v})}")
+
+
+def encdec_phase():
+    """SeamlessM4T-large-v2 FULL (24 encoder and 24 decoder layers, d_model
+    1024, 16/16 heads of 64, vocab 256206, bf16, seed 1) through the
+    engine API with ``enc_len = 448`` and each request's encoder input
+    (1, 448, 1024) drawn by numpy from a seed: smoke6 on 3 slots and the
+    8 x 448 trace on 8 slots, dense, each replay's routes held to its
+    launches and every stream to a one-slot one-shot engine's; ``kv =
+    "paged"`` asked (the cross cache bypasses the pool to dense, as the
+    reference's); the 8-slot decode step at 449-487 (wall, device time,
+    launches by kernel: 217 gama_gemm, 48 flash_decode (self and cross),
+    73 rmsnorm); the encoder's device time a request.  Returns the replays'
+    launch counts."""
+    set_gemm_mode("kernel")
+    total = {n: 0 for n in K.KERNEL_COUNTERS}
+    cfg = C.get("seamless_m4t_large_v2")
+    t_model = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, seed=1, device=DEV)
+    torch.cuda.synchronize()
+    print(f"[encdec] {cfg.name} FULL: layers={cfg.n_layers}+"
+          f"{cfg.n_encoder_layers} d_model={cfg.d_model} heads="
+          f"{cfg.n_heads}/{cfg.n_kv_heads}x{cfg.d_head} vocab="
+          f"{cfg.vocab_size} params={cfg.n_params()} init_s="
+          f"{time.perf_counter() - t_model:.1f} resident_bytes="
+          f"{torch.cuda.memory_allocated()} max_memory_allocated="
+          f"{torch.cuda.max_memory_allocated()}")
+    rng = np.random.default_rng(7)
+
+    def encs(trace):
+        return {t["id"]: rng.standard_normal(
+            (1, ENC_LEN, cfg.d_model)).astype(np.float32) for t in trace}
+
+    smoke6 = S.load_trace(S.resolve_trace_path("smoke6"), cfg.vocab_size,
+                          seed=0)
+    long8 = S.synth_trace(LONG_REQS, LONG_PROMPT, LONG_NEW, 3,
+                          cfg.vocab_size, seed=0)
+    for trace, scfg, label in (
+            (smoke6, ServeConfig(batch_slots=3, max_len=36, enc_len=ENC_LEN),
+             f"{cfg.name} FULL dense smoke6"),
+            (long8, ServeConfig(batch_slots=LONG_REQS, max_len=LONG_LEN,
+                                enc_len=ENC_LEN),
+             f"{cfg.name} FULL dense synth 8x448+32")):
+        counts = encdec_replay(cfg, params, trace, encs(trace), scfg, label)
+        for n in total:
+            total[n] += counts[n]
+        _free()
+    engine = ServeEngine(cfg, params, ServeConfig(
+        batch_slots=3, max_len=36, enc_len=ENC_LEN, kv="paged",
+        page_size=16))
+    engine.close()
+    if engine.kv_mode != "dense" or engine.pool is not None:
+        raise AssertionError(f"{cfg.name}: kv='paged' took the page pool")
+    print(f"[encdec] {cfg.name} kv='paged' asked: kv_mode={engine.kv_mode}; "
+          f"[serve] paged kv bypassed: arch {cfg.name} has non-attention "
+          f"state — dense layout in effect")
+    reg = obs.get_obs().registry
+    reg.reset_values()
+    K.reset_launch_counts()
+    _, _, per_step = decode_step_times(cfg, params, f"{cfg.name} FULL",
+                                       LONG_POS, max_len=LONG_LEN,
+                                       enc_len=ENC_LEN)
+    torch.cuda.synchronize()
+    check_routes(f"{cfg.name} decode steps", reg.snapshot(),
+                 K.launch_counts())
+    want = {"gama_gemm": sum(c for _, _, c in cfg.gemm_shapes().values()),
+            "flash_decode": 2 * cfg.n_layers,
+            "rmsnorm": 3 * cfg.n_layers + 1}
+    if per_step != want:
+        raise AssertionError(f"{cfg.name}: launches a decode step "
+                             f"{json.dumps(per_step)}, expected "
+                             f"{json.dumps(want)}")
+    print(f"[encdec] {cfg.name} FULL decode step launches by kernel "
+          f"{json.dumps(per_step)} as expected; every ops.*.ref 0")
+    print(f"[encdec] {cfg.name} FULL encoder, one request of {ENC_LEN} "
+          f"frames: {encoder_device_ms(cfg, params, encs(smoke6[:1])[0])}")
+    del params
+    _free()
+    print(f"[encdec] {cfg.name} FULL: {time.perf_counter() - t_model:.1f} s")
+    return total
+
+
+@contextlib.contextmanager
+def plain_route():
+    """Every op of the models through its plain version on the card: the
+    GEMMs as ``x @ w`` (gemm mode "ref"), attention, decode and the norms
+    through ``ops.*(mode="ref")``."""
+    with contextlib.ExitStack() as stack:
+        for name in ("attention", "decode", "decode_paged", "rmsnorm"):
+            stack.enter_context(op_mode(name, "ref"))
+        set_gemm_mode("ref")
+        try:
+            yield
+        finally:
+            set_gemm_mode("kernel")
+
+
+def mrope_smoke_kernel_vs_plain():
+    """Qwen2-VL SMOKE (f32, M-RoPE sections (4, 2, 2)) served from patch
+    embeddings at the (t, h, w) positions of a 2-D patch grid (4 wide, 2
+    high, a frame of 8), which the engine's text path (t == h == w) never
+    runs: a prefill of 16 patches and 8 one-patch decode steps at their
+    cache offsets, through the kernels, against the same calls through the
+    plain route on the card, within 1e-4 (1 + |plain|); a control with the
+    text positions (t, t, t) must fail it."""
+    cfg = C.get_smoke("qwen2_vl_72b")
+    params = init_params(cfg, seed=1, device=DEV)
+    b, s, p_len = 2, 24, 16
+    rng = np.random.default_rng(12)
+    emb = torch.from_numpy(rng.standard_normal(
+        (b, s, cfg.d_model)).astype(np.float32)).to(DEV)
+    i = np.arange(s)
+    grid = np.stack([i // 8, (i // 4) % 2, i % 4], axis=-1)
+    text = np.repeat(i[:, None], 3, axis=-1)
+
+    def run(pos_np, plain):
+        pos = torch.from_numpy(np.broadcast_to(pos_np, (b, s, 3)).astype(
+            np.int32).copy()).to(DEV)
+        caches = init_cache(cfg, b, s + 8, DEV)
+        c0 = K.launch_counts()
+        with plain_route() if plain else contextlib.nullcontext():
+            outs = [forward(params, {"embeds": emb[:, :p_len],
+                                     "positions": pos[:, :p_len]}, cfg,
+                            caches=caches, cache_pos=0)[0]]
+            for t in range(p_len, s):
+                outs.append(forward(params, {"embeds": emb[:, t:t + 1],
+                                             "positions": pos[:, t:t + 1]},
+                                    cfg, caches=caches, cache_pos=t)[0])
+        torch.cuda.synchronize()
+        return (torch.cat(outs, dim=1),
+                {n: c - c0[n] for n, c in K.launch_counts().items()
+                 if c - c0[n]})
+
+    kern, launched = run(grid, False)
+    plain, plain_launched = run(grid, True)
+    err = max_err(kern, plain, 1e-4)
+    must_fail(f"{cfg.name} M-RoPE: the kernels at the grid positions against "
+              f"the plain route at the text positions (t, t, t)", kern,
+              run(text, True)[0], 1e-4)
+    steps = s - p_len
+    want = {"flash_attention": cfg.n_layers,
+            "flash_decode": cfg.n_layers * steps}
+    if (plain_launched or any(launched.get(k) != v for k, v in want.items())
+            or not launched.get("gama_gemm") or not launched.get("rmsnorm")):
+        raise AssertionError(f"{cfg.name} M-RoPE check: launches {launched} "
+                             f"(kernels), {plain_launched} (plain route)")
+    print(f"[vl] {cfg.name} SMOKE M-RoPE (t, h, w) grid positions, prefill "
+          f"{p_len} patches + {steps} decode steps from embeds: kernels vs "
+          f"plain route max_abs_err={err:.3e} tol=1e-4*(1+|plain|) OK; "
+          f"launches {json.dumps(launched)} (plain route: none)")
+
+
+def vl_phase():
+    """The serve launcher's SMOKE runs of both ids (``launcher_encdec_vl``),
+    then Qwen2-VL-72B FULL (80 layers, d_model 8192, 64/8 heads of 128,
+    M-RoPE sections (16, 24, 24), vocab 152064) with int8 weights drawn
+    from seed 1 and quantized leaf by leaf as they are drawn: its resident
+    bytes and init peak first; smoke6 on 3 slots under ``--verify``'s
+    check; the 8 x 448 trace on 8 slots on dense KV and on bf16 pages of
+    16, the two runs' tokens equal; the 8-slot decode step at 449-487
+    (wall, device time, launches by kernel: 561 gama_gemm, 562 dequant, 80
+    flash_decode, 161 rmsnorm) with every route counter held to the
+    launches; then the SMOKE config from patch embeddings at distinct
+    (t, h, w) positions, kernels against the plain route.  Returns the
+    replays' launch counts."""
+    set_gemm_mode("kernel")
+    total = {n: 0 for n in K.KERNEL_COUNTERS}
+
+    def add(counts):
+        for n in total:
+            total[n] += counts.get(n, 0)
+
+    launcher_encdec_vl()
+    cfg = C.get("qwen2_vl_72b")
+    _free()
+    t_model = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params = init_params(cfg, seed=1, device=DEV, quantize=True)
+    torch.cuda.synchronize()
+    free, card = torch.cuda.mem_get_info()
+    print(f"[vl] {cfg.name} FULL: layers={cfg.n_layers} d_model="
+          f"{cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads}x{cfg.d_head} "
+          f"mrope_sections={cfg.mrope_sections} params={cfg.n_params()} "
+          f"int8_weights=True init_s={time.perf_counter() - t_model:.1f} "
+          f"resident_bytes={torch.cuda.memory_allocated() - base} "
+          f"init_peak_bytes={torch.cuda.max_memory_allocated() - base} "
+          f"card_bytes={card} free_bytes={free} ({dequant_bytes(params)})")
+    smoke6 = S.load_trace(S.resolve_trace_path("smoke6"), cfg.vocab_size,
+                          seed=0)
+    counts, _, _ = replay(cfg, params, smoke6, ServeConfig(
+        batch_slots=3, max_len=36, quantize=True),
+        f"{cfg.name} FULL int8 weights dense smoke6", warm=False)
+    add(counts)
+    _free()
+    long8 = S.synth_trace(LONG_REQS, LONG_PROMPT, LONG_NEW, 3,
+                          cfg.vocab_size, seed=0)
+    runs = {}
+    for kv in ("dense", "paged"):
+        counts, rep, _ = replay(
+            cfg, params, long8, ServeConfig(
+                batch_slots=LONG_REQS, max_len=LONG_LEN, quantize=True,
+                kv=kv, page_size=16),
+            f"{cfg.name} FULL int8 weights {kv} synth 8x448+32",
+            verify=False, warm=False)
+        add(counts)
+        runs[kv] = rep["results"]
+        del rep
+        _free()
+    if any(not np.array_equal(runs["dense"][k], runs["paged"][k])
+           for k in runs["dense"]):
+        raise AssertionError(f"{cfg.name} 8x448: paged tokens differ from "
+                             f"dense")
+    print(f"[vl] {cfg.name} FULL 8x448: bf16-paged tokens equal dense "
+          f"({len(runs['dense'])} requests)")
+    reg = obs.get_obs().registry
+    reg.reset_values()
+    K.reset_launch_counts()
+    keys = ("num_alloc_retries", "num_device_alloc", "num_device_free")
+    before = torch.cuda.memory_stats()
+    _, _, per_step = decode_step_times(cfg, params, f"{cfg.name} FULL int8",
+                                       LONG_POS, max_len=LONG_LEN)
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_stats()
+    # Near the card's capacity the caching allocator may free and allocate
+    # device memory again inside a step (cudaFree waits for the device).
+    print(f"[vl] {cfg.name} FULL decode steps timed above: allocator "
+          + " ".join(f"{k}={after.get(k, 0) - before.get(k, 0)}"
+                     for k in keys))
+    check_routes(f"{cfg.name} decode steps", reg.snapshot(),
+                 K.launch_counts())
+    want = {"gama_gemm": sum(c for _, _, c in cfg.gemm_shapes().values()),
+            "dequant": quantized_leaves(params),
+            "flash_decode": cfg.n_layers, "rmsnorm": 2 * cfg.n_layers + 1}
+    if per_step != want:
+        raise AssertionError(f"{cfg.name}: launches a decode step "
+                             f"{json.dumps(per_step)}, expected "
+                             f"{json.dumps(want)}")
+    print(f"[vl] {cfg.name} FULL decode step launches by kernel "
+          f"{json.dumps(per_step)} as expected; every ops.*.ref 0")
+    del params
+    _free()
+    print(f"[vl] {cfg.name} FULL int8: {time.perf_counter() - t_model:.1f} s")
+    mrope_smoke_kernel_vs_plain()
+    return total
+
+
+def launcher_encdec_vl():
+    """The serve launcher's SMOKE runs of both ids, as the reference
+    launcher behaves: Qwen2-VL (text tokens at (t, t, t)) ends in ``verify
+    OK``; SeamlessM4T builds no encoder inputs and fails at its first
+    prefill with KeyError 'enc_embeds'."""
+    text, counts = _launcher(["--arch", "qwen2_vl_72b", "--trace", "smoke6",
+                              "--batch_slots", "3", "--verify"])
+    if "verify OK" not in text or not counts["flash_decode"]:
+        raise AssertionError("launcher qwen2_vl_72b SMOKE: no verify OK")
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            S.main(["--arch", "seamless_m4t_large_v2", "--smoke", "--trace",
+                    "smoke6", "--batch_slots", "3"])
+    except KeyError as e:
+        if e.args != ("enc_embeds",):
+            raise
+        print(f"[archs] launcher --arch seamless_m4t_large_v2 --smoke: "
+              f"KeyError {e} at the first prefill, as the reference "
+              f"launcher's")
+    else:
+        raise AssertionError("launcher seamless_m4t_large_v2 SMOKE served "
+                             "without encoder inputs")
+
+
+def main(argv=None) -> int:
+    """No arguments: every phase (the full check).  ``--phases A,B``
+    runs only the named phases (a partial run for development: it prints
+    no kernels line and no ``ok`` line)."""
+    argv = sys.argv[1:] if argv is None else argv
+    only = None
+    if argv:
+        if len(argv) != 2 or argv[0] != "--phases":
+            print("usage: chip_smoke.py [--phases NAME,NAME,...]",
+                  file=sys.stderr)
+            return 2
+        only = set(argv[1].split(","))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
               "smoke run needs an NVIDIA card", file=sys.stderr)
@@ -3531,12 +4105,12 @@ def main() -> int:
     os.environ["REPRO_TORCH_TUNING_CACHE"] = os.path.join(cache_dir,
                                                           "untuned.json")
     try:
-        return _main(card, kind)
+        return _main(card, kind, only)
     finally:
         shutil.rmtree(cache_dir, ignore_errors=True)
 
 
-def _main(card, kind) -> int:
+def _main(card, kind, only=None) -> int:
     print(f"[device] {card} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | {kind} x{torch.cuda.device_count()}")
     t0 = time.perf_counter()
@@ -3553,6 +4127,8 @@ def _main(card, kind) -> int:
                                smoke_cfg.vocab_size)
     smoke_len = max(len(t["prompt"]) + t["max_new"] for t in smoke_trace) + 8
     def timed(name, fn, *args):
+        if only is not None and name not in only:
+            return {}
         t = time.perf_counter()
         out = fn(*args)
         print(f"[phase] {name}: {time.perf_counter() - t:.1f} s")
@@ -3560,23 +4136,31 @@ def _main(card, kind) -> int:
 
     timed("kernels", kernel_phase, cfg, max_len, smoke_len)
     timed("wkv kernels", wkv_phase)
-    counts = timed("serve SMOKE", smoke_serve_phase, smoke_cfg, smoke_trace,
-                   smoke_len)
+    counts = dict(timed("serve SMOKE", smoke_serve_phase, smoke_cfg,
+                        smoke_trace, smoke_len))
     for name, n in timed("serve FULL", serve_phase, cfg, max_len).items():
-        counts[name] += n
+        counts[name] = counts.get(name, 0) + n
     timed("archs kernels", archs_kernel_phase)
     for name, n in timed("serve archs", archs_phase).items():
         counts[name] = counts.get(name, 0) + n
     timed("hybrid kernels", hybrid_kernel_phase)
     for name, n in timed("serve hybrid", hybrid_phase).items():
         counts[name] = counts.get(name, 0) + n
+    timed("encdec kernels", encdec_kernel_phase)
+    for name, n in timed("serve encdec", encdec_phase).items():
+        counts[name] = counts.get(name, 0) + n
+    for name, n in timed("serve vl", vl_phase).items():
+        counts[name] = counts.get(name, 0) + n
     for name, n in timed("tune", tune_phase, cfg).items():
-        counts[name] += n
+        counts[name] = counts.get(name, 0) + n
     for name, n in timed("train", train_phase).items():
-        counts[name] += n
+        counts[name] = counts.get(name, 0) + n
     timed("train kernels vs plain", train_kernel_vs_plain)
     timed("trainer", trainer_phase)
     print(f"[phase] total: {time.perf_counter() - t0:.1f} s")
+    if only is not None:
+        print(f"[phase] partial run of {sorted(only)}: no kernels line")
+        return 0
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     line = {"kernels": [dict(

@@ -34,7 +34,10 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
     * the stacked leading ``n_groups`` axis of ``blocks`` (one stack per
       pattern position, ``repro/models/transformer.py:206-214``) is
       unstacked into one dict per layer, in layer order; only that axis:
-      an MoE expert stack keeps its E axis ((E, K, N) a layer);
+      an MoE expert stack keeps its E axis ((E, K, N) a layer); an
+      enc-dec model's ``encoder["blocks"]`` (one stack of
+      ``n_encoder_layers``) likewise, and its decoder layers carry their
+      ``ln_cross`` and ``cross_attn`` leaves;
     * dense weights, expert stacks and the embedding table are cast to
       the compute dtype (``dtype``, default ``cfg.compute_dtype``) once,
       here; the MoE router stays f32, as the reference keeps it;
@@ -61,10 +64,18 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
         return finish_params({key: sub}, cfg, dtype, quantize)[key]
 
     params = {k: finish(k, _to_torch(v, dev))
-              for k, v in tree.items() if k != "blocks"}
+              for k, v in tree.items() if k not in ("blocks", "encoder")}
     params["blocks"] = [finish("blocks", [_to_torch(_unstack(stack, g),
                                                     dev)])[0]
                         for g in range(cfg.n_groups) for stack in stacks]
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        (stack,) = enc["blocks"]
+        params["encoder"] = {
+            "blocks": [finish("encoder", {"blocks": [_to_torch(
+                _unstack(stack, g), dev)]})["blocks"][0]
+                for g in range(cfg.n_encoder_layers)],
+            "final_norm": _to_torch(enc["final_norm"], dev)}
     return tie_head(params) if cfg.tie_embeddings else params
 
 

@@ -1,6 +1,5 @@
-"""Architecture configs (``--arch <id>``) of the ported slice; see
-registry.py."""
+"""Architecture configs (``--arch <id>``) of the port; see registry.py."""
 
-from repro_torch.configs.registry import LATER, PORTED, get, get_smoke
+from repro_torch.configs.registry import PORTED, get, get_smoke
 
-__all__ = ["LATER", "PORTED", "get", "get_smoke"]
+__all__ = ["PORTED", "get", "get_smoke"]

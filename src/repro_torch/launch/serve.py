@@ -55,8 +55,14 @@ serves the FULL config, SMOKE otherwise (``--smoke``, the reference's
 flag, is accepted and changes nothing).  ``--quantize`` serves int8
 weights, quantized from the f32 draws (``serving.quant``).  A recurrent
 arch (RWKV-6, the Jamba hybrid's Mamba layers) serves its state on the
-dense layout whatever ``--kv`` asks (the ``paged kv:`` line then does not
-appear).
+dense layout whatever ``--kv`` asks, as does an enc-dec model (no
+``paged kv:`` line; the reference's ``paged kv bypassed:`` line instead).
+``--arch qwen2_vl_72b`` serves the trace's text tokens at
+M-RoPE positions (t, t, t).  Like the reference's, the launcher builds no
+encoder inputs: ``--arch seamless_m4t_large_v2`` fails at its first
+prefill with ``KeyError: 'enc_embeds'``; an enc-dec model is served
+through the engine API (``ServeConfig.enc_len``, ``submit(...,
+enc_embeds=)``).
 ``--verify`` re-runs every completed request through a one-slot one-shot
 engine that prefills monolithically and shares no pages, and checks the
 continuous outputs are bit-identical: a dense one for full-precision runs
@@ -702,6 +708,9 @@ def main(argv: Optional[List[str]] = None) -> None:
                   f"preemptions={rep['preemptions']} "
                   f"kv_hwm={rep['kv_bytes_hwm'] / 2 ** 20:.2f}MiB "
                   f"(dense would reserve {dense_mib:.2f}MiB)")
+        elif args.kv == "paged":
+            print(f"[serve] paged kv bypassed: arch {cfg.name} has "
+                  f"non-attention state — dense layout in effect")
         if engine.prefix is not None:
             print(f"[serve] prefix cache: "
                   f"hit_rate={rep['prefix_hit_rate']:.3f} "

@@ -1,18 +1,25 @@
-"""Grouped-query attention with RoPE, qk-norm and a dense or paged KV
-cache (counterpart of ``repro/models/attention.py``).
+"""Grouped-query attention with RoPE or M-RoPE, qk-norm and a dense or
+paged KV cache (counterpart of ``repro/models/attention.py``).
 
 Execution shapes:
-  * no cache: full causal self-attention;
+  * no cache: full self-attention (causal, or not for an encoder);
   * prefill: causal self-attention over a dense cache at a scalar offset
     (``cache_pos``), which also writes the prompt's KV into the cache;
   * decode: one new token per slot (S == 1) at per-slot positions — a
     (B,) ``cache_pos`` — against each slot's own valid prefix, in a dense
-    cache or in a page pool addressed through ``block_tables``.
+    cache or in a page pool addressed through ``block_tables``;
+  * cross attention (enc-dec): at prefill (``kv_from``) K and V are the
+    encoder states' projections, without RoPE, written into the cross
+    cache from row 0, and the queries attend, not causally, over all of
+    the cache's rows; at decode (``use_cached_kv``) the queries attend
+    over all of the cross cache's rows, with no projection and no write.
+
+As in the reference, cross attention reads every row of the cross cache,
+also the zero rows past a shorter encoder input (ROADMAP Queue C).
 
 The cache is updated **in place** (the reference returns a new cache from
 ``dynamic_update_slice`` and ``.at[].set``); :func:`attention` returns the
-same dict it was given.  Cross-attention and M-RoPE wait for later slices
-and raise ``NotImplementedError``.
+same dict it was given.
 """
 
 from __future__ import annotations
@@ -122,7 +129,7 @@ def attention(
     n_heads: int,
     n_kv_heads: int,
     d_head: int,
-    positions: Optional[torch.Tensor] = None,     # (B, S)
+    positions: Optional[torch.Tensor] = None,     # (B, S) or (B, S, 3)
     rope_theta: float = 10000.0,
     mrope_sections: Optional[Tuple[int, ...]] = None,
     qk_norm: bool = False,
@@ -133,27 +140,47 @@ def attention(
     kv_from: Optional[torch.Tensor] = None,
     use_cached_kv: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """Returns (output (B, S, d_model), the cache updated in place)."""
-    if use_cached_kv or kv_from is not None:
-        raise NotImplementedError(
-            "cross-attention comes with the enc-dec architectures "
-            "(ROADMAP Queue A item 10.5)")
-    if mrope_sections is not None:
-        raise NotImplementedError(
-            "M-RoPE comes with qwen2_vl (ROADMAP Queue A item 10.6)")
+    """Returns (output (B, S, d_model), the cache updated in place).
+    ``mrope_sections`` rotates by (t, h, w) ``positions`` (B, S, 3);
+    ``kv_from`` (encoder states (B, S_enc, d_model)) and ``use_cached_kv``
+    are cross attention's prefill and decode forms."""
     b, s, _ = x.shape
     q = L.dense(p["wq"], x).reshape(b, s, n_heads, d_head)
-    k = L.dense(p["wk"], x).reshape(b, s, n_kv_heads, d_head)
-    v = L.dense(p["wv"], x).reshape(b, s, n_kv_heads, d_head)
+    if use_cached_kv:
+        # Cross attention after prefill: the encoder's K/V live in the
+        # cache; no projection, no cache write, every row attended.
+        if cache is None:
+            raise ValueError("use_cached_kv needs the cross cache")
+        if qk_norm:
+            q = L.rmsnorm(p["q_norm"], q)
+        q = q.transpose(1, 2).contiguous()
+        k, v = (t if t.dtype == x.dtype else t.to(x.dtype)
+                for t in (cache["k"], cache["v"]))
+        if s == 1:
+            length = torch.full((b,), k.shape[2], dtype=torch.int32,
+                                device=x.device)
+            out = ops.decode(q[:, :, 0], k, v, length=length)[:, :, None]
+        else:
+            out = ops.attention(q, k, v, causal=False)
+        out = out.transpose(1, 2).reshape(b, s, n_heads * d_head)
+        return L.dense(p["wo"], out), cache
+
+    kv_src = x if kv_from is None else kv_from
+    sk = kv_src.shape[1]
+    k = L.dense(p["wk"], kv_src).reshape(b, sk, n_kv_heads, d_head)
+    v = L.dense(p["wv"], kv_src).reshape(b, sk, n_kv_heads, d_head)
     if qk_norm:
         q = L.rmsnorm(p["q_norm"], q)
         k = L.rmsnorm(p["k_norm"], k)
-    if positions is not None:
-        angles = L.rope_angles(positions, d_head, rope_theta)
+    if kv_from is None and positions is not None:
+        angles = (L.rope_angles(positions, d_head, rope_theta)
+                  if mrope_sections is None else
+                  L.mrope_angles(positions, d_head, mrope_sections,
+                                 rope_theta))
         q = L.apply_rope(q, angles)
         k = L.apply_rope(k, angles)
     q = q.transpose(1, 2).contiguous()      # (B, H, S, D)
-    k = k.transpose(1, 2)                   # (B, Hkv, S, D)
+    k = k.transpose(1, 2)                   # (B, Hkv, Sk, D)
     v = v.transpose(1, 2)
 
     ragged = isinstance(cache_pos, torch.Tensor) and cache_pos.dim() == 1
@@ -184,11 +211,11 @@ def attention(
             cv[slots, :, pos] = v[:, :, 0].to(cv.dtype)
         else:
             q_off = 0 if cache_pos is None else int(cache_pos)
-            if not 0 <= q_off <= max_len - s:
-                raise ValueError(f"cache write [{q_off}, {q_off + s}) is "
+            if not 0 <= q_off <= max_len - sk:
+                raise ValueError(f"cache write [{q_off}, {q_off + sk}) is "
                                  f"outside the {max_len}-row cache")
-            ck[:, :, q_off:q_off + s] = k.to(ck.dtype)
-            cv[:, :, q_off:q_off + s] = v.to(cv.dtype)
+            ck[:, :, q_off:q_off + sk] = k.to(ck.dtype)
+            cv[:, :, q_off:q_off + sk] = v.to(cv.dtype)
         k = ck if ck.dtype == x.dtype else ck.to(x.dtype)
         v = cv if cv.dtype == x.dtype else cv.to(x.dtype)
     else:
@@ -201,6 +228,7 @@ def attention(
         out = ops.decode(q[:, :, 0], k, v, length=length)
         out = out[:, :, None]                         # (B, H, 1, D)
     else:
-        out = ops.attention(q, k, v, causal=causal, q_offset=q_off)
+        out = ops.attention(q, k, v, causal=causal and kv_from is None,
+                            q_offset=q_off)
     out = out.transpose(1, 2).reshape(b, s, n_heads * d_head)
     return L.dense(p["wo"], out), cache

@@ -4,11 +4,13 @@ A model is a stack of ``n_layers`` blocks cycling through ``pattern`` (a
 tuple of BlockSpec): dense transformers use a single ("attn","dense")
 entry; MoE models ("attn","moe") (Llama-4 alternates it with a dense
 block); RWKV ("rwkv","rwkv_cm"); Jamba an 8-entry hybrid of Mamba and
-attention mixers with dense and MoE FFNs.  Dtype names map to ``torch``
+attention mixers with dense and MoE FFNs.  Encoder-decoder models
+(seamless) add an encoder stack of ``n_encoder_layers`` ("attn", "dense")
+blocks and give the decoder blocks cross-attention; ``mrope_sections``
+(qwen2_vl) rotates by (t, h, w) positions.  Dtype names map to ``torch``
 dtypes.  The sub-configs are copies of the reference's: :class:`MoEConfig`
 (``repro/models/moe.py``) and :class:`MambaConfig`
 (``repro/models/mamba.py``) here, ``rwkv`` a ``models.rwkv.RwkvConfig``.
-Enc-dec models (seamless) wait for ROADMAP Queue A item 10.5.
 """
 
 from __future__ import annotations
@@ -128,10 +130,15 @@ class ModelConfig:
     def kvdtype(self) -> torch.dtype:
         return torch_dtype(self.cache_dtype)
 
-    def gemm_shapes(self) -> dict:
+    def gemm_shapes(self, step: str = "decode") -> dict:
         """The weight GEMMs one forward step runs through ``layers.gemm``:
         name -> (K, N, launches), the launches summed over the layers and
-        the head.
+        the head.  ``step`` is the form of the step: ``"decode"`` (one
+        token a slot) or ``"prefill"`` (a prompt); they differ only for an
+        encoder-decoder model, whose encoder and cross-attention ``wk``/
+        ``wv`` run at prefill only (decode reads the cross cache), at M =
+        the encoder's rows where the decoder's sites run at M = the
+        prompt's.
 
         An attention block runs wq, wk, wv and wo (k and v share a shape);
         a Mamba block in_proj (d -> 2 di), x_proj (di -> dt_rank + 2 N),
@@ -142,7 +149,13 @@ class ModelConfig:
         gate and up share a shape) or up and down (``ffn_kind="gelu"``);
         an MoE FFN its router (in f32: :meth:`gemm_dtype`) and the shared
         expert's SwiGLU, its experts being batched products outside the
-        GEMM (as the reference's einsums are)."""
+        GEMM (as the reference's einsums are).  An enc-dec decoder block
+        adds its cross attention's ``cross wq`` and ``cross wo`` (every
+        step) and ``cross wk/wv`` (prefill); the encoder's blocks are
+        ``enc ...`` sites (prefill)."""
+        if step not in ("decode", "prefill"):
+            raise ValueError(f"step must be 'decode' or 'prefill', got "
+                             f"{step!r}")
         d, f, v = self.d_model, self.d_ff, self.vocab_size
         out: dict = {}
 
@@ -173,6 +186,11 @@ class ModelConfig:
                 add("wq", d, qn, g)
                 add("wk/wv", d, kvn, 2 * g)
                 add("wo", qn, d, g)
+                if self.encoder_decoder:
+                    add("cross wq", d, qn, g)
+                    if step == "prefill":
+                        add("cross wk/wv", d, kvn, 2 * g)
+                    add("cross wo", qn, d, g)
             if spec.ffn == "rwkv_cm":
                 add("cm_wk", d, f, g)
                 add("cm_wv", f, d, g)
@@ -191,6 +209,16 @@ class ModelConfig:
                 add("up", d, f, g)
                 add("down", f, d, g)
         add("lm_head", d, v, 1)
+        if self.encoder_decoder and step == "prefill":
+            e = self.n_encoder_layers
+            add("enc wq", d, self.n_heads * self.d_head, e)
+            add("enc wk/wv", d, self.n_kv_heads * self.d_head, 2 * e)
+            add("enc wo", self.n_heads * self.d_head, d, e)
+            if self.ffn_kind == "swiglu":
+                add("enc gate/up", d, f, 2 * e)
+            else:
+                add("enc up", d, f, e)
+            add("enc down", f, d, e)
         return out
 
     def gemm_dtype(self, site: str) -> torch.dtype:
@@ -202,11 +230,8 @@ class ModelConfig:
     def n_params(self) -> int:
         """Total parameter count, as the reference counts it (analytic:
         the rwkv loras at their default ranks, norms, biases and mixing
-        vectors left out).  Enc-dec models wait for their slice."""
-        if self.encoder_decoder:
-            raise NotImplementedError(
-                f"{self.name}: enc-dec models are not ported (ROADMAP Queue "
-                f"A item 10.5)")
+        vectors left out; an encoder's layers counted with a SwiGLU FFN and
+        the cross attention once a decoder layer, as the reference does)."""
         d, f, v = self.d_model, self.d_ff, self.vocab_size
         total = v * d  # embedding
         if not self.tie_embeddings:
@@ -238,6 +263,11 @@ class ModelConfig:
             elif spec.ffn == "rwkv_cm":
                 n += 2 * d * f + d * d
             total += n * self.n_groups
+        if self.encoder_decoder:
+            attn = (d * (self.n_heads + 2 * self.n_kv_heads) * self.d_head
+                    + self.n_heads * self.d_head * d)
+            total += (self.n_encoder_layers * (attn + 3 * d * f)
+                      + self.n_layers * attn)
         return total
 
     def n_active_params(self) -> int:

@@ -14,7 +14,7 @@ f32.
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -81,7 +81,9 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int,
                dtype=torch.float32, device="cpu",
                scale: Optional[float] = None) -> Params:
     scale = (1.0 / d_in) ** 0.5 if scale is None else scale
-    return {"w": _normal(gen, (d_in, d_out), dtype, device) * scale}
+    # Scaled in place: a weight of gigabytes (Qwen2-VL-72B's 5 GB f32 lm
+    # head) needs no second copy; the values are those of ``* scale``.
+    return {"w": _normal(gen, (d_in, d_out), dtype, device).mul_(scale)}
 
 
 def norm_init(d: int, dtype=torch.float32, device="cpu") -> Params:
@@ -104,7 +106,7 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int,
 
 def embedding_init(gen: torch.Generator, vocab: int, d_model: int,
                    dtype=torch.float32, device="cpu") -> Params:
-    return {"table": _normal(gen, (vocab, d_model), dtype, device) * 0.02}
+    return {"table": _normal(gen, (vocab, d_model), dtype, device).mul_(0.02)}
 
 
 # ---------------------------------------------------------------------------
@@ -152,13 +154,36 @@ def groupnorm(x: torch.Tensor, n_groups: int, scale: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def _inv_freq(d_head: int, theta: float, device) -> torch.Tensor:
+    exponent = torch.arange(0, d_head, 2, dtype=torch.float32,
+                            device=device) / d_head
+    return 1.0 / (theta ** exponent)
+
+
 def rope_angles(positions: torch.Tensor, d_head: int,
                 theta: float = 10000.0) -> torch.Tensor:
     """positions: (..., S) -> angles (..., S, d_head // 2), f32."""
-    exponent = torch.arange(0, d_head, 2, dtype=torch.float32,
-                            device=positions.device) / d_head
-    inv_freq = 1.0 / (theta ** exponent)
-    return positions[..., None].float() * inv_freq
+    return (positions[..., None].float()
+            * _inv_freq(d_head, theta, positions.device))
+
+
+def mrope_angles(positions: torch.Tensor, d_head: int,
+                 sections: Sequence[int],
+                 theta: float = 10000.0) -> torch.Tensor:
+    """M-RoPE (Qwen2-VL): positions (..., S, 3) = (t, h, w) coordinates ->
+    angles (..., S, d_head // 2), f32.  The d_head // 2 frequency slots
+    split into ``sections`` (t, h, w sizes summing to d_head // 2), each
+    rotating by its own coordinate; t == h == w is :func:`rope_angles`."""
+    half = d_head // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} must sum to "
+                         f"d_head // 2 = {half}")
+    # Which coordinate (0 = t, 1 = h, 2 = w) each frequency slot rotates by.
+    select = torch.repeat_interleave(
+        torch.arange(3, device=positions.device),
+        torch.tensor(tuple(sections), device=positions.device))
+    return (positions[..., select].float()
+            * _inv_freq(d_head, theta, positions.device))
 
 
 def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:

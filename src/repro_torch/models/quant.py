@@ -37,18 +37,22 @@ WEIGHT_KEYS = ("w", "table", "gate", "up", "down")
 _MIN_SIZE = 1 << 14      # don't quantize tiny vectors/norms
 
 
-def quantize_weight(w: torch.Tensor) -> Dict[str, torch.Tensor]:
+def quantize_weight(w: torch.Tensor,
+                    inplace: bool = False) -> Dict[str, torch.Tensor]:
     """(..., K, N) -> {"q": int8 (..., K, N), "scale": f32 (..., N)}.
 
     Computed in f32 as the reference: ``torch.round`` rounds half to
     even, as ``jnp.round`` does, and an all-zero channel gets scale 0.
     ``max |w|`` is taken as ``max(max w, -min w)`` and the codes rounded
     and clamped in place, so an f32 weight needs one temporary of its
-    size (a Jamba expert stack is 3.76 GB)."""
+    size (a Jamba expert stack is 3.76 GB), or none with ``inplace`` (the
+    caller's f32 ``w`` is overwritten: a fresh draw that nothing else
+    reads)."""
     wf = w.float()
     scale = torch.maximum(wf.amax(dim=-2), -wf.amin(dim=-2)) / 127.0
     safe = torch.where(scale > 0, scale, torch.ones_like(scale))
-    q = torch.div(wf, safe[..., None, :]).round_().clamp_(-127, 127)
+    q = (wf.div_(safe[..., None, :]) if inplace and wf is w
+         else torch.div(wf, safe[..., None, :])).round_().clamp_(-127, 127)
     return {"q": q.to(torch.int8), "scale": scale}
 
 
@@ -83,8 +87,8 @@ def _is_quantizable(name: str, leaf: Any, groups: int = 0) -> bool:
     return name in WEIGHT_KEYS
 
 
-def quantize_params(params: Params, groups: int = 1
-                    ) -> Tuple[Params, Dict[str, int]]:
+def quantize_params(params: Params, groups: int = 1, enc_groups: int = 0,
+                    inplace: bool = False) -> Tuple[Params, Dict[str, int]]:
     """Quantize every large matmul weight of the tree; every other leaf is
     kept as it is.  Returns (params, stats) with the reference's stats
     dict: leaves quantized and kept, and bytes before and after.
@@ -92,9 +96,12 @@ def quantize_params(params: Params, groups: int = 1
     ``groups`` is the model's ``n_groups``: the port's ``blocks`` list
     holds one dict per layer where the reference holds one stack per
     pattern position, so a block leaf is selected by its stacked size and
-    counted once per stack (its bytes once per layer).  Quantize the f32
-    parameters, as the reference does: codes and scales taken from bf16
-    copies would differ from its."""
+    counted once per stack (its bytes once per layer); an enc-dec model's
+    ``encoder["blocks"]`` likewise, its stack of ``enc_groups`` layers.
+    Quantize the f32 parameters, as the reference does: codes and scales
+    taken from bf16 copies would differ from its.  ``inplace`` lets each
+    f32 weight be overwritten as it is quantized (:func:`quantize_weight`).
+    """
     stats = {"quantized": 0, "kept": 0, "bytes_before": 0, "bytes_after": 0}
 
     def walk(name, node, g, count):
@@ -107,19 +114,25 @@ def quantize_params(params: Params, groups: int = 1
         stats["bytes_before"] += nbytes
         if _is_quantizable(name, node, g):
             stats["quantized"] += count
-            qw = quantize_weight(node)
+            qw = quantize_weight(node, inplace)
             stats["bytes_after"] += qw["q"].numel() + 4 * qw["scale"].numel()
             return qw
         stats["kept"] += count
         stats["bytes_after"] += nbytes
         return node
 
+    def stacks(key, sub, g):
+        per_group = len(sub) // g
+        return [walk(key, b, g, int(i < per_group))
+                for i, b in enumerate(sub)]
+
     out = {}
     for key, sub in params.items():
         if key == "blocks":
-            per_group = len(sub) // groups
-            out[key] = [walk(key, b, groups, int(i < per_group))
-                        for i, b in enumerate(sub)]
+            out[key] = stacks(key, sub, groups)
+        elif key == "encoder":
+            out[key] = {k: stacks(k, v, enc_groups) if k == "blocks"
+                        else walk(k, v, 0, 1) for k, v in sub.items()}
         else:
             out[key] = walk(key, sub, 0, 1)
     return out, stats
@@ -131,9 +144,9 @@ def weight_stats(params: Params, period: int, itemsize: int
     quantized, as the reference gives them for its tree of
     ``itemsize``-byte parameters: a leaf or an int8 weight is counted once
     per stack (the first ``period`` layers of ``blocks``, one per pattern
-    position), its bytes once per layer, its original at ``itemsize``
-    bytes an element whatever the port stores it as; ``table_t``, a
-    second layout of the table, is not a parameter."""
+    position; an encoder's first layer), its bytes once per layer, its
+    original at ``itemsize`` bytes an element whatever the port stores it
+    as; ``table_t``, a second layout of the table, is not a parameter."""
     stats = {"quantized": 0, "kept": 0, "bytes_before": 0, "bytes_after": 0}
 
     def walk(node, count):
@@ -158,6 +171,10 @@ def weight_stats(params: Params, period: int, itemsize: int
         if key == "blocks":
             for i, b in enumerate(sub):
                 walk(b, int(i < period))
+        elif key == "encoder":
+            for i, b in enumerate(sub["blocks"]):
+                walk(b, int(i == 0))
+            walk(sub["final_norm"], 1)
         else:
             walk(sub, 1)
     return stats

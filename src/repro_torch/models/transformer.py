@@ -1,7 +1,9 @@
 """Block stacks (counterpart of ``repro/models/transformer.py``) for the
-ported decoder blocks: attention or Mamba mixers with a dense or MoE FFN
-(RMSNorm; Jamba interleaves all four) and the RWKV-6 ``("rwkv",
-"rwkv_cm")`` block (LayerNorm).
+ported blocks: attention or Mamba mixers with a dense or MoE FFN
+(RMSNorm; Jamba interleaves all four), the RWKV-6 ``("rwkv",
+"rwkv_cm")`` block (LayerNorm), and the enc-dec decoder block (an
+``("attn", "dense")`` block with cross attention between the mixer and the
+FFN; the encoder runs ``("attn", "dense")`` blocks, not causally).
 
 The reference stacks each pattern position's parameters over ``n_groups``
 and runs them with ``lax.scan``; here a stack is a plain list with one
@@ -35,13 +37,14 @@ REMAT_POLICIES = ("full", "tp_outs")
 
 
 def check_block(cfg: ModelConfig, spec: BlockSpec) -> None:
-    if _BLOCKS.get((spec.mixer, spec.ffn)) != cfg.norm or cfg.encoder_decoder:
+    if _BLOCKS.get((spec.mixer, spec.ffn)) != cfg.norm or (
+            cfg.encoder_decoder and spec.mixer != "attn"):
         raise NotImplementedError(
             f"{cfg.name}: block {spec} (norm={cfg.norm}, encoder_decoder="
-            f"{cfg.encoder_decoder}) is not ported; the ported decoder "
-            f"blocks are {sorted(_BLOCKS)} with the norms "
-            f"{sorted(set(_BLOCKS.values()))} (enc-dec: ROADMAP Queue A item "
-            f"10.5)")
+            f"{cfg.encoder_decoder}) is not ported; the ported blocks are "
+            f"{sorted(_BLOCKS)} with the norms "
+            f"{sorted(set(_BLOCKS.values()))}, an enc-dec decoder's with an "
+            f"attention mixer")
 
 
 def _mamba_cfg(cfg: ModelConfig) -> MambaConfig:
@@ -62,7 +65,8 @@ def apply_norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, spec: BlockSpec,
                device: Union[str, torch.device] = "cpu") -> Params:
-    """One layer's parameters, drawn mixer first, then the FFN."""
+    """One layer's parameters, drawn mixer first, then (an enc-dec
+    decoder's) the cross attention, then the FFN."""
     check_block(cfg, spec)
     p: Params = {"ln1": init_norm(cfg, device)}
     if spec.mixer == "rwkv":
@@ -76,6 +80,11 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, spec: BlockSpec,
         p["attn"] = A.init_attention(gen, cfg.d_model, cfg.n_heads,
                                      cfg.n_kv_heads, cfg.d_head, cfg.qk_norm,
                                      cfg.pdtype, device)
+    if cfg.encoder_decoder:
+        p["ln_cross"] = init_norm(cfg, device)
+        p["cross_attn"] = A.init_attention(gen, cfg.d_model, cfg.n_heads,
+                                           cfg.n_kv_heads, cfg.d_head,
+                                           cfg.qk_norm, cfg.pdtype, device)
     p["ln2"] = init_norm(cfg, device)
     if spec.ffn == "rwkv_cm":
         p["rwkv_cm"] = R.init_channel_mix(gen, cfg.d_model, cfg.d_ff,
@@ -126,19 +135,37 @@ def _ffn(p: Params, h: torch.Tensor, cfg: ModelConfig, spec: BlockSpec,
     return L.mlp(p["mlp"], h, cfg.ffn_kind), None
 
 
+def _cross(p: Params, h: torch.Tensor, cfg: ModelConfig,
+           cache: Optional[Cache], enc_out: Optional[torch.Tensor],
+           decode: bool) -> torch.Tensor:
+    """The enc-dec decoder block's cross attention: at prefill (or without
+    a cache) over ``enc_out``'s projections, written into the ``"cross"``
+    cache from row 0; at decode over the cross cache as it is."""
+    out, _ = A.attention(
+        p["cross_attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        d_head=cfg.d_head, positions=None, qk_norm=cfg.qk_norm, causal=False,
+        cache=None if cache is None else cache["cross"],
+        cache_pos=None if decode else 0,
+        kv_from=None if decode else enc_out, use_cached_kv=decode)
+    return out
+
+
 def apply_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
                 spec: BlockSpec, *, positions: Optional[torch.Tensor],
                 cache: Optional[Cache] = None,
                 cache_pos: Union[int, torch.Tensor, None] = None,
                 block_tables: Optional[torch.Tensor] = None,
+                enc_out: Optional[torch.Tensor] = None, decode: bool = False,
                 remat_sub_blocks: bool = False, with_aux: bool = False
                 ) -> Tuple[torch.Tensor, Optional[Cache],
                            Optional[torch.Tensor]]:
     """Returns (x, cache updated in place, the MoE aux loss: None unless
-    the block has an MoE FFN and ``with_aux``).  ``remat_sub_blocks``
-    wraps the mixer and the FFN (each with its norm) in a checkpoint of
-    its own, so only their outputs are kept for the backward (the
-    ``tp_outs`` policy)."""
+    the block has an MoE FFN and ``with_aux``).  An enc-dec decoder block
+    (``cross_attn`` in ``p``) runs its cross attention after the mixer:
+    over ``enc_out`` (the encoder's states) at prefill, over its cross
+    cache at ``decode``.  ``remat_sub_blocks`` wraps the mixer and the FFN
+    (each with its norm) in a checkpoint of its own, so only their outputs
+    are kept for the backward (the ``tp_outs`` policy)."""
     check_block(cfg, spec)
 
     def mixer(x):
@@ -150,11 +177,19 @@ def apply_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
         return _ffn(p, apply_norm(cfg, p["ln2"], x), cfg, spec, cache,
                     with_aux)
 
+    def cross(x):
+        return _cross(p, apply_norm(cfg, p["ln_cross"], x), cfg, cache,
+                      enc_out, decode)
+
     if remat_sub_blocks:
         x = x + checkpoint(mixer, x, use_reentrant=False)
+        if "cross_attn" in p:
+            x = x + checkpoint(cross, x, use_reentrant=False)
         out, aux = checkpoint(ffn, x, use_reentrant=False)
         return x + out, cache, aux
     x = x + mixer(x)
+    if "cross_attn" in p:
+        x = x + cross(x)
     out, aux = ffn(x)
     return x + out, cache, aux
 
@@ -166,7 +201,8 @@ def layer_specs(cfg: ModelConfig) -> List[BlockSpec]:
 
 def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int,
                      device: Union[str, torch.device] = "cpu",
-                     paged: Optional[Tuple] = None) -> List[Cache]:
+                     paged: Optional[Tuple] = None,
+                     cross_len: int = 0) -> List[Cache]:
     """Per-layer caches, each from its layer's block spec.  An attention
     layer holds KV: dense (batch, Hkv, max_len, D), or with
     ``paged=(num_pages, page_size[, kv_dtype])`` page pools
@@ -176,10 +212,15 @@ def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int,
     in the cache dtype, the SSM state in f32) and an RWKV layer
     ``{"rwkv": rwkv.init_rwkv_cache(...)}`` (shifts in the cache dtype, the
     WKV state in f32), whatever ``max_len``; a recurrent state has no
-    paged form, so ``paged`` raises for an arch with one."""
+    paged form, so ``paged`` raises for an arch with one.  ``cross_len``
+    > 0 gives each layer an enc-dec cross cache ``"cross"``, dense
+    (batch, Hkv, cross_len, D) in the cache dtype, which has no paged
+    form either."""
     specs = layer_specs(cfg)
     if paged is not None and any(s.mixer != "attn" for s in specs):
         raise ValueError(f"{cfg.name}: a recurrent state has no pages")
+    if paged is not None and cross_len:
+        raise ValueError(f"{cfg.name}: an enc-dec cross cache has no pages")
     caches: List[Cache] = []
     for spec in specs:
         if spec.mixer == "rwkv":
@@ -198,6 +239,10 @@ def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int,
             caches.append({"attn": A.init_kv_cache(
                 batch, cfg.n_kv_heads, max_len, cfg.d_head, cfg.kvdtype,
                 device)})
+        if cross_len:
+            caches[-1]["cross"] = A.init_kv_cache(
+                batch, cfg.n_kv_heads, cross_len, cfg.d_head, cfg.kvdtype,
+                device)
     return caches
 
 
@@ -206,13 +251,15 @@ def apply_stack(stack: List[Params], x: torch.Tensor, cfg: ModelConfig, *,
                 caches: Optional[List[Cache]] = None,
                 cache_pos: Union[int, torch.Tensor, None] = None,
                 block_tables: Optional[torch.Tensor] = None,
+                enc_out: Optional[torch.Tensor] = None, decode: bool = False,
                 remat: bool = False, remat_policy: str = "full",
                 with_aux: bool = False
                 ) -> Tuple[torch.Tensor, Optional[List[Cache]],
                            Optional[torch.Tensor]]:
     """Run every layer in order.  Returns (x, caches updated in place,
     aux): with ``with_aux`` the MoE layers' aux losses summed in layer
-    order (an f32 zero without MoE layers), else None.
+    order (an f32 zero without MoE layers), else None.  ``enc_out`` and
+    ``decode`` are an enc-dec decoder's (:func:`apply_block`).
 
     ``remat`` (training) recomputes activations in the backward instead of
     keeping them: policy ``"full"`` checkpoints each layer (only its input
@@ -231,7 +278,7 @@ def apply_stack(stack: List[Params], x: torch.Tensor, cfg: ModelConfig, *,
         kw = dict(positions=positions,
                   cache=None if caches is None else caches[i],
                   cache_pos=cache_pos, block_tables=block_tables,
-                  with_aux=with_aux)
+                  enc_out=enc_out, decode=decode, with_aux=with_aux)
         if remat and remat_policy == "full":
             x, a = checkpoint(lambda x, p=p, spec=spec, kw=kw: apply_block(
                 p, x, cfg, spec, **kw)[::2], x, use_reentrant=False)

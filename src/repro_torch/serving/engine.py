@@ -55,9 +55,13 @@ prefill), as the reference does.  ``pretune`` resolves the kernel plan of
 every GEMM shape the engine can issue before the first step (a cache hit
 or the analytic plan; ``tuned_gemm_hits`` counts the hits), so a step's
 lookups are memo hits.  ``quantize=True`` serves int8 weights
-(``serving.quant``; ``quant_stats`` as the reference's).  Enc-dec
-encoders and the pack mesh raise ``NotImplementedError`` naming the
-ROADMAP item that brings them; none falls back to another path.
+(``serving.quant``; ``quant_stats`` as the reference's).  An enc-dec
+model (``enc_len`` > 0) takes each request's encoder input as
+``submit(..., enc_embeds=)`` / ``generate(..., enc_embeds=)`` and keeps a
+dense cross cache of ``enc_len`` rows a slot, so it bypasses the page
+pool, chunked prefill and the prefix cache to dense and monolithic, as
+the reference does.  The pack mesh raises ``NotImplementedError`` naming
+the ROADMAP item that brings it; nothing falls back to another path.
 
 Observability (``repro_torch.obs``) follows the reference series for
 series and span for span: the engine instruments the process bundle's
@@ -138,8 +142,6 @@ class ServeConfig:
 # (field, predicate on the value that the port cannot serve yet, the
 # ROADMAP item that brings it).
 _UNSUPPORTED = (
-    ("enc_len", lambda v: v > 0,
-     "the enc-dec architectures' encoder (ROADMAP Queue A item 10.5)"),
     ("pack_mesh", lambda v: v is not None,
      "the multi-device pack GEMM (ROADMAP Queue A item 12)"),
     ("pack_data_axis", lambda v: v is not None,
@@ -276,10 +278,11 @@ class ServeEngine:
         if scfg.kv_dtype is not None and not paged_eligible(cfg):
             raise ValueError(
                 f"arch {cfg.name!r} cannot honor kv_dtype="
-                f"{scfg.kv_dtype!r}: its recurrent state bypasses the page "
-                f"pool to the dense layout, which would silently store "
-                f"full-precision state.  Drop kv_dtype or serve an "
-                f"attention-only arch")
+                f"{scfg.kv_dtype!r}: its recurrent state / enc-dec cross "
+                f"cache bypasses the page pool to the dense layout, which "
+                f"would silently store full-precision KV.  Drop kv_dtype "
+                f"(the bypass is only transparent for the default page "
+                f"precision) or serve an attention-only arch")
         table = params["embed"]["table"]
         self.device = (table["q"] if quant.is_quantized(table)
                        else table).device
@@ -288,9 +291,9 @@ class ServeEngine:
         if scfg.quantize:
             params = self._quantized(cfg, params)
         # Paged KV needs every position in an attention page; a recurrent
-        # state is fixed-size per slot, so such an arch keeps the dense
-        # layout (the reference's engine.py:258-264): kv_mode is the live
-        # path.
+        # state is fixed-size per slot and an enc-dec cross cache is
+        # length-fixed, so such an arch keeps the dense layout (the
+        # reference's engine.py:258-264): kv_mode is the live path.
         self.kv_mode = scfg.kv
         if scfg.kv == "paged" and not paged_eligible(cfg):
             self.kv_mode = "dense"
@@ -342,7 +345,8 @@ class ServeEngine:
             raise ValueError(f"ServeConfig.prefill_chunk must be >= 0 (or "
                              f"None = tuner), got {chunk}")
         if chunk and not paged_eligible(cfg):
-            # A recurrent state cannot stop mid-prompt and resume: whole.
+            # A recurrent state cannot stop mid-prompt and resume, and a
+            # cross cache is written once at full length: whole.
             chunk = 0
         if self.prefix is not None and chunk == 0:
             # A prefix hit moves the chunk cursor: with no chunk size, one
@@ -489,9 +493,17 @@ class ServeEngine:
     def _all_gemm_shapes(self) -> List[tuple]:
         """(M, K, N, dtype) GEMMs the engine can issue: the uniform-batch
         shapes, every per-slot prefill bucket (M = bucket; not for
-        exact-length prefill) and, chunked, M = chunk."""
+        exact-length prefill), chunked, M = chunk and, for an enc-dec
+        model, the encoder's and the cross K/V projections' at M =
+        ``enc_len`` (a full-length encoder input)."""
         shapes = model_gemm_shapes(self.cfg, self.scfg.batch_slots,
                                    self.scfg.max_len)
+        if self.cfg.encoder_decoder and self.scfg.enc_len:
+            decode = self.cfg.gemm_shapes()
+            shapes += [(self.scfg.enc_len, k, n, self.cfg.gemm_dtype(name))
+                       for name, (k, n, _) in
+                       self.cfg.gemm_shapes("prefill").items()
+                       if name not in decode]
         for bucket in (() if self._exact_prefill
                        else prefill_buckets(self.scfg.max_len)):
             shapes += model_gemm_shapes(self.cfg, 1, bucket,
@@ -510,7 +522,8 @@ class ServeEngine:
                                     kv_dtype=self.scfg.kv_dtype,
                                     device=self.device)
         return init_cache(self.cfg, self.scfg.batch_slots,
-                          self.scfg.max_len, self.device)
+                          self.scfg.max_len, self.device,
+                          enc_len=self.scfg.enc_len)
 
     # -- KV memory accounting ------------------------------------------------
 
@@ -731,12 +744,16 @@ class ServeEngine:
 
     def submit(self, prompt: np.ndarray, max_new: int, *,
                arrival: Optional[int] = None,
+               enc_embeds: Optional[np.ndarray] = None,
                on_token: Optional[Callable[[int, int, bool], None]]
                = None) -> int:
         """Queue one request; returns its request id.  ``arrival`` (in
-        engine steps) defaults to "now".  ``on_token(rid, token, done)``
-        streams every emitted token the moment the step produces it and
-        may call :meth:`cancel`."""
+        engine steps) defaults to "now".  ``enc_embeds`` (1, S_enc,
+        d_model), S_enc <= ``enc_len``, is an enc-dec model's encoder
+        input (its prefill raises ``KeyError`` without one, as the
+        reference's).  ``on_token(rid, token, done)`` streams every emitted
+        token the moment the step produces it and may call
+        :meth:`cancel`."""
         self._check_open("submit")
         prompt = np.asarray(prompt, np.int64).reshape(-1)
         if prompt.size == 0:
@@ -759,7 +776,7 @@ class ServeEngine:
         arrival = self.step_count if arrival is None else int(arrival)
         self.sched.submit(Request(rid=rid, prompt_len=int(prompt.size),
                                   max_new=int(max_new), arrival=arrival,
-                                  prompt=prompt))
+                                  prompt=prompt, enc_embeds=enc_embeds))
         if on_token is not None:
             self._on_token[rid] = on_token
         tr = self._obs.tracer
@@ -996,7 +1013,7 @@ class ServeEngine:
             self._slot_req[slot.index] = req
             if self.prefill_chunk:
                 scratch = init_cache(self.cfg, 1, self._fresh_len,
-                                     self.device)
+                                     self.device, enc_len=self.scfg.enc_len)
                 if hit_pages:
                     # Cached tokens are never forwarded again: their rows
                     # come back from the sidecar at full precision and the
@@ -1036,11 +1053,10 @@ class ServeEngine:
                                    plen=plen, bucket=bucket):
             toks = np.zeros((1, bucket), np.int64)
             toks[0, :plen] = req.prompt
-            fresh = init_cache(self.cfg, 1, self._fresh_len, self.device)
-            logits, fresh, _ = forward(
-                self.params,
-                {"tokens": torch.from_numpy(toks).to(self.device)},
-                self.cfg, caches=fresh, cache_pos=0)
+            fresh = init_cache(self.cfg, 1, self._fresh_len, self.device,
+                               enc_len=self.scfg.enc_len)
+            logits, fresh, _ = forward(self.params, self._batch(toks, req),
+                                       self.cfg, caches=fresh, cache_pos=0)
             if self.paged:
                 self._insert_slot_pages(fresh, slot.index)
             else:
@@ -1048,6 +1064,15 @@ class ServeEngine:
             self.stats["prefills"] += 1
             slot.length = plen
             return torch.argmax(logits[0, plen - 1])
+
+    def _batch(self, toks: np.ndarray, req: Request) -> Dict[str, Any]:
+        """A prefill's batch: the (padded) prompt tokens on the device and,
+        for an enc-dec request, its encoder input."""
+        batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+        if req.enc_embeds is not None:
+            batch["enc_embeds"] = torch.as_tensor(req.enc_embeds).to(
+                self.device)
+        return batch
 
     def _advance_prefills(self, events: Dict[str, Any], budget: int) -> None:
         """Spend the step's prefill tokens on prompt chunks, oldest
@@ -1096,10 +1121,8 @@ class ServeEngine:
             toks = np.zeros((1, buf), np.int64)
             toks[0, :take] = req.prompt[c0:c0 + take]
             scratch = self._scratch[slot.index]
-            logits, _, _ = forward(
-                self.params,
-                {"tokens": torch.from_numpy(toks).to(self.device)},
-                self.cfg, caches=scratch, cache_pos=c0)
+            logits, _, _ = forward(self.params, self._batch(toks, req),
+                                   self.cfg, caches=scratch, cache_pos=c0)
             if self.paged:
                 self._insert_chunk_pages(scratch, slot.index, c0, buf)
             self.stats["prefill_chunks"] += 1
@@ -1316,8 +1339,11 @@ class ServeEngine:
 
     # -- one-shot API (on the continuous loop) --------------------------------
 
-    def generate(self, prompts: np.ndarray, max_new: int) -> np.ndarray:
+    def generate(self, prompts: np.ndarray, max_new: int,
+                 enc_embeds: Optional[np.ndarray] = None) -> np.ndarray:
         """prompts: (B, S) with B == batch_slots; returns (B, max_new).
+        ``enc_embeds`` (B, S_enc, d_model): an enc-dec model's encoder
+        inputs, row i for request i.
 
         All B requests are admitted at the same step and decode in
         lockstep.  With ``eos_id`` set, a row that exits early is
@@ -1331,7 +1357,10 @@ class ServeEngine:
             raise RuntimeError(
                 "generate() needs an idle engine; drain() in-flight "
                 "requests first (or use submit()/step() throughout)")
-        rids = [self.submit(prompts[i], max_new) for i in range(b)]
+        rids = [self.submit(prompts[i], max_new,
+                            enc_embeds=None if enc_embeds is None
+                            else np.asarray(enc_embeds[i:i + 1]))
+                for i in range(b)]
         res = self.drain()
         rows = []
         for r in rids:

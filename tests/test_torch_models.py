@@ -22,10 +22,11 @@ from repro_torch.bridge import params_from_numpy
 from repro_torch.models import model as tmodel
 
 ARCHS = ["smollm_360m", "qwen3_8b"]
-# Every ported config, including RWKV-6 (trained, not served) and the
-# MoE and hybrid ones.
+# Every ported config: RWKV-6, the MoE and hybrid ones, the enc-dec
+# SeamlessM4T and the M-RoPE Qwen2-VL.
 CONFIG_ARCHS = ARCHS + ["rwkv6_3b", "kimi_k2_1t_a32b",
-                        "llama4_maverick_400b_a17b", "jamba_v01_52b"]
+                        "llama4_maverick_400b_a17b", "jamba_v01_52b",
+                        "seamless_m4t_large_v2", "qwen2_vl_72b"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
@@ -62,8 +63,15 @@ def test_port_configs_equal_reference():
 
 
 def test_unported_arch_raises():
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        TC.get("seamless_m4t_large_v2")
+    """Every architecture id of the reference builds (FULL and SMOKE); an
+    id the reference does not have raises ValueError."""
+    from repro.configs.registry import ARCH_IDS
+    assert sorted(TC.PORTED) == sorted(ARCH_IDS)
+    for arch in ("seamless_m4t_large_v2", "qwen2_vl_72b"):
+        assert TC.get(arch).name == JC.get(arch).name
+        assert TC.get_smoke(arch).name == JC.get_smoke(arch).name
+    with pytest.raises(ValueError, match="unknown arch"):
+        TC.get("no_such_arch")
 
 
 @pytest.mark.parametrize("arch", CONFIG_ARCHS)
@@ -72,16 +80,27 @@ def test_bridge_round_trips_every_leaf(arch):
     n_layers = jcfg.n_layers
     assert len(tp["blocks"]) == n_layers
     seen = 0
+    stacked = 0
     for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
         keys = [getattr(k, "key", getattr(k, "idx", None)) for k in path]
-        if keys[0] == "blocks":
-            stack = keys[1]
+        # The decoder's stacks, one per pattern position, and an enc-dec
+        # model's encoder stack: one leading layer axis to unstack.
+        lead = (["blocks"] if keys[0] == "blocks" else
+                ["encoder", "blocks"] if keys[:2] == ["encoder", "blocks"]
+                else None)
+        if lead is not None:
+            stack, period = keys[len(lead)], (len(jcfg.pattern)
+                                              if keys[0] == "blocks" else 1)
+            layers = tp
+            for k in lead:
+                layers = layers[k]
             for g in range(leaf.shape[0]):
-                node = tp["blocks"][g * len(jcfg.pattern) + stack]
-                for k in keys[2:]:
+                node = layers[g * period + stack]
+                for k in keys[len(lead) + 1:]:
                     node = node[k]
                 np.testing.assert_array_equal(node.numpy(), leaf[g])
                 seen += 1
+            stacked += 1
         else:
             node = tp
             for k in keys:
@@ -89,8 +108,13 @@ def test_bridge_round_trips_every_leaf(arch):
             np.testing.assert_array_equal(node.numpy(), leaf)
             seen += 1
     assert seen == sum(
-        x.shape[0] if p[0].key == "blocks" else 1
+        x.shape[0] if p[0].key == "blocks" or (
+            p[0].key == "encoder" and p[1].key == "blocks") else 1
         for p, x in jax.tree_util.tree_flatten_with_path(tree)[0])
+    if tcfg.encoder_decoder:
+        assert len(tp["encoder"]["blocks"]) == jcfg.n_encoder_layers
+        assert {"ln_cross", "cross_attn"} <= set(tp["blocks"][0])
+        assert stacked > len(tree["blocks"][0])
     if tcfg.tie_embeddings:
         table_t = tp["embed"]["table_t"]
         assert table_t.is_contiguous()

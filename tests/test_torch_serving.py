@@ -243,8 +243,7 @@ def test_submit_validation_and_close_as_reference():
 
 
 @pytest.mark.parametrize("option,value,item", [
-    ("enc_len", 16, "item 10"), ("pack_data_axis", "data", "item 12"),
-    ("pack_mesh", object(), "item 12")])
+    ("pack_data_axis", "data", "item 12"), ("pack_mesh", object(), "item 12")])
 def test_unported_options_raise(option, value, item):
     _, tcfg, _, tparams = _setup()
     scfg = dataclasses.replace(ServeConfig(batch_slots=2, max_len=32),
@@ -253,16 +252,26 @@ def test_unported_options_raise(option, value, item):
         ServeEngine(tcfg, tparams, scfg)
 
 
-@pytest.mark.parametrize("option,value,item", [("enc_len", 16, "item 10")])
-def test_unported_paged_options_raise(option, value, item):
-    """Paged KV, int8 pages, chunked prefill, the prefix cache and the
-    tuner's sizes are served; an encoder still raises."""
-    _, tcfg, _, tparams = _setup()
-    scfg = dataclasses.replace(ServeConfig(batch_slots=2, max_len=32,
-                                           kv="paged", page_size=16),
-                               **{option: value})
-    with pytest.raises(NotImplementedError, match=item):
-        ServeEngine(tcfg, tparams, scfg)
+@pytest.mark.parametrize("kv", ["dense", "paged"])
+def test_enc_len_accepted_as_reference(kv):
+    """``enc_len`` is served: on a decoder-only model it changes nothing,
+    as in the reference (no cross cache; paged KV stays paged), and the
+    tokens are the JAX engine's.  The enc-dec model's cross cache and its
+    dense bypass are held in tests/test_torch_encdec.py."""
+    jcfg, tcfg, jparams, tparams = _setup()
+    kw = dict(batch_slots=2, max_len=32, enc_len=16, kv=kv, page_size=8)
+    prompts = np.random.default_rng(4).integers(
+        0, jcfg.vocab_size, (2, 5)).astype(np.int32)
+    jeng = JServeEngine(jcfg, jparams, JServeConfig(**kw))
+    teng = ServeEngine(tcfg, tparams, ServeConfig(**kw))
+    try:
+        np.testing.assert_array_equal(teng.generate(prompts, 4),
+                                      jeng.generate(prompts, 4))
+        assert teng.kv_mode == jeng.kv_mode == kv
+        assert all("cross" not in c for c in teng.caches)
+    finally:
+        jeng.close()
+        teng.close()
 
 
 @pytest.mark.parametrize("kv,option,value,resolved", [
