@@ -154,14 +154,29 @@
 5. Train: the wkv6 forward and backward kernels against their plain
    versions at the training shape, a ragged length and a long one, and
    the head-16 builds the SMOKE config runs (bf16, and f32 at the
-   launcher's shape); then RWKV-6 3B FULL (32 layers, d_model 2560, f32
-   parameters, bf16 compute, seeded random weights) takes training steps
-   through ``make_train_step`` (each step's wkv6 and layernorm launches
-   counted), one
-   step profiled; a 2-layer step with the kernels against one with the
-   plain recurrence, in f32 and in bf16 compute, each beside a control;
-   the training launcher at SMOKE size; and a restart after an injected
-   failure that must resume with the uninterrupted run's losses.
+   launcher's shape); ``flash_attention_bwd`` (the attention backward,
+   ``csrc/flash_attention_bwd.cu``) against ``ref.attention_bwd`` on the
+   forward kernel's o and lse at SmolLM-360M's 4 x 2048 and 8 x 64,
+   Qwen3-8B's 32/8 heads of 128 at 1 x 2048, ragged lengths, and in f32
+   the SMOKE heads of 16, 64 and 128 (f32 within 1e-4 of each gradient's
+   largest element; bf16 within 4 x a rounding-floor control; a control
+   with lse + 0.1 that must fail; two calls bit-identical; the forward's
+   o with lse equal to serving's), timed beside its bound, the plain
+   version and SDPA's backward.  Then RWKV-6 3B FULL (32 layers, d_model
+   2560, f32 parameters, bf16 compute, seeded random weights) takes
+   training steps through ``make_train_step`` (each step's wkv6 and
+   layernorm launches counted), one step profiled; a 2-layer step with
+   the kernels against one with the plain recurrence, in f32 and in bf16
+   compute, each beside a control.  SmolLM-360M FULL (tied, f32
+   parameters, bf16 compute, the launcher's ``tp_outs`` remat) trains at
+   8 x 64 and 4 x 2048 tokens (each step's flash_attention,
+   flash_attention_bwd and rmsnorm launches checked, ``ops.attention.ref``
+   0, losses falling), one step of each profiled, and a 2-layer step with
+   attention and the norms on their kernels against their plain versions
+   in f32 and bf16, each beside a control.  Last, the training launcher
+   at SMOKE size for RWKV-6 and for its default arch, SmolLM-360M, each
+   with a restart after an injected failure that must resume with the
+   uninterrupted run's losses.
 6. A ``[phase]`` line with each phase's seconds, a ``{"kernels":
    [...]}`` JSON line, the card line, and last the ``{"ok": true,
    "device": ...}`` line.
@@ -210,6 +225,7 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_chunk, flash_decode, flash_paged_decode)
 from repro_torch.kernels.flash_attention import blocks as attn_blocks  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention_bwd  # noqa: E402,E501
 from repro_torch.kernels.flash_attention import plan as attn_plan  # noqa: E402
 from repro_torch.kernels.gemm import gama_gemm  # noqa: E402
 from repro_torch.kernels.gemm import blocks as gemm_blocks  # noqa: E402
@@ -221,7 +237,8 @@ from repro_torch.launch import serve as S  # noqa: E402
 from repro_torch.launch import train as TL  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.models import (  # noqa: E402
-    decode_step, forward, init_cache, init_paged_cache, init_params, loss_fn)
+    decode_step, forward, init_cache, init_paged_cache, init_params, loss_fn,
+    train_tree)
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.layers import set_gemm_mode  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
@@ -246,6 +263,8 @@ DEV = "cuda"
 
 SOURCES = {"gama_gemm": "src/repro_torch/csrc/gemm.cu",
            "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+           "flash_attention_bwd":
+               "src/repro_torch/csrc/flash_attention_bwd.cu",
            "flash_decode": "src/repro_torch/csrc/decode_attention.cu",
            "flash_paged_decode":
                "src/repro_torch/csrc/paged_decode_attention.cu",
@@ -261,6 +280,8 @@ SOURCES = {"gama_gemm": "src/repro_torch/csrc/gemm.cu",
 # reference's cached RWKV branch scans it in jnp, src/repro/models/rwkv.py).
 REPLACES = {"gama_gemm": "src/repro/kernels/gemm.py:113",
             "flash_attention": "src/repro/kernels/flash_attention.py:145",
+            "flash_attention_bwd": "its VJP (JAX: autodiff through "
+                                   "src/repro/kernels/ref.py:46)",
             "flash_decode": "src/repro/kernels/decode_attention.py:127",
             "flash_paged_decode": "src/repro/kernels/decode_attention.py:415",
             "wkv6": "src/repro/kernels/wkv.py:70",
@@ -295,6 +316,7 @@ CHUNK, CHUNK_BUDGET = 128, 8 + 2 * 128
 SHARED16_HIT_RATE = 0.6
 SHARED16_HWM = {True: 11, False: 20}
 TRAIN_KERNELS = ("wkv6", "wkv6_bwd")
+ATTN_TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "rmsnorm")
 
 
 def card_line() -> str:
@@ -2534,6 +2556,88 @@ def _kind(name):
     return "elementwise and other torch"
 
 
+def timed_steps(step_fn, params, opt, data, steps, want, tokens, label):
+    """``steps`` training steps of ``step_fn`` on ``data``'s batches, the
+    first a warm-up, each between CUDA events with the launch counts reset
+    just before and read just after it: each step must launch exactly
+    ``want`` and give a finite loss.  Returns (params, opt, the measured
+    steps' ms, their launches summed, every step's loss)."""
+    total = {n: 0 for n in want}
+    step_ms, losses = [], []
+    for i in range(steps):
+        batch = data.batch_at(i)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt, m = step_fn(params, opt, batch)
+        end.record()
+        end.synchronize()
+        counts = K.launch_counts()
+        ms = start.elapsed_time(end)
+        loss = float(m["loss"])
+        losses.append(loss)
+        print(f"[train] {label} step {i}{' (warm-up)' if i == 0 else ''}: "
+              f"loss={loss:.5f} grad_norm={float(m['grad_norm']):.5f} "
+              f"lr={m['lr']:.3e} step_ms={ms:.3f} tok_s={tokens / ms * 1e3:.1f}"
+              f" max_memory_allocated={torch.cuda.max_memory_allocated()} "
+              f"launches={json.dumps({n: counts[n] for n in want})}")
+        if not math.isfinite(loss):
+            raise AssertionError(f"non-finite loss at step {i}")
+        bad = {n: counts[n] for n in want if counts[n] != want[n]}
+        if bad:
+            raise AssertionError(f"expected {json.dumps(want)} launches a "
+                                 f"step, got {bad}")
+        if i:
+            step_ms.append(ms)
+            for n in want:
+                total[n] += counts[n]
+    return params, opt, step_ms, total, losses
+
+
+def profile_step(step_fn, params, opt, batch, label, mean_ms):
+    """One more step under ``torch.profiler``: its device time by kernel
+    and by kind, and the device's idle share against the traced wall and
+    against ``mean_ms``, the measured steps' mean with the profiler off.
+    Returns (params, opt)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name, by_kind = {}, {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = _kernel_name(e)
+            us = e.time_range.elapsed_us()
+            n, t = by_name.get(name, (0, 0.0))
+            by_name[name] = (n + 1, t + us)
+            n, t = by_kind.get(_kind(name), (0, 0.0))
+            by_kind[_kind(name)] = (n + 1, t + us)
+    if not by_name:
+        print(f"[profile] train step {label} wall_ms={wall_ms:.3f}; device "
+              f"time not measured (the profiler saw no CUDA events)")
+        return params, opt
+    busy = sum(t for _, t in by_name.values()) / 1e3
+    print(f"[profile] train step ({label}): traced "
+          f"wall_ms={wall_ms:.3f} device_busy_ms={busy:.3f} "
+          f"device_idle_share={1 - busy / wall_ms:.3f} (traced); "
+          f"against the measured steps' mean {mean_ms:.3f} ms "
+          f"(profiler off) {1 - busy / mean_ms:.3f}; kernels="
+          f"{sum(n for n, _ in by_name.values())}")
+    for kind, (n, us) in sorted(by_kind.items(), key=lambda kv: -kv[1][1]):
+        print(f"[profile]   by kind: {kind}: {n} launches, "
+              f"{us / 1e3:.3f} ms ({us / 1e3 / busy:.3f} of busy)")
+    for name, (n, us) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][1])[:15]:
+        print(f"[profile]   {name}: {n} launches, {us / 1e3:.3f} ms")
+    return params, opt
+
+
 def train_phase(steps=4):
     """RWKV-6 3B FULL: f32 params on the card, ``steps`` training steps at
     global batch 8 x 64 tokens through make_train_step (no remat: every
@@ -2552,7 +2656,6 @@ def train_phase(steps=4):
     opt = adamw.init(params)
     step_fn = make_train_step(cfg, opt_cfg, remat=False)
     data = _batches(cfg, 8, 64, seed=0)
-    tokens = 8 * 64
     print(f"[train] arch={cfg.name} layers={cfg.n_layers} d_model="
           f"{cfg.d_model} heads={cfg.d_model // cfg.rwkv.head_size}x"
           f"{cfg.rwkv.head_size} d_ff={cfg.d_ff} vocab={cfg.vocab_size} "
@@ -2563,74 +2666,12 @@ def train_phase(steps=4):
     # for ln0, two norms and the GroupNorm a layer, and the final norm.
     want = dict({n: cfg.n_layers for n in TRAIN_KERNELS},
                 layernorm=3 * cfg.n_layers + 2)
-    total = {n: 0 for n in want}
-    step_ms = []
-    for i in range(steps):
-        batch = data.batch_at(i)
-        torch.cuda.synchronize()
-        K.reset_launch_counts()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        params, opt, m = step_fn(params, opt, batch)
-        end.record()
-        end.synchronize()
-        counts = K.launch_counts()
-        ms = start.elapsed_time(end)
-        loss = float(m["loss"])
-        print(f"[train] step {i}{' (warm-up)' if i == 0 else ''}: "
-              f"loss={loss:.5f} grad_norm={float(m['grad_norm']):.5f} "
-              f"lr={m['lr']:.3e} step_ms={ms:.3f} tok_s={tokens / ms * 1e3:.1f}"
-              f" max_memory_allocated={torch.cuda.max_memory_allocated()} "
-              f"launches={json.dumps({n: counts[n] for n in want})}")
-        if not math.isfinite(loss):
-            raise AssertionError(f"non-finite loss at step {i}")
-        bad = {n: counts[n] for n in want if counts[n] != want[n]}
-        if bad:
-            raise AssertionError(f"expected {json.dumps(want)} launches a "
-                                 f"step, got {bad}")
-        if i:
-            step_ms.append(ms)
-            for n in want:
-                total[n] += counts[n]
-
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    batch = data.batch_at(steps)
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        params, opt, m = step_fn(params, opt, batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name, by_kind = {}, {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = _kernel_name(e)
-            us = e.time_range.elapsed_us()
-            n, t = by_name.get(name, (0, 0.0))
-            by_name[name] = (n + 1, t + us)
-            n, t = by_kind.get(_kind(name), (0, 0.0))
-            by_kind[_kind(name)] = (n + 1, t + us)
-    if not by_name:
-        print(f"[profile] train step wall_ms={wall_ms:.3f}; device time not "
-              f"measured (the profiler saw no CUDA events)")
-    else:
-        busy = sum(t for _, t in by_name.values()) / 1e3
-        plain_wall = sum(step_ms) / len(step_ms)
-        print(f"[profile] train step (rwkv6-3b FULL, 8x64 tokens): traced "
-              f"wall_ms={wall_ms:.3f} device_busy_ms={busy:.3f} "
-              f"device_idle_share={1 - busy / wall_ms:.3f} (traced); "
-              f"against the measured steps' mean {plain_wall:.3f} ms "
-              f"(profiler off) {1 - busy / plain_wall:.3f}; kernels="
-              f"{sum(n for n, _ in by_name.values())}")
-        for kind, (n, us) in sorted(by_kind.items(), key=lambda kv: -kv[1][1]):
-            print(f"[profile]   by kind: {kind}: {n} launches, "
-                  f"{us / 1e3:.3f} ms ({us / 1e3 / busy:.3f} of busy)")
-        for name, (n, us) in sorted(by_name.items(),
-                                    key=lambda kv: -kv[1][1])[:15]:
-            print(f"[profile]   {name}: {n} launches, {us / 1e3:.3f} ms")
-    del params, opt, m
+    params, opt, step_ms, total, _ = timed_steps(
+        step_fn, params, opt, data, steps, want, 8 * 64, cfg.name)
+    params, opt = profile_step(step_fn, params, opt, data.batch_at(steps),
+                               "rwkv6-3b FULL, 8x64 tokens",
+                               sum(step_ms) / len(step_ms))
+    del params, opt
     torch.cuda.empty_cache()
     return total
 
@@ -2714,6 +2755,331 @@ def train_kernel_vs_plain():
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# 5b. Train the attention decoders: flash_attention_bwd, then SmolLM-360M
+# ---------------------------------------------------------------------------
+
+
+def _attn_bwd_bound(b, hq, hkv, s, d, elt):
+    """Bytes: q, o, dO and dQ (B Hq S D), k, v, dK and dV (B Hkv S D) once
+    each, and lse; operations: 5 products of 2 D a (query, key) pair the
+    causal mask keeps (S (S + 1) / 2 a head)."""
+    nbytes = (4 * b * hq + 4 * b * hkv) * s * d * elt + 4 * b * hq * s
+    return nbytes, 10.0 * d * b * hq * s * (s + 1) / 2
+
+
+def check_attention_bwd(label, b, hq, hkv, s, d, dtype, seed, main=False):
+    """flash_attention_bwd against ref.attention_bwd on the same q, k, v,
+    dO and the forward kernel's o and lse, causal at q_offset 0.
+
+    * f32: every gradient within 1e-4 of its largest element (sums in
+      another order).
+    * bf16: the kernel rounds P and dS to bf16 for the tensor cores and
+      its outputs once.  The rounding floor, a control: the plain version
+      from the f32 draws against the plain version from their bf16
+      roundings, per output (what rounding the inputs alone moves).
+      Bound: each output within 4 x its floor + half a bf16 ulp of its
+      largest element (2**-9) of the plain one from the same bf16 inputs.
+
+    Also: lse against the plain forward's (1e-4 (1 + |lse|)); the forward's
+    o with lse equal to serving's without (``torch.equal``); two backward
+    calls bit-identical; a control with lse + 0.1 that must fail the
+    bound.  Timed beside its bound, the plain version and SDPA's backward
+    (K/V expanded to Hq heads beforehand, so its dK/dV are per query
+    head; the forward and backward captured together, less the forward)."""
+    gen = _gen(seed)
+    f32 = dtype == torch.float32
+
+    def draw():
+        src = [torch.randn(shape, generator=gen, device=DEV) for shape in
+               ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d), (b, hq, s, d))]
+        return src, [x.to(dtype) for x in src]
+    src, (q, k, v, dout) = draw()
+    o_serve = flash_attention(q, k, v, causal=True)
+    o, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    want_o, want_lse = ref.ref_attention(q, k, v, causal=True,
+                                         return_lse=True)
+    got = flash_attention_bwd(q, k, v, o, lse, dout)
+    again = flash_attention_bwd(q, k, v, o, lse, dout)
+    torch.cuda.synchronize()
+    if not torch.equal(o, o_serve):
+        raise AssertionError(f"flash_attention {label}: o with lse differs "
+                             f"from serving's o")
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError(f"flash_attention_bwd {label}: two calls differ")
+    lse_err = max_err(lse, want_lse, 1e-4)
+    names = ("dq", "dk", "dv")
+    want = ref.attention_bwd(q.float(), k.float(), v.float(), o.float(), lse,
+                             dout.float())
+    if f32:
+        limits = {n: 1e-4 * w.abs().max().item() for n, w in zip(names, want)}
+        floor = {}
+        form = "1e-4 * max|plain|"
+    else:
+        o_src, lse_src = ref.ref_attention(*src[:3], causal=True,
+                                           return_lse=True)
+        exact = ref.attention_bwd(*src[:3], o_src, lse_src, src[3])
+        floor = {n: (w - x).abs().max().item()
+                 for n, w, x in zip(names, want, exact)}
+        limits = {n: 4 * floor[n] + 2 ** -9 * w.abs().max().item()
+                  for n, w in zip(names, want)}
+        form = "4 * floor + 2**-9 * max|plain|"
+        del exact, o_src, lse_src
+    errs = {}
+    for n, g_, w in zip(names, got, want):
+        if not torch.isfinite(g_.float()).all():
+            raise AssertionError(f"flash_attention_bwd {label}: non-finite "
+                                 f"{n}")
+        errs[n] = (g_.double() - w.double()).abs().max().item()
+        if errs[n] > limits[n]:
+            raise AssertionError(f"flash_attention_bwd {label}: {n} max abs "
+                                 f"err {errs[n]:.3e} over {limits[n]:.3e} "
+                                 f"({form})")
+    broken = ref.attention_bwd(q.float(), k.float(), v.float(), o.float(),
+                               lse + 0.1, dout.float())
+    bad = {n: (g_.double() - w.double()).abs().max().item()
+           for n, g_, w in zip(names, got, broken)}
+    if all(bad[n] <= limits[n] for n in names):
+        raise AssertionError(f"control flash_attention_bwd {label}: lse + 0.1 "
+                             f"passed the bound {json.dumps(bad)}")
+    print(f"[control] flash_attention_bwd {label}: plain with lse + 0.1 fails "
+          f"as it must: max abs err "
+          f"{json.dumps({n: float(f'{x:.3e}') for n, x in bad.items()})} "
+          f"against bounds "
+          f"{json.dumps({n: float(f'{x:.3e}') for n, x in limits.items()})}")
+    del want, broken, again, want_o
+    r = RESULTS["flash_attention_bwd"]
+    r["max_abs_err"] = max(r["max_abs_err"], max(errs.values()))
+    nbytes, flops = _attn_bwd_bound(b, hq, hkv, s, d, q.element_size())
+
+    def mk(fn):
+        def make():     # fresh inputs per copy, rotated past the L2
+            _, (q_, k_, v_, d_) = draw()
+            o_, l_ = flash_attention(q_, k_, v_, causal=True,
+                                     return_lse=True)
+            return lambda: fn(q_, k_, v_, o_, l_, d_)
+        return make
+    kern = device_ms(mk(flash_attention_bwd), nbytes)
+    plain = device_ms(mk(ref.attention_bwd), nbytes,
+                      reps=24 if s * s * b * hq < 1 << 24 else 2)
+
+    def make_lib(backward):
+        def make():
+            _, (q_, k_, v_, d_) = draw()
+            group = hq // hkv
+            leaves = [q_.requires_grad_(), k_.repeat_interleave(group, 1)
+                      .requires_grad_(), v_.repeat_interleave(group, 1)
+                      .requires_grad_()]
+
+            def call():
+                out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+                if backward:
+                    torch.autograd.grad(out, leaves, d_)
+            return call
+        return make
+    # A backward runs on its forward's stream, so the graph holds both:
+    # SDPA's backward is the pair's time less the forward's.
+    lib = (device_ms(make_lib(True), nbytes, reps=8)
+           - device_ms(make_lib(False), nbytes, reps=8))
+    bms, by = bound(nbytes, flops, dtype)
+    print(f"[kernel] flash_attention_bwd {label} B={b} Hq={hq} Hkv={hkv} "
+          f"S={s} D={d} causal {str(dtype)[6:]} max_abs_err "
+          f"{json.dumps({n: float(f'{x:.3e}') for n, x in errs.items()})} "
+          f"bound {json.dumps({n: float(f'{x:.3e}') for n, x in limits.items()})}"
+          f" ({form}; floor "
+          f"{json.dumps({n: float(f'{x:.3e}') for n, x in floor.items()})})"
+          f" lse_err={lse_err:.3e} repeatable=True o_with_lse==o=True "
+          f"kernel_ms={kern:.5f} plain_ms={plain:.5f} library_ms={lib:.5f} "
+          f"(SDPA backward) bound_ms={bms:.6f} ({by}: {nbytes / 1e6:.2f} MB, "
+          f"{flops / 1e9:.3f} GFLOP) kernel/library={kern / lib:.2f} "
+          f"bound/kernel={bms / kern:.4f}")
+    if main:
+        r.update(ms=kern, plain_ms=plain, library_ms=lib, bound_ms=bms,
+                 bound_by=by, shape=f"B={b} Hq={hq} Hkv={hkv} S={s} D={d}")
+
+
+def attention_bwd_phase():
+    # SmolLM-360M FULL at its context (4 x 2048) and the launcher's 8 x 64;
+    # Qwen3-8B's 32/8 heads of 128; ragged lengths; the SMOKE configs' f32
+    # heads of 16 at the SMOKE launcher's 8 x 64; f32 at D = 64 and 128.
+    check_attention_bwd("smollm-4x2048", 4, 15, 5, 2048, 64, torch.bfloat16,
+                        seed=71, main=True)
+    check_attention_bwd("smollm-8x64", 8, 15, 5, 64, 64, torch.bfloat16,
+                        seed=72)
+    check_attention_bwd("qwen3-1x2048", 1, 32, 8, 2048, 128, torch.bfloat16,
+                        seed=73)
+    check_attention_bwd("ragged-100", 2, 15, 5, 100, 64, torch.bfloat16,
+                        seed=74)
+    check_attention_bwd("ragged-77-d128", 1, 8, 2, 77, 128, torch.bfloat16,
+                        seed=75)
+    check_attention_bwd("smoke-8x64", 8, 6, 2, 64, 16, torch.float32,
+                        seed=76)
+    check_attention_bwd("f32-ragged-37", 2, 6, 2, 37, 16, torch.float32,
+                        seed=77)
+    check_attention_bwd("f32-d64", 2, 15, 5, 100, 64, torch.float32, seed=78)
+    check_attention_bwd("f32-d128", 1, 8, 2, 77, 128, torch.float32, seed=79)
+
+
+@contextlib.contextmanager
+def attention_mode(mode, scale_mult=1.0):
+    """Route the models' ``ops.attention`` and ``ops.rmsnorm`` calls through
+    ``mode`` for a while, attention's softmax scale multiplied by
+    ``scale_mult`` (the controls' perturbation)."""
+    orig_attn, orig_norm = ops.attention, ops.rmsnorm
+
+    def attn(q, k, v, *, scale=None, **kw):
+        if scale_mult != 1.0:
+            scale = (q.shape[-1] ** -0.5 if scale is None
+                     else scale) * scale_mult
+        return orig_attn(q, k, v, scale=scale, mode=mode, **kw)
+
+    def norm(x, scale, *, eps=1e-6):
+        return orig_norm(x, scale, eps=eps, mode=mode)
+    ops.attention, ops.rmsnorm = attn, norm
+    try:
+        yield
+    finally:
+        ops.attention, ops.rmsnorm = orig_attn, orig_norm
+
+
+def _attn_grads(cfg, params, batch, mode, scale_mult=1.0):
+    """Loss and every leaf's gradient with attention and the norms in
+    ``mode`` (no remat).  A ``ref`` run must launch none of their kernels."""
+    leaves = adamw.leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    before = K.launch_counts()
+    with attention_mode(mode, scale_mult):
+        loss, _ = loss_fn(params, batch, cfg, remat=False)
+        grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    moved = {n: K.launch_counts()[n] - before[n] for n in ATTN_TRAIN_KERNELS}
+    if mode == "ref" and any(moved.values()):
+        raise AssertionError(f"the plain run launched kernels: {moved}")
+    return loss.item(), grads, moved
+
+
+def attention_kernel_vs_plain():
+    """One step's loss and gradients of SmolLM-360M at FULL width and 2
+    layers (4 x 256 tokens), with attention and the norms on their kernels
+    (flash_attention with its backward, rmsnorm) and on their plain
+    versions (torch autograd of the plain attention and norm), same
+    parameters and batch:
+
+    * f32 compute: the two differ in summation order only.  Bounds: the
+      loss within 1e-5, every leaf's gradient within 1e-4 of its largest
+      element.  Control: the plain run with the softmax scale 1% off must
+      break the gradient bound.
+    * bf16 compute (the FULL config's): P and dS round to bf16 inside the
+      kernels, outputs round once.  Control: the plain run with the scale
+      times 1 + 1e-6 gives the rounding floor.  Bounds, a witness that the
+      step stays finite and close: the loss within 1e-2, every leaf within
+      5e-2 of its largest element."""
+    base = dataclasses.replace(C.get("smollm_360m"), n_layers=2)
+    params = train_tree(init_params(base, seed=5, device=DEV,
+                                    dtype=torch.float32))
+    names = [n for n, _ in _leaf_names(params)]
+    batch = {k: torch.as_tensor(v, device=DEV)
+             for k, v in _batches(base, 4, 256, seed=2).batch_at(0).items()}
+    want = {"flash_attention": 2, "flash_attention_bwd": 2, "rmsnorm": 5}
+    for compute, loss_tol, grad_tol, mult in (
+            ("float32", 1e-5, 1e-4, 1.01), ("bfloat16", 1e-2, 5e-2, 1 + 1e-6)):
+        cfg = dataclasses.replace(base, compute_dtype=compute)
+        loss_k, g_k, counts = _attn_grads(cfg, params, batch, "auto")
+        loss_p, g_p, _ = _attn_grads(cfg, params, batch, "ref")
+        rel = _grad_diff(names, g_k, g_p)
+        del g_k
+        loss_c, g_c, _ = _attn_grads(cfg, params, batch, "ref", mult)
+        rel_c = _grad_diff(names, g_c, g_p)
+        del g_c, g_p
+        print(f"[train] attention kernels vs plain (smollm-360m width, 2 "
+              f"layers, 4x256 tokens, compute={compute}): loss "
+              f"{loss_k:.7f} vs {loss_p:.7f} (|diff| "
+              f"{abs(loss_k - loss_p):.3e}, bound {loss_tol:g}); gradient "
+              f"max rel diff {max(rel.values()):.3e} over {len(rel)} leaves "
+              f"(bound {grad_tol:g}), largest: {_worst(rel)}; launches "
+              f"{json.dumps(counts)}")
+        print(f"[train]   control, plain with the softmax scale x {mult!r} "
+              f"vs plain ({'must break the bound' if compute == 'float32' else 'the bf16 rounding floor'}): "
+              f"loss |diff| {abs(loss_c - loss_p):.3e}, gradient max rel diff "
+              f"{max(rel_c.values()):.3e}, largest: {_worst(rel_c)}")
+        if counts != want:
+            raise AssertionError(f"kernel path launched {counts}, not {want}")
+        if abs(loss_k - loss_p) > loss_tol or max(rel.values()) > grad_tol:
+            raise AssertionError(f"kernel and plain training steps differ "
+                                 f"({compute})")
+        if compute == "float32" and max(rel_c.values()) <= grad_tol:
+            raise AssertionError("the f32 bound does not catch the scale 1% "
+                                 "off")
+    del params
+    torch.cuda.empty_cache()
+
+
+def train_attention_phase():
+    """SmolLM-360M FULL (32 layers, d_model 960, 15/5 heads of 64, tied
+    vocab 49152; f32 parameters, bf16 compute, AdamW) through
+    make_train_step with the launcher's remat (``tp_outs``: each mixer and
+    FFN recomputed in the backward): 5 steps at the launcher's 8 x 64
+    tokens, then 4 at SmolLM's context, 4 x 2048, each shape's first a
+    warm-up and one more profiled; the losses must be finite and fall.
+    Launches a step: flash_attention twice a layer (forward and the
+    recomputation), flash_attention_bwd once, rmsnorm twice for each of a
+    layer's two norms and once for the final norm.  The route counters:
+    ``ops.attention.ref`` 0, ``.kernel`` the forward's launches.  Then the
+    2-layer kernel-vs-plain step."""
+    set_gemm_mode("ref")
+    cfg = C.get("smollm_360m")
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = train_tree(init_params(cfg, seed=4, device=DEV,
+                                    dtype=torch.float32))
+    n_params = sum(p.numel() for p in adamw.leaves(params))
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=100)
+    opt = adamw.init(params)
+    step_fn = make_train_step(cfg, opt_cfg, remat=True,
+                              remat_policy="tp_outs")
+    want = {"flash_attention": 2 * cfg.n_layers,
+            "flash_attention_bwd": cfg.n_layers,
+            "rmsnorm": 4 * cfg.n_layers + 1}
+    print(f"[train] arch={cfg.name} layers={cfg.n_layers} d_model="
+          f"{cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads}x{cfg.d_head} "
+          f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} tied params={n_params} "
+          f"(f32, {len(adamw.leaves(params))} leaves) compute="
+          f"{cfg.compute_dtype} remat=tp_outs gemm=torch.matmul")
+    total = {n: 0 for n in want}
+    reg = obs.get_obs().registry
+    for batch, seq, steps in ((8, 64, 5), (4, 2048, 4)):
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        reg.reset_values()
+        data = _batches(cfg, batch, seq, seed=3)
+        label = f"{cfg.name} FULL {batch}x{seq}"
+        params, opt, step_ms, counts, losses = timed_steps(
+            step_fn, params, opt, data, steps, want, batch * seq, label)
+        routes = {k: v for k, v in reg.snapshot()["counters"].items()
+                  if k.startswith("ops.attention")}
+        mean = sum(step_ms) / len(step_ms)
+        print(f"[train] {label}: steps 1-{steps - 1} mean step_ms="
+              f"{mean:.3f} tok_s={batch * seq / mean * 1e3:.1f} "
+              f"max_memory_allocated={torch.cuda.max_memory_allocated()} "
+              f"losses {losses} routes {json.dumps(routes)} "
+              f"flash_attention_bwd launches a step "
+              f"{want['flash_attention_bwd']} (2 kernels each)")
+        if routes.get("ops.attention.ref", 0) or routes.get(
+                "ops.attention.kernel") != steps * want["flash_attention"]:
+            raise AssertionError(f"{label}: attention routes {routes}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"{label}: the loss did not fall: {losses}")
+        for n in want:
+            total[n] += counts[n]
+        params, opt = profile_step(step_fn, params, opt,
+                                   data.batch_at(steps), label, mean)
+    del params, opt
+    torch.cuda.empty_cache()
+    attention_kernel_vs_plain()
+    return total
+
+
 def _leaf_names(tree, prefix=""):
     if isinstance(tree, dict):
         return [x for k, v in tree.items()
@@ -2727,61 +3093,70 @@ def _leaf_names(tree, prefix=""):
 def trainer_phase():
     """The training launcher at SMOKE size on the card, then a restart
     check: a Trainer that fails once at step 3 restores the step-2
-    checkpoint and must log the uninterrupted run's losses exactly."""
+    checkpoint and must log the uninterrupted run's losses exactly.  For
+    RWKV-6 (the wkv6 kernels) and for the launcher's default arch,
+    SmolLM-360M (attention and its backward kernel, one tied leaf)."""
     ckpt_root = os.path.join(ROOT, "build", "chip_smoke_ckpt")
     shutil.rmtree(ckpt_root, ignore_errors=True)
     try:
-        K.reset_launch_counts()
-        res = TL.main(["--arch", "rwkv6_3b", "--smoke", "--steps", "6",
-                       "--device", DEV,
-                       "--ckpt_every", "2", "--ckpt_dir",
-                       os.path.join(ckpt_root, "launcher")])
-        counts = K.launch_counts()
-        if res["restarts"] != 0 or res["final_step"] != 6:
-            raise AssertionError(f"launcher: {res}")
-        print(f"[train] launcher --smoke --steps 6 --ckpt_every 2: "
-              f"final_step={res['final_step']} restarts={res['restarts']} "
-              f"losses={[round(m['loss'], 5) for m in res['metrics']]} "
-              f"launches={json.dumps({n: counts[n] for n in TRAIN_KERNELS})}")
-        if not counts["wkv6"] or not counts["wkv6_bwd"]:
-            raise AssertionError("the launcher's steps ran no wkv kernel")
-
-        cfg = C.get_smoke("rwkv6_3b")
-
-        def run(tag, hook=None):
-            params = init_params(cfg, seed=0, device=DEV, dtype=torch.float32)
-            opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=2,
-                                        total_steps=6)
-            data = _batches(cfg, 8, 64, seed=0)
-            t = Trainer(cfg, TrainConfig(
-                steps=6, ckpt_every=2, log_every=1,
-                ckpt_dir=os.path.join(ckpt_root, tag)), opt_cfg, params,
-                adamw.init(params), lambda s: data.iterate(s),
-                make_train_step(cfg, opt_cfg, remat=True,
-                                remat_policy="tp_outs"), failure_hook=hook)
-            return t.run()
-        clean = run("clean")
-        fail = {3}
-
-        def hook(step):
-            if step in fail:
-                fail.clear()
-                raise RuntimeError("injected node failure")
-        hurt = run("hurt", hook)
-        want = {m["step"]: m["loss"] for m in clean["metrics"]}
-        got = {m["step"]: m["loss"] for m in hurt["metrics"]}
-        print(f"[train] restart: uninterrupted losses "
-              f"{[want[s] for s in sorted(want)]}; with a failure at step 3 "
-              f"steps {[m['step'] for m in hurt['metrics']]} restarts="
-              f"{hurt['restarts']} final losses {[got[s] for s in sorted(got)]}"
-              f" equal={got == want}")
-        if clean["restarts"] != 0 or hurt["restarts"] != 1 or got != want:
-            raise AssertionError("restart did not resume the uninterrupted "
-                                 "run's losses")
-        if [m["step"] for m in hurt["metrics"]] != [0, 1, 2, 2, 3, 4, 5]:
-            raise AssertionError("restart did not resume from step 2")
+        for arch, kernels, argv in (
+                ("rwkv6_3b", TRAIN_KERNELS, ["--arch", "rwkv6_3b"]),
+                ("smollm_360m", ATTN_TRAIN_KERNELS, [])):
+            trainer_check(arch, kernels, argv, ckpt_root)
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
+
+
+def trainer_check(arch, kernels, argv, ckpt_root):
+    K.reset_launch_counts()
+    res = TL.main(argv + ["--smoke", "--steps", "6", "--device", DEV,
+                          "--ckpt_every", "2", "--ckpt_dir",
+                          os.path.join(ckpt_root, arch, "launcher")])
+    counts = K.launch_counts()
+    if res["restarts"] != 0 or res["final_step"] != 6:
+        raise AssertionError(f"launcher: {res}")
+    print(f"[train] launcher {' '.join(argv) or '(default arch)'} --smoke "
+          f"--steps 6 --ckpt_every 2: final_step={res['final_step']} "
+          f"restarts={res['restarts']} "
+          f"losses={[round(m['loss'], 5) for m in res['metrics']]} "
+          f"launches={json.dumps({n: counts[n] for n in kernels})}")
+    if not all(counts[n] for n in kernels):
+        raise AssertionError(f"the launcher's steps ran no {kernels} kernel")
+
+    cfg = C.get_smoke(arch)
+
+    def run(tag, hook=None):
+        params = train_tree(init_params(cfg, seed=0, device=DEV,
+                                        dtype=torch.float32))
+        opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=6)
+        data = _batches(cfg, 8, 64, seed=0)
+        t = Trainer(cfg, TrainConfig(
+            steps=6, ckpt_every=2, log_every=1,
+            ckpt_dir=os.path.join(ckpt_root, arch, tag)), opt_cfg, params,
+            adamw.init(params), lambda s: data.iterate(s),
+            make_train_step(cfg, opt_cfg, remat=True,
+                            remat_policy="tp_outs"), failure_hook=hook)
+        return t.run()
+    clean = run("clean")
+    fail = {3}
+
+    def hook(step):
+        if step in fail:
+            fail.clear()
+            raise RuntimeError("injected node failure")
+    hurt = run("hurt", hook)
+    want = {m["step"]: m["loss"] for m in clean["metrics"]}
+    got = {m["step"]: m["loss"] for m in hurt["metrics"]}
+    print(f"[train] {cfg.name} restart: uninterrupted losses "
+          f"{[want[s] for s in sorted(want)]}; with a failure at step 3 "
+          f"steps {[m['step'] for m in hurt['metrics']]} restarts="
+          f"{hurt['restarts']} final losses {[got[s] for s in sorted(got)]}"
+          f" equal={got == want}")
+    if clean["restarts"] != 0 or hurt["restarts"] != 1 or got != want:
+        raise AssertionError("restart did not resume the uninterrupted "
+                             "run's losses")
+    if [m["step"] for m in hurt["metrics"]] != [0, 1, 2, 2, 3, 4, 5]:
+        raise AssertionError("restart did not resume from step 2")
 
 
 # ---------------------------------------------------------------------------
@@ -4135,6 +4510,7 @@ def _main(card, kind, only=None) -> int:
         return out
 
     timed("kernels", kernel_phase, cfg, max_len, smoke_len)
+    timed("attention bwd kernels", attention_bwd_phase)
     timed("wkv kernels", wkv_phase)
     counts = dict(timed("serve SMOKE", smoke_serve_phase, smoke_cfg,
                         smoke_trace, smoke_len))
@@ -4156,6 +4532,8 @@ def _main(card, kind, only=None) -> int:
     for name, n in timed("train", train_phase).items():
         counts[name] = counts.get(name, 0) + n
     timed("train kernels vs plain", train_kernel_vs_plain)
+    for name, n in timed("train attention", train_attention_phase).items():
+        counts[name] = counts.get(name, 0) + n
     timed("trainer", trainer_phase)
     print(f"[phase] total: {time.perf_counter() - t0:.1f} s")
     if only is not None:

@@ -9,6 +9,13 @@
 // giving 0.  q_offset and kv_len are runtime arguments here (trace-time
 // constants in the TPU kernel).
 //
+// With a non-null `lse` (training's forward, kernels/flash_attention.py:
+// FlashAttention) each row's log-sum-exp of its scaled logits, m + log(l) in
+// natural-log units (+inf for a row with no valid key), is written to
+// lse[(b * Hq + h) * Sq + row] as f32, for the backward
+// (csrc/flash_attention_bwd.cu).  It is one more store after the row's last
+// tile: the output's bits, the plan and the launch are those of lse = null.
+//
 // Two kernels, chosen by dtype alone (kernels/flash_attention.py:plan):
 //   * bf16: flash_attention_tc_kernel, FlashAttention-2 on the tensor cores.
 //     A block owns `rows` query rows of `heads` query heads (1, or the whole
@@ -69,8 +76,8 @@ constexpr int WARPS = 4, ROWS_PER_WARP = 4, BQ = WARPS * ROWS_PER_WARP;
 template <int D>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_attention_simt_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                            float* __restrict__ o, int hq, int hkv, int sq, int sk, float scale, int causal,
-                            int q_offset, int kv_len) {
+                            float* __restrict__ o, float* __restrict__ lse, int hq, int hkv, int sq, int sk,
+                            float scale, int causal, int q_offset, int kv_len) {
   extern __shared__ float smem[];
   float* Qs = smem;                     // BQ x D
   float* Ks = Qs + BQ * D;              // KV_TILE x (D + 1)
@@ -113,17 +120,19 @@ flash_attention_simt_kernel(const float* __restrict__ q, const float* __restrict
   for (int r = 0; r < ROWS_PER_WARP; ++r) {
     const int qi = q0 + warp * ROWS_PER_WARP + r;
     if (qi < sq) st[r].store(o + ((size_t)bh * sq + qi) * D, lane);
+    if (lse != nullptr && qi < sq && lane == 0)
+      lse[(size_t)bh * sq + qi] = st[r].l > 0.f ? __fadd_rn(st[r].m, logf(st[r].l)) : __int_as_float(0x7f800000);
   }
 }
 
 template <int D>
-void launch_simt(const void* q, const void* k, const void* v, void* o, int b, int hq, int hkv, int sq, int sk,
-                 float scale, int causal, int q_offset, int kv_len, cudaStream_t s) {
+void launch_simt(const void* q, const void* k, const void* v, void* o, float* lse, int b, int hq, int hkv, int sq,
+                 int sk, float scale, int causal, int q_offset, int kv_len, cudaStream_t s) {
   const size_t smem = sizeof(float) * (BQ * D + KV_TILE * (D + 1) + KV_TILE * D);
   const dim3 grid((sq + BQ - 1) / BQ, b * hq);
   flash_attention_simt_kernel<D><<<grid, WARPS * 32, smem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), hq, hkv, sq, sk, scale, causal, q_offset, kv_len);
+      static_cast<float*>(o), lse, hq, hkv, sq, sk, scale, causal, q_offset, kv_len);
 }
 
 // ---------------------------------------------------------------------------
@@ -271,6 +280,19 @@ struct WarpRows {
     }
   }
 
+  // The rows' log-sum-exp in natural-log units: (m + log2 l) * ln 2, +inf
+  // where l == 0; the quad's lanes hold the same m and l, lane t == 0 stores.
+  __device__ __forceinline__ void store_lse(float* lse, int row0, int sq, int lane) const {
+    if (lane % 4) return;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + lane / 4 + 8 * r;
+      if (row < sq)
+        lse[row] = l[r] > 0.f ? __fmul_rn(__fadd_rn(m[r], log2f(l[r])), 0.6931471805599453f)
+                              : __int_as_float(0x7f800000);
+    }
+  }
+
   // Zero-denominator guard (flash_attention.py:106-108): l == 0 -> 0.
   __device__ __forceinline__ void store(bf16* out, int row0, int sq, int lane) const {
     const int g = lane / 4, t = lane % 4;
@@ -295,8 +317,9 @@ struct WarpRows {
 template <int D>
 __global__ void __launch_bounds__(MAX_WARPS * 32)
 flash_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-                          bf16* __restrict__ o, int hq, int hkv, int sq, int sk, float scale_log2, int causal,
-                          int q_offset, int kv_len, int row_warps, int heads, int stages) {
+                          bf16* __restrict__ o, float* __restrict__ lse, int hq, int hkv, int sq, int sk,
+                          float scale_log2, int causal, int q_offset, int kv_len, int row_warps, int heads,
+                          int stages) {
   using L = FaTile<D>;
   extern __shared__ __align__(128) char tc_smem[];
   const int warps = blockDim.x / 32, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -372,11 +395,13 @@ flash_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   }
   cp_async_wait<0>();
   if (active) w.store(o + (size_t)(b * hq + h) * sq * D, wq0, sq, lane);
+  if (active && lse != nullptr) w.store_lse(lse + (size_t)(b * hq + h) * sq, wq0, sq, lane);
 }
 
 template <int D>
-int launch_tc(const void* q, const void* k, const void* v, void* o, int b, int hq, int hkv, int sq, int sk,
-              float scale, int causal, int q_offset, int kv_len, int rows, int heads, int stages, cudaStream_t s) {
+int launch_tc(const void* q, const void* k, const void* v, void* o, float* lse, int b, int hq, int hkv, int sq,
+              int sk, float scale, int causal, int q_offset, int kv_len, int rows, int heads, int stages,
+              cudaStream_t s) {
   const int row_warps = rows / 16, warps = row_warps * heads;
   if (rows % 16 || (row_warps != 1 && row_warps != 2 && row_warps != 4) ||
       (heads != 1 && heads != hq / hkv) || warps > MAX_WARPS || stages < MIN_STAGES || stages > MAX_STAGES)
@@ -396,33 +421,34 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int b, int h
   const float scale_log2 = scale * 1.4426950408889634f;
   kernel<<<dim3(b * (hq / heads), qtiles), warps * 32, smem, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), static_cast<bf16*>(o),
-      hq, hkv, sq, sk, scale_log2, causal, q_offset, kv_len, row_warps, heads, stages);
+      lse, hq, hkv, sq, sk, scale_log2, causal, q_offset, kv_len, row_warps, heads, stages);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Tensors contiguous; dtype 0 = f32, 1 = bf16; 0 <= kv_len <= sk; q, k, v
-// and o 16-byte aligned for bf16.  The plan (route, rows, heads, stages,
-// kv_tile) comes from kernels/flash_attention.py:plan and is checked here:
+// and o 16-byte aligned for bf16; lse null, or f32 (b, hq, sq).  The plan
+// (route, rows, heads, stages, kv_tile) comes from kernels/flash_attention.py:plan and is checked here:
 // f32 takes only the SIMT plan (route 0, 16 rows, 1 head, 1 stage, 32-key
 // tiles) at D = 16, 64 or 128; bf16 only the tensor-core route (route 1, 64-key tiles) with 16,
 // 32 or 64 rows, 1 head or the whole GQA group, at most 8 warps and 2-4
 // stages that fit in shared memory.  Anything else: cudaErrorInvalidValue,
 // and nothing is launched.
-extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int b, int hq, int hkv,
-                                      int sq, int sk, int d, int dtype, int causal, int q_offset, int kv_len,
-                                      float scale, int route, int rows, int heads, int stages, int kv_tile,
-                                      void* stream) {
+extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o, void* lse_out, int b,
+                                      int hq, int hkv, int sq, int sk, int d, int dtype, int causal, int q_offset,
+                                      int kv_len, float scale, int route, int rows, int heads, int stages,
+                                      int kv_tile, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_out);
   if (b < 1 || hq < 1 || hkv < 1 || hq % hkv || sq < 1 || sk < 1 || kv_len < 0 || kv_len > sk)
     return (int)cudaErrorInvalidValue;
   if (dtype == 0) {
     if (route != 0 || rows != BQ || heads != 1 || stages != 1 || kv_tile != KV_TILE) return (int)cudaErrorInvalidValue;
     switch (d) {
-      case 16: launch_simt<16>(q, k, v, o, b, hq, hkv, sq, sk, scale, causal, q_offset, kv_len, s); break;
-      case 64: launch_simt<64>(q, k, v, o, b, hq, hkv, sq, sk, scale, causal, q_offset, kv_len, s); break;
-      case 128: launch_simt<128>(q, k, v, o, b, hq, hkv, sq, sk, scale, causal, q_offset, kv_len, s); break;
+      case 16: launch_simt<16>(q, k, v, o, lse, b, hq, hkv, sq, sk, scale, causal, q_offset, kv_len, s); break;
+      case 64: launch_simt<64>(q, k, v, o, lse, b, hq, hkv, sq, sk, scale, causal, q_offset, kv_len, s); break;
+      case 128: launch_simt<128>(q, k, v, o, lse, b, hq, hkv, sq, sk, scale, causal, q_offset, kv_len, s); break;
       default: return (int)cudaErrorInvalidValue;
     }
     return (int)cudaGetLastError();
@@ -430,9 +456,11 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   if (dtype != 1 || route != 1 || kv_tile != BK) return (int)cudaErrorInvalidValue;
   switch (d) {
     case 64:
-      return launch_tc<64>(q, k, v, o, b, hq, hkv, sq, sk, scale, causal, q_offset, kv_len, rows, heads, stages, s);
+      return launch_tc<64>(q, k, v, o, lse, b, hq, hkv, sq, sk, scale, causal, q_offset, kv_len, rows, heads, stages,
+                             s);
     case 128:
-      return launch_tc<128>(q, k, v, o, b, hq, hkv, sq, sk, scale, causal, q_offset, kv_len, rows, heads, stages, s);
+      return launch_tc<128>(q, k, v, o, lse, b, hq, hkv, sq, sk, scale, causal, q_offset, kv_len, rows, heads, stages,
+                             s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -6,10 +6,12 @@ from repro_torch.kernels import (decode_attention, dequant, flash_attention,
 
 # Every ported kernel: its wrapper's module and the name of the launch
 # counter there (flash_decode and flash_paged_decode share a module and
-# count apart, as do wkv6, its backward and its state-carrying form).
+# count apart, as do wkv6, its backward and its state-carrying form, and
+# flash_attention and its backward).
 KERNEL_COUNTERS = {
     "gama_gemm": (gemm, "launches"),
     "flash_attention": (flash_attention, "launches"),
+    "flash_attention_bwd": (flash_attention, "bwd_launches"),
     "flash_decode": (decode_attention, "launches"),
     "flash_paged_decode": (decode_attention, "paged_launches"),
     "wkv6": (wkv, "launches"),

@@ -28,6 +28,16 @@ runtime offsets gives the same rows.
 :data:`plain`) for CPU tensors only; for CUDA tensors it launches the
 kernel or raises.  :data:`launches` counts kernel launches,
 :data:`offset_launches` those at ``q_offset > 0``.
+
+Training differentiates it through :class:`FlashAttention`: the forward
+kernel also writes each row's log-sum-exp (``return_lse``; the output's
+bits and the launch are serving's), and :func:`flash_attention_bwd`, the
+hand-written backward (``csrc/flash_attention_bwd.cu``: FlashAttention-2's,
+two passes, no atomics, so two calls give the same bits), computes dQ, dK
+and dV from it.  The reference trains by autodiff of its jnp oracle (its
+Pallas kernel has no VJP); the backward replaces that VJP for the one form
+training runs, causal at ``q_offset`` 0 over every key.
+:data:`bwd_launches` counts its calls (two kernels each).
 """
 
 from __future__ import annotations
@@ -38,10 +48,14 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from torch.autograd.function import once_differentiable
+
 from repro_torch.kernels import _build
+from repro_torch.kernels.ref import attention_bwd as plain_bwd
 from repro_torch.kernels.ref import ref_attention as plain
 
 launches = 0
+bwd_launches = 0
 # Launches at q_offset > 0: chunked prefill's chunks after the first, and
 # suffixes after a cached prefix.
 offset_launches = 0
@@ -181,9 +195,19 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     fn = lib.flash_attention_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
                        + [ctypes.c_float] + [ctypes.c_int] * 5
                        + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention_bwd")
+    fn = lib.flash_attention_bwd_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+                       + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 
@@ -204,14 +228,17 @@ def check_cuda_operands(name: str, *tensors: torch.Tensor) -> None:
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            out: torch.Tensor, p: Plan, *, causal: bool, scale: float,
-           q_offset: int, kv_len: int) -> None:
-    """Launch the kernel with plan ``p`` into ``out`` (no checks beyond the
-    kernel's own, which refuses a plan it does not take)."""
+           q_offset: int, kv_len: int,
+           lse: Optional[torch.Tensor] = None) -> None:
+    """Launch the kernel with plan ``p`` into ``out`` (and each row's
+    log-sum-exp into ``lse``, f32 (B, Hq, Sq), unless None; no checks
+    beyond the kernel's own, which refuses a plan it does not take)."""
     global launches, offset_launches
     b, hq, sq, d = q.shape
     lib = _lib()
     err = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        0 if lse is None else lse.data_ptr(), b, hq,
         k.shape[1], sq, k.shape[2], d, _DTYPES[q.dtype], int(causal),
         int(q_offset), int(kv_len), float(scale), _ROUTES[p.route], p.rows,
         p.heads, p.stages, p.kv_tile,
@@ -224,17 +251,19 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: Optional[float] = None,
                     q_offset: int = 0, kv_len: Optional[int] = None,
-                    plan: Optional[Plan] = None) -> torch.Tensor:
+                    plan: Optional[Plan] = None, return_lse: bool = False):
     """q: (B, Hq, Sq, D); k/v: (B, Hkv, Sk, D) -> (B, Hq, Sq, D).
     ``plan`` is the launch (:func:`check_plan` refuses one the kernel does
-    not take); None takes :func:`plan`'s."""
+    not take); None takes :func:`plan`'s.  ``return_lse``: (out, each
+    row's log-sum-exp of its scaled logits (B, Hq, Sq) f32, +inf for a row
+    with no valid key), what :func:`flash_attention_bwd` takes."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     scale = d ** -0.5 if scale is None else float(scale)
     kv_len = sk if kv_len is None else int(kv_len)
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return plain(q, k, v, causal=causal, scale=scale, q_offset=q_offset,
-                     kv_len=kv_len)
+                     kv_len=kv_len, return_lse=return_lse)
     _build.refuse_autograd("flash_attention", q, k, v)
     check_cuda_operands("flash_attention", q, k, v)
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
@@ -253,6 +282,90 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
                    for t in (q, k, v))
     out = torch.empty_like(q)
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     launch(q, k, v, out, plan, causal=causal, scale=scale, q_offset=q_offset,
-           kv_len=kv_len)
-    return out
+           kv_len=kv_len, lse=lse)
+    return (out, lse) if return_lse else out
+
+
+def check_bwd_form(causal: bool, q_offset: int, kv_len: Optional[int],
+                   sq: int, sk: int) -> None:
+    """Raise ``NotImplementedError`` unless the attention is the form
+    :func:`flash_attention_bwd` takes: causal at ``q_offset`` 0, a query
+    for every key, every key valid (training's self-attention)."""
+    if not causal or q_offset != 0 or sq != sk or kv_len not in (None, sk):
+        raise NotImplementedError(
+            f"flash_attention_bwd takes causal self-attention at q_offset 0 "
+            f"over every key (training's form), not causal={causal} "
+            f"q_offset={q_offset} Sq={sq} Sk={sk} kv_len={kv_len}")
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, *,
+                        scale: Optional[float] = None, causal: bool = True,
+                        q_offset: int = 0, kv_len: Optional[int] = None):
+    """The VJP of causal :func:`flash_attention` at ``q_offset`` 0 (S
+    queries, S keys): q, o, dout (B, Hq, S, D); k, v (B, Hkv, S, D); lse
+    (B, Hq, S) f32 from ``return_lse`` -> (dq, dk, dv) in q's dtype, dk and
+    dv summed over each KV head's query heads.  Any other form raises
+    ``NotImplementedError`` (:func:`check_bwd_form`).  CPU tensors run
+    :data:`plain_bwd`; CUDA tensors launch the kernel or raise."""
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    check_bwd_form(causal, q_offset, kv_len, s, k.shape[2])
+    scale = d ** -0.5 if scale is None else float(scale)
+    if all(t.device.type == "cpu" for t in (q, k, v, o, lse, dout)):
+        return plain_bwd(q, k, v, o, lse, dout, scale=scale)
+    check_cuda_operands("flash_attention_bwd", q, k, v, o, dout)
+    check_head_dim("flash_attention_bwd", d, q.dtype)
+    if (k.shape != v.shape or k.shape[0] != b or k.shape[3] != d
+            or o.shape != q.shape or dout.shape != q.shape or hq % hkv):
+        raise ValueError(f"flash_attention_bwd shapes: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}, o "
+                         f"{tuple(o.shape)}, dout {tuple(dout.shape)}")
+    if (lse.shape != (b, hq, s) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"flash_attention_bwd needs lse ({b}, {hq}, {s}) "
+                         f"f32, contiguous, on {q.device}; got "
+                         f"{tuple(lse.shape)} {lse.dtype} on {lse.device}")
+    # 16-byte cp.async (bf16) needs 16-byte aligned operands.
+    q, k, v, o, dout = (t if t.data_ptr() % 16 == 0 else t.clone()
+                        for t in (q, k, v, o, dout))
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+    lib = _bwd_lib()
+    err = lib.flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, hq, hkv, s, d, _DTYPES[q.dtype],
+        scale, torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, "flash_attention_bwd", err)
+    global bwd_launches
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Causal self-attention at ``q_offset`` 0 (:func:`check_bwd_form`'s
+    form, which the caller checks) with its hand-written backward, for
+    training: the forward kernel (its plan as given) also writes the rows'
+    log-sum-exp, and (q, k, v, o, lse) are saved; the backward is
+    :func:`flash_attention_bwd`.  CPU tensors run both plain halves
+    (``ref.ref_attention`` with ``return_lse``, ``ref.attention_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, plan):
+        o, lse = flash_attention(q, k, v, causal=True, scale=scale,
+                                 plan=plan, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout):
+        dq, dk, dv = flash_attention_bwd(*ctx.saved_tensors,
+                                         dout.contiguous(), scale=ctx.scale)
+        return dq, dk, dv, None, None

@@ -22,10 +22,10 @@ then today's analytic plan) unless the caller passes ``plan``, as the
 reference resolves its tiles (``repro/kernels/ops.py:57-63``,
 ``:150-155``).  The CPU route takes no plan.
 
-``matmul``, ``decode``, ``decode_paged``, ``wkv_state`` and
-``selective_scan`` tick the
+``matmul``, ``decode``, ``decode_paged``, ``wkv_state``, ``selective_scan``
+and ``attention`` tick the
 reference's route counters ``ops.<op>.kernel`` or ``ops.<op>.ref`` (the
-last the port's own) on the process registry
+last three the port's own) on the process registry
 (``repro_torch.obs``).  The reference ticks them once per compiled program
 (at trace time); the port has no tracing, so it ticks them once per call:
 on the card each ``.kernel`` count equals its kernel's launch count, and
@@ -42,9 +42,11 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import (flash_decode,
                                                   flash_paged_decode)
 from repro_torch.kernels.dequant import dequantize as dequant_kernel
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (FlashAttention,
+                                                 check_bwd_form,
+                                                 flash_attention)
 from repro_torch.kernels.gemm import gama_gemm
-from repro_torch.kernels.rmsnorm import LayerNorm
+from repro_torch.kernels.rmsnorm import LayerNorm, RMSNorm
 from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_kernel
 from repro_torch.kernels.selective_scan import check_shapes as _scan_shapes
 from repro_torch.kernels.selective_scan import \
@@ -116,9 +118,30 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               q_offset: int = 0, kv_len: Optional[int] = None,
               mode: str = "auto", plan=None) -> torch.Tensor:
     """Flash attention.  q: (B, Hq, Sq, D); k/v: (B, Hkv, Sk, D).
-    ``plan``: a ``flash_attention.Plan``, None for the tuner's."""
+    ``plan``: a ``flash_attention.Plan``, None for the tuner's.
+
+    When grad is enabled and an input requires it (training), ``auto`` and
+    ``kernel`` go through :class:`~repro_torch.kernels.flash_attention.
+    FlashAttention`: the forward kernel with its log-sum-exp and the
+    hand-written backward for CUDA tensors, both plain halves for CPU
+    tensors; it takes causal self-attention at ``q_offset`` 0 (training's
+    form) and raises on any other.  ``ref`` differentiates the plain
+    version by torch autograd."""
     _check_gqa(q.shape[1], k.shape[1])
-    if not _use_kernel(mode, q, k, v):
+    train = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    on_kernel = _use_kernel(mode, q, k, v)
+    _count("ops.attention.kernel" if on_kernel else "ops.attention.ref")
+    if on_kernel and plan is None:
+        _, hq, sq, d = q.shape
+        plan = dispatch.attention_blocks(sq, k.shape[2], d, q.dtype, hq=hq,
+                                         hkv=k.shape[1],
+                                         device=q.get_device())
+    if train and mode != "ref":
+        check_bwd_form(causal, q_offset, kv_len, q.shape[2], k.shape[2])
+        return FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), scale, plan)
+    if not on_kernel:
         # Past 2048 keys the plain path takes the online-softmax form, so
         # it never holds the (Sq, Sk) logits (ops.py:145-147 of the
         # reference).
@@ -126,11 +149,6 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  else ref.ref_attention)
         return plain(q, k, v, causal=causal, scale=scale, q_offset=q_offset,
                      kv_len=kv_len)
-    if plan is None:
-        _, hq, sq, d = q.shape
-        plan = dispatch.attention_blocks(sq, k.shape[2], d, q.dtype, hq=hq,
-                                         hkv=k.shape[1],
-                                         device=q.get_device())
     return flash_attention(q, k, v, causal=causal, scale=scale,
                            q_offset=q_offset, kv_len=kv_len, plan=plan)
 
@@ -139,9 +157,13 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6,
             mode: str = "auto") -> torch.Tensor:
     """RMSNorm over the last dim in f32, output in x's dtype: the
     fixed-order kernel for CUDA tensors (a row's bits do not depend on the
-    rows beside it), the plain version for CPU tensors."""
+    rows beside it), the plain version for CPU tensors.  Differentiable on
+    both: the kernel through :class:`~repro_torch.kernels.rmsnorm.RMSNorm`
+    when an input requires grad (its backward is the plain expression's)."""
     if not _use_kernel(mode, x, scale):
         return ref.rmsnorm(x, scale, eps)
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return RMSNorm.apply(x, scale, eps)
     return rmsnorm_kernel(x, scale, eps)
 
 

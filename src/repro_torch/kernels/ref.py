@@ -98,14 +98,27 @@ def _softmax_av(s: torch.Tensor, valid: torch.Tensor,
     return (p @ v) / torch.where(l > 0, l, 1.0)
 
 
+def _attention_mask(sq: int, sk: int, causal: bool, q_offset: int,
+                    kv_len: int, device) -> torch.Tensor:
+    """(Sq, Sk) True where query i (at position q_offset + i) sees key j."""
+    k_pos = torch.arange(sk, device=device)
+    valid = (k_pos < kv_len)[None, :]
+    if causal:
+        q_pos = torch.arange(sq, device=device) + q_offset
+        valid = valid & (q_pos[:, None] >= k_pos[None, :])
+    return valid
+
+
 def ref_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, scale: Optional[float] = None,
-                  q_offset: int = 0,
-                  kv_len: Optional[int] = None) -> torch.Tensor:
+                  q_offset: int = 0, kv_len: Optional[int] = None,
+                  return_lse: bool = False):
     """Plain flash_attention.  q: (B, Hq, Sq, D); k/v: (B, Hkv, Sk, D).
     Query head h reads KV head h // (Hq // Hkv); ``q_offset`` is q[0]'s
     absolute position for the causal mask; keys at or past ``kv_len``
-    (default Sk) are masked."""
+    (default Sk) are masked.  ``return_lse``: (out, each row's
+    log-sum-exp of its scaled valid logits (B, Hq, Sq) f32, +inf for a row
+    with no valid key), as the kernel writes it for the backward."""
     _, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     group = hq // hkv
@@ -114,12 +127,49 @@ def ref_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kf = k.float().repeat_interleave(group, dim=1)
     vf = v.float().repeat_interleave(group, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * scale
-    k_pos = torch.arange(sk, device=q.device)
-    valid = (k_pos < kv_len)[None, :]
-    if causal:
-        q_pos = torch.arange(sq, device=q.device) + q_offset
-        valid = valid & (q_pos[:, None] >= k_pos[None, :])
-    return _softmax_av(s, valid, vf).to(q.dtype)
+    valid = _attention_mask(sq, sk, causal, q_offset, kv_len, q.device)
+    out = _softmax_av(s, valid, vf).to(q.dtype)
+    if not return_lse:
+        return out
+    m = torch.where(valid, s, NEG_INF).amax(-1)
+    l = torch.where(valid, torch.exp(s - m[..., None]), 0.0).sum(-1)
+    lse = torch.where(l > 0, m + torch.log(torch.where(l > 0, l, 1.0)),
+                      float("inf"))
+    return out, lse
+
+
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  o: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, *,
+                  scale: Optional[float] = None):
+    """Plain flash_attention_bwd: the VJP of causal attention at q_offset 0
+    over S queries and S keys, from the forward's output ``o`` and its
+    rows' log-sum-exp ``lse`` (B, Hq, S) f32, in f32 as the kernel's
+    formulas (FlashAttention-2's backward):
+
+        P = exp(s - lse),  delta = rowsum(dout * o),
+        dS = P * (dout.V^T - delta),
+        dq = scale dS.K,  dk = scale dS^T.Q,  dv = P^T.dout,
+
+    with s = scale q.k^T and dk, dv summed over each KV head's query heads.
+    Returns (dq, dk, dv) in q's dtype."""
+    b, hq, s_len, d = q.shape
+    hkv = k.shape[1]
+    group = hq // hkv
+    scale = d ** -0.5 if scale is None else scale
+    qf, of, dof = q.float(), o.float(), dout.float()
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    valid = _attention_mask(s_len, s_len, True, 0, s_len, q.device)
+    p = torch.where(valid, torch.exp(s - lse[..., None]), 0.0)
+    delta = (dof * of).sum(-1, keepdim=True)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", dof, vf) - delta)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dk = dk.reshape(b, hkv, group, s_len, d).sum(2)
+    dv = dv.reshape(b, hkv, group, s_len, d).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

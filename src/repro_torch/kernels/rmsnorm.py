@@ -19,7 +19,9 @@ batched decode to a one-slot one).
 reference), for CPU tensors only; for CUDA tensors each launches its
 kernel or raises.  :data:`launches` and :data:`ln_launches` count them.
 :class:`LayerNorm` is :func:`layernorm` with a gradient (RWKV-6 trains
-through its norms): the kernel forward, the plain expression's backward.
+through its norms), :class:`RMSNorm` :func:`rmsnorm` with one (the
+attention decoders train through theirs): the kernel forward, the plain
+expression's backward.
 """
 
 from __future__ import annotations
@@ -141,6 +143,37 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return out.reshape(x.shape)
 
 
+def _plain_grads(ctx, gy, fn, *args):
+    """The gradients of ``fn(*saved, *args)`` for ``gy``: the saved inputs
+    detached, those that need a gradient marked, ``fn`` recomputed and
+    differentiated; None for the others."""
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_(need) for t, need in
+                  zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        y = fn(*inputs, *args)
+        wrt = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad(y, wrt, gy))
+    return tuple(next(grads) if t.requires_grad else None for t in inputs)
+
+
+class RMSNorm(torch.autograd.Function):
+    """:func:`rmsnorm` with the gradient of :data:`plain`, as
+    :class:`LayerNorm` for its norm: the reference differentiates its jnp
+    norm (``repro/models/layers.py:103``).  The forward launches the
+    kernel (grad mode is off inside it); the backward recomputes the plain
+    expression from the saved inputs and differentiates it."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return rmsnorm(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, gy):
+        return (*_plain_grads(ctx, gy, plain, ctx.eps), None)
+
+
 class LayerNorm(torch.autograd.Function):
     """:func:`layernorm` with the gradient of :data:`plain_layernorm`: the
     reference differentiates its jnp norm, and a norm is no TPU kernel
@@ -158,11 +191,5 @@ class LayerNorm(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy):
-        with torch.enable_grad():
-            inputs = [t.detach().requires_grad_(need) for t, need in
-                      zip(ctx.saved_tensors, ctx.needs_input_grad)]
-            y = plain_layernorm(*inputs, ctx.eps, ctx.groups)
-            wrt = [t for t in inputs if t.requires_grad]
-            grads = iter(torch.autograd.grad(y, wrt, gy))
-        return (*(next(grads) if t.requires_grad else None for t in inputs),
+        return (*_plain_grads(ctx, gy, plain_layernorm, ctx.eps, ctx.groups),
                 None, None)

@@ -1,17 +1,22 @@
 """Training launcher (counterpart of ``repro/launch/train.py``) on one card.
 
-    PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6_3b \
-        --smoke --steps 6 --ckpt_every 2            # on the card
-    ... --device cpu                                # the plain versions
+    PYTHONPATH=src python -m repro_torch.launch.train --steps 6
+                                  # SmolLM-360M FULL on the card
+    ... --arch rwkv6_3b --smoke --steps 6 --ckpt_every 2
+    ... --smoke --device cpu      # the plain versions
 
-Builds the model from a seeded generator with f32 parameters, AdamW, the
-synthetic LM pipeline and the fault-tolerant ``Trainer``; every GEMM is a
-plain matrix product in the compute dtype (gemm mode ``ref``, as the
-reference's launcher leaves it) and the wkv6 recurrence runs through its
-forward and backward kernels.  Every step's loss is logged (the
-reference logs every fifth).  Options mirror the reference's; a mesh
+Builds the model from a seeded generator with f32 parameters (a tied table
+one leaf), AdamW, the synthetic LM pipeline and the fault-tolerant
+``Trainer``; every GEMM is a plain matrix product in the compute dtype
+(gemm mode ``ref``, as the reference's launcher leaves it), attention runs
+through the flash_attention forward and backward kernels, the norms
+through their kernels, and the wkv6 recurrence through its forward and
+backward kernels.  Every step's loss is logged (the reference logs every
+fifth).  Options and the default arch mirror the reference's; a mesh
 (``--model_parallel > 1``, ``--schedule``) waits for the multi-device
-slice, and only architectures whose training path is ported are taken.
+slice.  Jamba raises (its selective scan has no backward yet);
+SeamlessM4T fails at its first step with ``KeyError 'enc_embeds'``, as the
+reference launcher does (the synthetic pipeline has no encoder inputs).
 """
 
 from __future__ import annotations
@@ -22,14 +27,17 @@ from typing import List, Optional
 from repro_torch import configs as C
 from repro_torch import resolve_device
 
-# Architectures whose training path is ported.  The attention decoders
-# need a flash_attention backward first.
-TRAINED = ("rwkv6_3b",)
+# Architectures the reference's launcher trains, less Jamba, whose
+# selective_scan kernel has no backward yet.  (SeamlessM4T is taken, and
+# fails as the reference's does.)
+TRAINED = ("smollm_360m", "qwen3_8b", "phi3_medium_14b", "minitron_8b",
+           "qwen2_vl_72b", "llama4_maverick_400b_a17b", "kimi_k2_1t_a32b",
+           "rwkv6_3b", "seamless_m4t_large_v2")
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", type=str, default="rwkv6_3b")
+    ap.add_argument("--arch", type=str, default="smollm_360m")
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced same-family config")
     ap.add_argument("--steps", type=int, default=50)
@@ -56,7 +64,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     if args.arch not in TRAINED:
         raise NotImplementedError(
             f"training {args.arch!r} is not ported (trained: {TRAINED}); "
-            f"attention models need a flash_attention backward first "
+            f"Jamba's selective_scan needs a backward kernel first "
             f"(ROADMAP Queue A item 11)")
     dev = resolve_device(args.device)
 
@@ -72,7 +80,7 @@ def _train(args, dev) -> dict:
     import torch
 
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
-    from repro_torch.models import init_params, param_count
+    from repro_torch.models import init_params, param_count, train_tree
     from repro_torch.optim import adamw
     from repro_torch.training.trainer import (TrainConfig, Trainer,
                                               make_train_step)
@@ -81,7 +89,8 @@ def _train(args, dev) -> dict:
     kind = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
     print(f"[train] arch={cfg.name} device={dev} ({kind})")
-    params = init_params(cfg, seed=0, device=dev, dtype=torch.float32)
+    params = train_tree(init_params(cfg, seed=0, device=dev,
+                                    dtype=torch.float32))
     print(f"[train] params: {param_count(params)/1e6:.2f}M")
     opt_cfg = adamw.AdamWConfig(lr=args.lr, warmup_steps=5,
                                 total_steps=args.steps)

@@ -230,17 +230,18 @@ def embed(p: Params, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 def logits(p: Params, x: torch.Tensor, head: Optional[Params]) -> torch.Tensor:
     """Tied (embedding transposed) or separate head; f32 logits.  The GEMM
     runs in the compute dtype and is rounded to it before the f32 cast,
-    as in the reference.  The tied operand is ``p["table_t"]``, the
-    (d_model, vocab) transpose that ``models.model.tie_head`` stores
+    as in the reference.  Served, the tied operand is ``p["table_t"]``,
+    the (d_model, vocab) transpose that ``models.model.tie_head`` stores
     contiguously once, so no step transposes the table; for an int8
     table it is the int8 transpose with the table's per-column scales
     (``{"q_t", "scale"}``), dequantized per step to the same values as
-    the reference's dequantized table, transposed."""
+    the reference's dequantized table, transposed.  The trained tree has
+    no ``table_t``: the head reads ``p["table"]`` transposed, so its
+    gradient and the embedding's add into the one leaf."""
     if head is not None:
         return dense(head, x).float()
     if "table_t" not in p:
-        raise KeyError("tied logits need embed['table_t']; build params with "
-                       "models.init_params or bridge.params_from_numpy")
+        return gemm(x, maybe_dequant(p["table"], x.dtype).t()).float()
     t = p["table_t"]
     if isinstance(t, dict):      # a scale a row: (d, V, 1) codes by (d, 1)
         t = ops.dequantize(t["q_t"][..., None], t["scale"][:, None],

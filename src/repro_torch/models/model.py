@@ -1,11 +1,12 @@
 """Top-level model API: init / forward / train loss / prefill / decode
 (counterpart of ``repro/models/model.py``) for the dense and MoE
 decoders, RWKV-6, the Jamba hybrid, the SeamlessM4T encoder-decoder and
-the M-RoPE decoder Qwen2-VL (served; RWKV-6 also trained).
+the M-RoPE decoder Qwen2-VL (served; all but Jamba and SeamlessM4T also
+trained).
 
 Parameters are a dict of tensors::
 
-    {"embed": {"table": (V, d), "table_t": (d, V)},   # table_t: tied head
+    {"embed": {"table": (V, d), "table_t": (d, V)},   # table_t: tied, served
      # int8 weights (quantize=True): every large "w" and "table", and
      # every MoE expert stack ("gate"/"up"/"down", (E, K, N)), is
      # {"q": int8, "scale": f32 per output channel}; table_t is then
@@ -24,11 +25,12 @@ token index (t, t, t under M-RoPE); ``enc_embeds`` (B, S_enc, d_model),
 an enc-dec model's encoder inputs, at every step but decode; for training
 ``labels`` (B, S) and an optional ``mask`` (B, S).
 
-Training keeps the parameters in f32 (``init_params(..., dtype=
-torch.float32)``) and casts each weight per GEMM, as the reference does.
-``table_t``, the second layout of a tied table, would split a tied model's
-gradient between two leaves; the one model trained so far, RWKV-6, is
-untied.
+Training keeps the parameters in f32 (``train_tree(init_params(...,
+dtype=torch.float32))``) and casts each weight per GEMM, as the
+reference does.  ``table_t``, the second layout of a tied table, is
+serving's only: the trained tree (:func:`train_tree`) holds a tied table
+once, the tied head reads ``table`` transposed, and the embedding's and
+the head's gradients add into that one leaf, as in the reference.
 """
 
 from __future__ import annotations
@@ -107,6 +109,18 @@ def prepare_params(params: Params, cfg: ModelConfig,
                      if k != "table_t"}
     out = finish_params(tree, cfg, dtype, quantize)
     return tie_head(out) if cfg.tie_embeddings else out
+
+
+def train_tree(params: Params) -> Params:
+    """The tree training differentiates, updates and checkpoints:
+    ``params`` without a tied model's serving-only ``table_t``, so a tied
+    table is one leaf (a new top-level dict; the leaves are shared)."""
+    if "table_t" not in params["embed"]:
+        return params
+    out = dict(params)
+    out["embed"] = {k: v for k, v in params["embed"].items()
+                    if k != "table_t"}
+    return out
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,

@@ -17,7 +17,9 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -33,7 +35,26 @@ Cache = Dict[str, Any]
 _BLOCKS = {("attn", "dense"): "rmsnorm", ("attn", "moe"): "rmsnorm",
            ("mamba", "dense"): "rmsnorm", ("mamba", "moe"): "rmsnorm",
            ("rwkv", "rwkv_cm"): "layernorm"}
-REMAT_POLICIES = ("full", "tp_outs")
+REMAT_POLICIES = ("full", "dots", "tp_outs")
+
+# The matrix products the ``dots`` policy keeps: what ``torch.matmul``,
+# ``einsum`` and ``x @ w`` reach at the dispatcher.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_contexts():
+    """``jax.checkpoint_policies.checkpoint_dots``: every matrix product's
+    output is kept, everything else is recomputed in the backward.  The
+    hand-written kernels (launched through ctypes, unseen by the dispatcher)
+    are recomputed; they are deterministic, so the recomputation gives the
+    forward's bits."""
+    return create_selective_checkpoint_contexts(_dots_policy)
 
 
 def check_block(cfg: ModelConfig, spec: BlockSpec) -> None:
@@ -263,13 +284,13 @@ def apply_stack(stack: List[Params], x: torch.Tensor, cfg: ModelConfig, *,
 
     ``remat`` (training) recomputes activations in the backward instead of
     keeping them: policy ``"full"`` checkpoints each layer (only its input
-    is kept), ``"tp_outs"`` each sub-block (the mixer's and FFN's outputs
-    are kept, as the reference's ``save_only_these_names("tp_out")``).
-    The reference's ``"dots"`` (keep every matmul output) is not ported."""
+    is kept), ``"dots"`` each layer keeping every matrix product's output
+    (the reference's ``checkpoint_dots``), ``"tp_outs"`` each sub-block
+    (the mixer's and FFN's outputs are kept, as the reference's
+    ``save_only_these_names("tp_out")``)."""
     if remat and remat_policy not in REMAT_POLICIES:
-        raise NotImplementedError(
-            f"remat_policy={remat_policy!r} is not ported (have "
-            f"{REMAT_POLICIES}); 'dots' waits for ROADMAP Queue A item 11")
+        raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, "
+                         f"got {remat_policy!r}")
     if remat and caches is not None:
         raise ValueError("remat is for training: it takes no caches")
     aux = (torch.zeros((), dtype=torch.float32, device=x.device)
@@ -279,9 +300,11 @@ def apply_stack(stack: List[Params], x: torch.Tensor, cfg: ModelConfig, *,
                   cache=None if caches is None else caches[i],
                   cache_pos=cache_pos, block_tables=block_tables,
                   enc_out=enc_out, decode=decode, with_aux=with_aux)
-        if remat and remat_policy == "full":
+        if remat and remat_policy in ("full", "dots"):
             x, a = checkpoint(lambda x, p=p, spec=spec, kw=kw: apply_block(
-                p, x, cfg, spec, **kw)[::2], x, use_reentrant=False)
+                p, x, cfg, spec, **kw)[::2], x, use_reentrant=False,
+                context_fn=(_dots_contexts if remat_policy == "dots"
+                            else noop_context_fn))
         else:
             x, _, a = apply_block(p, x, cfg, spec, remat_sub_blocks=remat,
                                   **kw)

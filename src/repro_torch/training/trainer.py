@@ -1,9 +1,9 @@
 """Fault-tolerant training loop (counterpart of
 ``repro/training/trainer.py``) on one card.
 
-* ``make_train_step``: loss, gradients by torch autograd (the wkv6
-  kernels through their ``autograd.Function``, every GEMM as a plain
-  matrix product, as the reference's training path), gradient
+* ``make_train_step``: loss, gradients by torch autograd (attention, the
+  norms and wkv6 through their kernels' ``autograd.Function``s, every GEMM
+  as a plain matrix product, as the reference's training path), gradient
   accumulation over microbatches, then the AdamW update in place;
 * checkpoint every N steps (async, atomic) and automatic restart: a step
   failure restores the latest checkpoint and replays from it;
@@ -80,6 +80,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
     reference)."""
 
     def train_step(params, opt_state, batch):
+        if "table_t" in params["embed"]:
+            raise ValueError("train the tree of models.train_tree: a tied "
+                             "table's serving layout table_t would be a "
+                             "second leaf with a gradient of its own")
         leaves = adamw.leaves(params)
         for p in leaves:
             p.requires_grad_(True)
