@@ -42,9 +42,9 @@
    runs: shared16 with the prefix cache, smoke6 in chunks of 16 under a
    budget of 12, bursty24 on the wall clock in chunks of 16; and
    ``--arrivals pareto --rate 16 --dump-trace`` writes a trace that
-   ``load_trace`` reads back.  SmolLM-360M FULL
-   (32 layers, d_model 960, bf16, seeded
-   random weights) replays traces through the port's continuous-batching
+   ``load_trace`` reads back.  SmolLM-360M at full width
+   (d_model 960, 15/5 heads of 64, bf16, seeded random weights) and
+   ``SERVE_LAYERS`` = 8 of its 32 layers replays traces through the port's continuous-batching
    ``ServeEngine`` with every GEMM, prefill attention and decode attention
    on the kernels: ``benchmarks/traces/smoke6.jsonl`` on the dense KV
    cache, then four paged-KV replays (bf16 pages, int8 pages, a 4-page
@@ -69,9 +69,10 @@
    kernel-vs-plain-GEMM logit check, a 448-token prompt's prefill logits
    with the attention kernel against the same prefill with the plain
    attention, a profile of a decode step (by kernel and by kind, with its
-   225 ``gama_gemm`` launches checked), the 8-slot decode step with the
-   rmsnorm kernel against the eager plain norm (wall, device time,
-   kernels a step, 65 rmsnorm launches a step checked), the engine's
+   7 ``gama_gemm`` launches a layer and the head's checked), the 8-slot
+   decode step with the rmsnorm kernel against the eager plain norm
+   (wall, device time, kernels a step, 2 rmsnorm launches a layer and the
+   final norm's checked), the engine's
    own step attribution (``device_ms``, ``bubble_ms``,
    ``bubble_fraction``) beside ``torch.profiler``'s device-busy time and
    idle share for the same 8-slot decode steps, and the step's wall with
@@ -86,8 +87,9 @@
    D = 128, and the decode and wkv kernels' one chunk at their served
    shapes, each candidate's output ``torch.equal`` to the analytic plan's
    (the winner against the analytic plan in ms); the same tunes again
-   must be cache hits; ``tune_serve`` on SmolLM-360M FULL (max_len 64,
-   3 candidates); the 8 x 448 replay with the tuned cache in turns with
+   must be cache hits; ``tune_serve`` on SmolLM-360M at full width and
+   8 layers (max_len 64, 3 candidates; its cache key names the arch and
+   width, so the FULL launcher below resolves it); the 8 x 448 replay with the tuned cache in turns with
    the untuned one (untuned, tuned, tuned, untuned), every stream equal,
    each replay's ``gama_gemm`` device time from ``torch.profiler``, every
    ``ops.*.ref`` 0; the serve launcher with ``--batch_slots 0 --kv paged
@@ -98,20 +100,22 @@
    RWKV-6 3B's decode, a serial prompt and a 448-token one, in bf16 and
    f32 (a control with the state 1% off must fail; from a zero state its
    y is wkv6's bit for bit); the ``layernorm`` kernel (RWKV-6's
-   LayerNorm and GroupNorm in a fixed order, rows bit-identical at every
-   M; under autograd, as training runs it, its gradients the plain
-   ones); the ``dequant`` kernel (int8 weights to bf16, the plain bits)
-   at the quantized replays' weights; ``gama_gemm`` at every weight GEMM
+   LayerNorm and GroupNorm in a fixed order, a row read once, rows
+   bit-identical at every M; timed at 3B's decode, prompt and training
+   rows beside ``F.layer_norm`` / ``F.group_norm``; under autograd, as
+   training runs it, its gradients the plain ones); the ``dequant``
+   kernel (int8 weights to bf16, the plain bits) at the quantized
+   replays' weights; ``gama_gemm`` at every weight GEMM
    of RWKV-6 3B, Phi-3-medium and
    Minitron-8B and of the SMOKE configs; Phi-3-medium's heads in
    attention and decode.  Then the serve launcher's bare ``--verify``
    (qwen3 SMOKE, the default arch) and smoke6 on the phi3, minitron and
-   rwkv6 SMOKE configs, and, one FULL model at a time: Qwen3-8B (dense
-   and bf16 pages), Phi-3-medium (bf16 pages; int8 weights), Minitron-8B
-   (dense: 193 GEMMs a step), the three also 8 x 448 on bf16 pages,
-   RWKV-6 3B (``kv="paged"`` asked, the state kept dense; smoke6 and
-   8 x 448), SmolLM-360M with int8 weights (one dequant a weight a step
-   checked), each
+   rwkv6 SMOKE configs, and, one model at a time at full width and 8
+   layers: Qwen3-8B (dense and bf16 pages), Phi-3-medium (bf16 pages;
+   int8 weights), Minitron-8B (dense: 6 GEMMs a layer and the head), the
+   three also 8 x 448 on bf16 pages, SmolLM-360M with int8 weights (one
+   dequant a weight a step checked); and RWKV-6 3B FULL at its 32 layers
+   (``kv="paged"`` asked, the state kept dense; smoke6 and 8 x 448), each
    replay under ``--verify``'s check with its routes held to the
    launches, each model's decode step timed (wall and device) with its
    ``max_memory_allocated``.
@@ -146,9 +150,10 @@
    8-slot decode step and the encoder's device time; the serve launcher's
    SMOKE runs of both ids (Qwen2-VL ``verify OK``, Seamless failing with
    KeyError 'enc_embeds' as the reference launcher does); Qwen2-VL-72B
-   FULL with int8 weights: resident bytes and init peak, smoke6 on 3
-   slots under ``--verify``, 8 x 448 dense and on bf16 pages with equal
-   tokens, its 8-slot decode step; and Qwen2-VL SMOKE from patch
+   FULL with int8 weights: resident bytes and init peak and its 8-slot
+   decode step at all 80 layers, then at 8 layers smoke6 on 3 slots
+   under ``--verify`` and 8 x 448 dense and on bf16 pages with equal
+   tokens; and Qwen2-VL SMOKE from patch
    embeddings at distinct (t, h, w) positions, kernels against the plain
    route on the card.
 5. Train: the wkv6 forward and backward kernels against their plain
@@ -160,10 +165,13 @@
    Qwen3-8B's 32/8 heads of 128 at 1 x 2048, ragged lengths, and in f32
    the SMOKE heads of 16, 64 and 128 (f32 within 1e-4 of each gradient's
    largest element; bf16 within 4 x a rounding-floor control; a control
-   with lse + 0.1 that must fail; two calls bit-identical; the forward's
-   o with lse equal to serving's), timed beside its bound, the plain
-   version and SDPA's backward.  Then RWKV-6 3B FULL (32 layers, d_model
-   2560, f32 parameters, bf16 compute, seeded random weights) takes
+   with lse + 0.1 that must fail; two calls bit-identical, and each batch
+   element alone equal to its slice of the batch; the forward's o with lse
+   equal to serving's), timed beside its bound, the plain version and
+   SDPA's backward; at the end of the run its dQ and dK/dV passes are
+   timed apart by the profiler.
+   Then RWKV-6 3B FULL (32 layers, d_model 2560, f32 parameters, bf16
+   compute, seeded random weights) takes
    training steps through ``make_train_step`` (each step's wkv6 and
    layernorm launches counted), one step profiled; a 2-layer step with
    the kernels against one with the plain recurrence, in f32 and in bf16
@@ -317,6 +325,20 @@ SHARED16_HIT_RATE = 0.6
 SHARED16_HWM = {True: 11, False: 20}
 TRAIN_KERNELS = ("wkv6", "wkv6_bwd")
 ATTN_TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "rmsnorm")
+# The serve replays of SmolLM-360M, Qwen3-8B, Phi-3-medium, Minitron-8B and
+# Qwen2-VL-72B run at full width and this many layers.  Their time is the
+# host's (a decode step's device idle share is above 0.9), it grows with the
+# layer count, and every layer launches the same kernels at the same shapes,
+# so a cut depth drives every kernel of those paths as the full one does.
+# Full depth stays where a path is the point: the training steps, RWKV-6 3B
+# (the layernorm kernel's served path), Jamba-v0.1 52B, SeamlessM4T, and
+# Qwen2-VL-72B's memory fit and decode step.
+SERVE_LAYERS = 8
+
+
+def served(cfg):
+    """``cfg`` at full width and at most ``SERVE_LAYERS`` layers."""
+    return dataclasses.replace(cfg, n_layers=min(cfg.n_layers, SERVE_LAYERS))
 
 
 def card_line() -> str:
@@ -1270,7 +1292,8 @@ def profile_decode(cfg, params, max_len, steps=5):
         by_kind = _by_kind(by_name)
         device_ms = sum(us for _, us in by_name.values()) / 1e3 / steps
         top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
-        print(f"[profile] decode step (3 slots, {kind} KV, smollm-360m FULL): "
+        print(f"[profile] decode step (3 slots, {kind} KV, {cfg.name} FULL "
+              f"width, {cfg.n_layers} layers): "
               f"wall_ms={wall_ms:.3f} (profiler off, mean of 2) "
               f"traced_wall_ms={traced_ms:.3f} device_ms={device_ms:.3f} "
               f"device_idle_share={1 - device_ms / wall_ms:.3f} "
@@ -1285,13 +1308,33 @@ def profile_decode(cfg, params, max_len, steps=5):
                   f"{us / 1e3 / steps:.3f} ms per step")
 
 
-# A profile is taken again, up to this many times in all, when it saw fewer
+# A profile is taken again, once for each entry here, when it saw fewer
 # launches of a counted kernel than its wrapper made: the profiler does not
 # always deliver every device event, and a partial profile's device time is
-# not a measurement.  Each traced run starts and ends this long after the
-# card was idle, so that no event lies at the edge of the profiler's window.
-PROFILE_ATTEMPTS = 3
+# not a measurement.  Late in a run it has dropped the kernels of a traced
+# run's first tens of ms (the first norm and GEMMs of a replay or a decode
+# step, the same ones in every attempt; every record of a shorter session).
+# So each traced run starts with spin kernels spread over a margin, the
+# entry of its attempt, and ends ``PROFILE_MARGIN_S`` after the card was
+# idle; the spin kernels are left out of every sum.
+PROFILE_MARGINS_S = (0.05, 0.5, 2.0)
 PROFILE_MARGIN_S = 0.05
+
+
+def _prime(margin_s):
+    """Spin kernels over ``margin_s`` seconds at the start of a traced run,
+    then wait for the card."""
+    end = time.perf_counter() + margin_s
+    while True:
+        torch.cuda._sleep(1000)
+        if time.perf_counter() >= end:
+            break
+        time.sleep(0.01)
+    torch.cuda.synchronize()
+
+
+def _is_spin(name):
+    return "spin_kernel" in name
 
 # The profile's kinds that a wrapper's launch counter also counts.
 _COUNTED_KINDS = {
@@ -1316,11 +1359,11 @@ def _profiled(fn, label, host=True):
     complete)."""
     acts = ([torch.profiler.ProfilerActivity.CPU] if host else []) + [
         torch.profiler.ProfilerActivity.CUDA]
-    for attempt in range(1, PROFILE_ATTEMPTS + 1):
-        before = K.launch_counts()
+    for attempt, margin_s in enumerate(PROFILE_MARGINS_S, 1):
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=acts) as prof:
-            time.sleep(PROFILE_MARGIN_S)
+            _prime(margin_s)
+            before = K.launch_counts()
             out = fn()
             torch.cuda.synchronize()
             time.sleep(PROFILE_MARGIN_S)
@@ -1334,9 +1377,9 @@ def _profiled(fn, label, host=True):
                 lost[kind] = [seen, n]
         if not lost or not by_name:
             return out, by_name, launched, {}
-        print(f"[profile] {label}, attempt {attempt}: the profiler saw fewer "
-              f"kernels than the wrappers launched (seen, launched): "
-              f"{json.dumps(lost)}")
+        print(f"[profile] {label}, attempt {attempt} (start margin "
+              f"{margin_s} s): the profiler saw fewer kernels than the "
+              f"wrappers launched (seen, launched): {json.dumps(lost)}")
     return out, by_name, launched, lost
 
 
@@ -1351,7 +1394,7 @@ def _by_kind(by_name):
 def _unmeasured(lost):
     if lost:
         return (f"the profiler lost kernel events in each of "
-                f"{PROFILE_ATTEMPTS} attempts: {json.dumps(lost)}")
+                f"{len(PROFILE_MARGINS_S)} attempts: {json.dumps(lost)}")
     return "the profiler saw no CUDA events"
 
 
@@ -1626,6 +1669,8 @@ def _device_by_name(prof, raw=False):
     by_name = {}
     for name, us in events:
         name = _clean_name(name)
+        if _is_spin(name):
+            continue
         n, t = by_name.get(name, (0, 0.0))
         by_name[name] = (n + 1, t + us)
     return by_name
@@ -1816,8 +1861,8 @@ def latency_in_turns(cfg, params, trace, configs, order):
 
 
 def chunked_serve_phase(cfg, params, long8, mono):
-    """Chunked prefill and the prefix cache at full width, SmolLM-360M FULL
-    on the kernels.  (a) The 8 x 448 trace on bf16 pages of 16, in chunks
+    """Chunked prefill and the prefix cache at full width, SmolLM-360M's
+    (at ``SERVE_LAYERS`` layers) on the kernels.  (a) The 8 x 448 trace on bf16 pages of 16, in chunks
     of 128 under a budget of 8 decode tokens plus two chunks, and
     unbudgeted: every stream equal to the monolithic replay ``mono``, 32
     chunks, attention at q_offset > 0; then the three replayed in turns
@@ -1914,8 +1959,8 @@ ENGINE_SERIES = dict(
 
 
 def obs_serve_phase(cfg, params, long8, quiet):
-    """The observability layer at full width, SmolLM-360M FULL on the
-    kernels.  (a) bursty24 on the wall clock (speed 1: Pareto arrivals at
+    """The observability layer at full width, SmolLM-360M's (at
+    ``SERVE_LAYERS`` layers) on the kernels.  (a) bursty24 on the wall clock (speed 1: Pareto arrivals at
     12 req/s), chunked under a budget, every stream equal to its one-shot
     engine's.  (b) The 8 x 448 paged replay with the tracer on: the
     snapshot, trace and flight record written as ``--metrics-out``,
@@ -2130,7 +2175,7 @@ def serve_phase(cfg, max_len):
     diff = (kern - ref_lg).abs().max().item()
     same = (kern.argmax(-1) == ref_lg.argmax(-1)).float().mean().item()
     # Each GEMM path rounds its f32 sum to bf16 (<= 1 ulp apart); the
-    # differences compound over 32 layers of random weights.
+    # differences compound over the layers of random weights.
     tol = 0.1
     print(f"[serve] gemm kernel vs ref: 1 prefill + 4 decode steps, max "
           f"|logit diff|={diff:.4e} (tol {tol}, logit std "
@@ -2244,7 +2289,8 @@ def tune_phase(cfg):
     (nothing under ``~/.cache``): gemm, attention, decode and wkv tuned at
     the served shapes (every measured candidate's output ``torch.equal``
     to the analytic plan's, the winner against the analytic plan), the
-    same tunes again as cache hits, ``tune_serve`` on SmolLM-360M FULL,
+    same tunes again as cache hits, ``tune_serve`` on ``cfg`` (SmolLM-360M
+    at full width and ``SERVE_LAYERS`` layers),
     the 8 x 448 replay with the tuned cache in turns with the untuned one
     (streams equal token for token, ``gama_gemm`` device time of each,
     every ``ops.*.ref`` 0), the serve launcher with ``--batch_slots 0 --kv
@@ -2278,7 +2324,8 @@ def tune_phase(cfg):
                                      f"finish its trace: {json.dumps(t)}")
             print(f"[tune] serve candidate {json.dumps(t['config'])}: "
                   f"{t['us']:.1f} us a token")
-        print(f"[tune] serve SmolLM-360M FULL max_len=64 keep=3: space "
+        print(f"[tune] serve {cfg.name} FULL width, {cfg.n_layers} layers, "
+              f"max_len=64 keep=3: space "
               f"{res.space_size}, winner {json.dumps(res.best)} "
               f"{res.best_us:.1f} us a token "
               f"({time.perf_counter() - t0:.1f} s)")
@@ -2545,6 +2592,8 @@ def _kind(name):
         return "selective scan (selective_scan kernel)"
     if low.startswith("flash_attention"):
         return "prefill attention (flash_attention)"
+    if low.startswith("attn_bwd"):
+        return "attention backward (flash_attention_bwd)"
     if low.startswith(("flash_decode", "paged_decode")):
         return "decode attention (flash_decode, flash_paged_decode)"
     if any(x in low for x in ("gemm", "nvjet", "cutlass", "xmma", "cublas")):
@@ -2605,13 +2654,15 @@ def profile_step(step_fn, params, opt, batch, label, mean_ms):
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
+        _prime(PROFILE_MARGINS_S[1])
         t0 = time.perf_counter()
         params, opt, m = step_fn(params, opt, batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name, by_kind = {}, {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not _is_spin(_kernel_name(e))):
             name = _kernel_name(e)
             us = e.time_range.elapsed_us()
             n, t = by_name.get(name, (0, 0.0))
@@ -2783,10 +2834,14 @@ def check_attention_bwd(label, b, hq, hkv, s, d, dtype, seed, main=False):
 
     Also: lse against the plain forward's (1e-4 (1 + |lse|)); the forward's
     o with lse equal to serving's without (``torch.equal``); two backward
-    calls bit-identical; a control with lse + 0.1 that must fail the
-    bound.  Timed beside its bound, the plain version and SDPA's backward
-    (K/V expanded to Hq heads beforehand, so its dK/dV are per query
-    head; the forward and backward captured together, less the forward)."""
+    calls bit-identical, and each batch element's gradients computed alone
+    (B = 1) equal to its slice of the batched call; a control with lse +
+    0.1 that must fail the bound.  Timed beside its bound, the plain
+    version and SDPA's backward (K/V expanded to Hq heads beforehand, so
+    its dK/dV are per query head; the forward and backward captured
+    together, less the forward).  The shape is left in
+    :data:`BWD_PASSES` for :func:`bwd_pass_phase` to time its dQ and
+    dK/dV passes apart."""
     gen = _gen(seed)
     f32 = dtype == torch.float32
 
@@ -2807,6 +2862,12 @@ def check_attention_bwd(label, b, hq, hkv, s, d, dtype, seed, main=False):
                              f"from serving's o")
     if not all(torch.equal(x, y) for x, y in zip(got, again)):
         raise AssertionError(f"flash_attention_bwd {label}: two calls differ")
+    for i in range(b if b > 1 else 0):
+        alone = flash_attention_bwd(*(t[i:i + 1].contiguous() for t in
+                                      (q, k, v, o, lse, dout)))
+        if not all(torch.equal(x[0], y[i]) for x, y in zip(alone, got)):
+            raise AssertionError(f"flash_attention_bwd {label}: batch element "
+                                 f"{i} alone differs from its slice of B={b}")
     lse_err = max_err(lse, want_lse, 1e-4)
     names = ("dq", "dk", "dv")
     want = ref.attention_bwd(q.float(), k.float(), v.float(), o.float(), lse,
@@ -2862,6 +2923,8 @@ def check_attention_bwd(label, b, hq, hkv, s, d, dtype, seed, main=False):
     kern = device_ms(mk(flash_attention_bwd), nbytes)
     plain = device_ms(mk(ref.attention_bwd), nbytes,
                       reps=24 if s * s * b * hq < 1 << 24 else 2)
+    BWD_PASSES.append((f"{label} B={b} Hq={hq} Hkv={hkv} S={s} D={d} "
+                       f"{str(dtype)[6:]}", mk(flash_attention_bwd)))
 
     def make_lib(backward):
         def make():
@@ -2896,6 +2959,60 @@ def check_attention_bwd(label, b, hq, hkv, s, d, dtype, seed, main=False):
     if main:
         r.update(ms=kern, plain_ms=plain, library_ms=lib, bound_ms=bms,
                  bound_by=by, shape=f"B={b} Hq={hq} Hkv={hkv} S={s} D={d}")
+
+
+# (label, input maker) of each attention backward shape checked, for
+# bwd_pass_phase.
+BWD_PASSES = []
+
+
+def _pass_ms(call, reps=8, warm=8):
+    """(records seen, device ms a call) of each kernel that ``call``
+    launches: ``warm`` + ``reps`` calls under ``torch.profiler`` (CUDA
+    activity only), each kernel's last ``reps`` records by start time
+    averaged, since the profiler may drop a session's first records.
+    The backward's two passes are one wrapper call.  A kernel seen fewer
+    than ``reps`` times has no time (None)."""
+    call()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _prime(PROFILE_MARGINS_S[1])
+        for _ in range(warm + reps):
+            call()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    records = {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() == cuda and not e.is_user_annotation()
+                and not _is_spin(_clean_name(e.name()))):
+            records.setdefault(_clean_name(e.name()), []).append(
+                (e.start_ns(), e.duration_ns()))
+    out = {}
+    for name, recs in records.items():
+        last = sorted(recs)[-reps:]
+        out[name] = (len(recs), sum(d for _, d in last) / 1e6 / reps
+                     if len(recs) >= reps else None)
+    return out
+
+
+def bwd_pass_phase(reps=8):
+    """The dQ and dK/dV passes of each attention backward shape checked,
+    timed apart by ``torch.profiler`` (one wrapper call launches both).
+    Last of the run, after the phases whose profiles count kernel
+    records: once, with this timing run earlier, a later session missed
+    one or two of its first records.  That this timing caused it is not
+    established (a check of profiler sessions in turns saw no record
+    missing), but here it can touch no count.  A pass the profiler saw
+    fewer than ``reps`` times is printed as not measured."""
+    for label, make in BWD_PASSES:
+        got = _pass_ms(make(), reps)
+        shown = {name: (round(ms, 5) if ms is not None else
+                        f"not measured ({n} records seen)")
+                 for name, (n, ms) in got.items()}
+        shown = shown or "not measured (no records)"
+        print(f"[kernel] flash_attention_bwd {label} passes (profiler, last "
+              f"{reps} of {reps + 8} calls): {json.dumps(shown)}")
 
 
 def attention_bwd_phase():
@@ -3278,6 +3395,11 @@ def archs_kernel_phase():
                     torch.bfloat16, seed=74)
     check_layernorm("smoke", 3, 64, 1, torch.float32, seed=75)
     check_layernorm("smoke-groupnorm", 12, 64, 4, torch.float32, seed=76)
+    # RWKV-6 3B training's 8 x 64 tokens (the grad check below runs them).
+    check_layernorm("train-512", 512, rwkv.d_model, 1, torch.bfloat16,
+                    seed=70)
+    check_layernorm("train-512-groupnorm", 512, rwkv.d_model, heads,
+                    torch.bfloat16, seed=71)
     # The int8 weights' dequantize at the quantized replays' shapes:
     # Phi-3-medium's (the kernels line: its FFN down weight) and lm head,
     # SmolLM-360M's tied head (a scale a row) and embedding rows, and a
@@ -3349,9 +3471,6 @@ def _launcher(argv):
     return text, counts
 
 
-PREROLL_SPINS = 32
-
-
 SHORT_POS = (20, 14, 7)                               # smoke6's first steps
 LONG_POS = (449, 454, 459, 465, 470, 476, 481, 487)   # 8 x 448's last steps
 
@@ -3386,17 +3505,8 @@ def decode_step_times(cfg, params, label, positions=SHORT_POS,
                 if c - c0[n]}
     wall = (run() + run()) / 2
 
-    def traced():
-        # At these widths the profiler loses the first few kernel events
-        # of its window (the first GEMMs and norms of the first step):
-        # spin kernels, left out of the sums, take their place.
-        for _ in range(PREROLL_SPINS):
-            torch.cuda._sleep(1000)
-        return run()
-
-    _, by_name, launched, lost = _profiled(traced, f"{label} decode step",
+    _, by_name, launched, lost = _profiled(run, f"{label} decode step",
                                            host=False)
-    by_name = {k: v for k, v in by_name.items() if "spin" not in k.lower()}
     device = None
     if by_name and not lost:
         device = sum(us for _, us in by_name.values()) / 1e3 / steps
@@ -3468,13 +3578,14 @@ def archs_phase():
     """The archs served beyond SmolLM-360M.  SMOKE: the serve launcher's
     bare ``--verify`` (its default arch, qwen3_8b) and smoke6 on
     phi3_medium_14b, minitron_8b and rwkv6_3b (``--kv paged`` asked: the
-    recurrent state stays dense).  FULL, one model at a time, freed before
-    the next, each replay through ``replay`` (launch counts, routes, a
+    recurrent state stays dense).  FULL width, one model at a time, freed
+    before the next, at ``SERVE_LAYERS`` layers but RWKV-6 3B (all 32: the
+    layernorm kernel's served path), each replay through ``replay`` (launch counts, routes, a
     one-shot engine's bit-identity) and each model's decode step timed
     (3 slots at smoke6's positions; the attention decoders also 8 slots
     at 8 x 448's last positions): Qwen3-8B smoke6 dense and on bf16 pages
     of 16; Phi-3-medium smoke6 on bf16 pages; Minitron-8B smoke6 dense
-    (193 gama_gemm launches a step); the three attention decoders 8 x 448
+    (6 gama_gemm launches a layer and the head's a step); the three attention decoders 8 x 448
     on bf16 pages; RWKV-6 3B smoke6 and 8 x 448 with ``kv="paged"`` asked
     (32 wkv6_state launches a step); SmolLM-360M and Phi-3-medium smoke6
     with int8 weights (the bytes their dequantization moves a step
@@ -3529,7 +3640,8 @@ def archs_phase():
     )
     for name, quantize, paths in plans:
         t_model = time.perf_counter()
-        cfg = C.get(name)
+        # RWKV-6 3B at full depth: it is the layernorm kernel's served path.
+        cfg = C.get(name) if name == "rwkv6_3b" else served(C.get(name))
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         params = init_params(cfg, seed=1, device=DEV, quantize=quantize)
@@ -3594,7 +3706,7 @@ def archs_phase():
 
     # SmolLM-360M FULL with int8 weights: smoke6, then its decode step with
     # and without them, in turns.
-    cfg = C.get("smollm_360m")
+    cfg = served(C.get("smollm_360m"))
     plain = init_params(cfg, seed=1, device=DEV)
     q = init_params(cfg, seed=1, device=DEV, quantize=True)
     counts, _, engine = replay(cfg, q, trace_for(cfg), ServeConfig(
@@ -4340,14 +4452,15 @@ def vl_phase():
     then Qwen2-VL-72B FULL (80 layers, d_model 8192, 64/8 heads of 128,
     M-RoPE sections (16, 24, 24), vocab 152064) with int8 weights drawn
     from seed 1 and quantized leaf by leaf as they are drawn: its resident
-    bytes and init peak first; smoke6 on 3 slots under ``--verify``'s
-    check; the 8 x 448 trace on 8 slots on dense KV and on bf16 pages of
-    16, the two runs' tokens equal; the 8-slot decode step at 449-487
-    (wall, device time, launches by kernel: 561 gama_gemm, 562 dequant, 80
+    bytes and init peak first; the 8-slot decode step at 449-487 (wall,
+    device time, launches by kernel: 561 gama_gemm, 562 dequant, 80
     flash_decode, 161 rmsnorm) with every route counter held to the
-    launches; then the SMOKE config from patch embeddings at distinct
-    (t, h, w) positions, kernels against the plain route.  Returns the
-    replays' launch counts."""
+    launches; then, at full width and ``SERVE_LAYERS`` layers, smoke6 on
+    3 slots under ``--verify``'s check and the 8 x 448 trace on 8 slots
+    on dense KV and on bf16 pages of 16, the two runs' tokens equal; then
+    the SMOKE config from patch embeddings at distinct (t, h, w)
+    positions, kernels against the plain route.  Returns the replays'
+    launch counts."""
     set_gemm_mode("kernel")
     total = {n: 0 for n in K.KERNEL_COUNTERS}
 
@@ -4371,33 +4484,7 @@ def vl_phase():
           f"resident_bytes={torch.cuda.memory_allocated() - base} "
           f"init_peak_bytes={torch.cuda.max_memory_allocated() - base} "
           f"card_bytes={card} free_bytes={free} ({dequant_bytes(params)})")
-    smoke6 = S.load_trace(S.resolve_trace_path("smoke6"), cfg.vocab_size,
-                          seed=0)
-    counts, _, _ = replay(cfg, params, smoke6, ServeConfig(
-        batch_slots=3, max_len=36, quantize=True),
-        f"{cfg.name} FULL int8 weights dense smoke6", warm=False)
-    add(counts)
     _free()
-    long8 = S.synth_trace(LONG_REQS, LONG_PROMPT, LONG_NEW, 3,
-                          cfg.vocab_size, seed=0)
-    runs = {}
-    for kv in ("dense", "paged"):
-        counts, rep, _ = replay(
-            cfg, params, long8, ServeConfig(
-                batch_slots=LONG_REQS, max_len=LONG_LEN, quantize=True,
-                kv=kv, page_size=16),
-            f"{cfg.name} FULL int8 weights {kv} synth 8x448+32",
-            verify=False, warm=False)
-        add(counts)
-        runs[kv] = rep["results"]
-        del rep
-        _free()
-    if any(not np.array_equal(runs["dense"][k], runs["paged"][k])
-           for k in runs["dense"]):
-        raise AssertionError(f"{cfg.name} 8x448: paged tokens differ from "
-                             f"dense")
-    print(f"[vl] {cfg.name} FULL 8x448: bf16-paged tokens equal dense "
-          f"({len(runs['dense'])} requests)")
     reg = obs.get_obs().registry
     reg.reset_values()
     K.reset_launch_counts()
@@ -4423,6 +4510,39 @@ def vl_phase():
                              f"{json.dumps(want)}")
     print(f"[vl] {cfg.name} FULL decode step launches by kernel "
           f"{json.dumps(per_step)} as expected; every ops.*.ref 0")
+    del params
+    _free()
+
+    # The replays at full width and SERVE_LAYERS layers.
+    cfg = served(cfg)
+    params = init_params(cfg, seed=1, device=DEV, quantize=True)
+    smoke6 = S.load_trace(S.resolve_trace_path("smoke6"), cfg.vocab_size,
+                          seed=0)
+    counts, _, _ = replay(cfg, params, smoke6, ServeConfig(
+        batch_slots=3, max_len=36, quantize=True),
+        f"{cfg.name} FULL int8 weights dense smoke6", warm=False)
+    add(counts)
+    _free()
+    long8 = S.synth_trace(LONG_REQS, LONG_PROMPT, LONG_NEW, 3,
+                          cfg.vocab_size, seed=0)
+    runs = {}
+    for kv in ("dense", "paged"):
+        counts, rep, _ = replay(
+            cfg, params, long8, ServeConfig(
+                batch_slots=LONG_REQS, max_len=LONG_LEN, quantize=True,
+                kv=kv, page_size=16),
+            f"{cfg.name} FULL int8 weights {kv} synth 8x448+32",
+            verify=False, warm=False)
+        add(counts)
+        runs[kv] = rep["results"]
+        del rep
+        _free()
+    if any(not np.array_equal(runs["dense"][k], runs["paged"][k])
+           for k in runs["dense"]):
+        raise AssertionError(f"{cfg.name} 8x448: paged tokens differ from "
+                             f"dense")
+    print(f"[vl] {cfg.name} FULL width, {cfg.n_layers} layers, 8x448: "
+          f"bf16-paged tokens equal dense ({len(runs['dense'])} requests)")
     del params
     _free()
     print(f"[vl] {cfg.name} FULL int8: {time.perf_counter() - t_model:.1f} s")
@@ -4514,7 +4634,8 @@ def _main(card, kind, only=None) -> int:
     timed("wkv kernels", wkv_phase)
     counts = dict(timed("serve SMOKE", smoke_serve_phase, smoke_cfg,
                         smoke_trace, smoke_len))
-    for name, n in timed("serve FULL", serve_phase, cfg, max_len).items():
+    for name, n in timed("serve FULL", serve_phase, served(cfg),
+                         max_len).items():
         counts[name] = counts.get(name, 0) + n
     timed("archs kernels", archs_kernel_phase)
     for name, n in timed("serve archs", archs_phase).items():
@@ -4527,7 +4648,7 @@ def _main(card, kind, only=None) -> int:
         counts[name] = counts.get(name, 0) + n
     for name, n in timed("serve vl", vl_phase).items():
         counts[name] = counts.get(name, 0) + n
-    for name, n in timed("tune", tune_phase, cfg).items():
+    for name, n in timed("tune", tune_phase, served(cfg)).items():
         counts[name] = counts.get(name, 0) + n
     for name, n in timed("train", train_phase).items():
         counts[name] = counts.get(name, 0) + n
@@ -4535,6 +4656,7 @@ def _main(card, kind, only=None) -> int:
     for name, n in timed("train attention", train_attention_phase).items():
         counts[name] = counts.get(name, 0) + n
     timed("trainer", trainer_phase)
+    timed("attention bwd passes", bwd_pass_phase)
     print(f"[phase] total: {time.perf_counter() - t0:.1f} s")
     if only is not None:
         print(f"[phase] partial run of {sorted(only)}: no kernels line")

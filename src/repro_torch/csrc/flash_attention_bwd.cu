@@ -16,82 +16,105 @@
 // so nothing of size S x S is stored (the plain path keeps B*Hq*S^2 f32 of
 // softmax weights a layer: 1.0 GB at SmolLM-360M's 4 x 2048 tokens).
 //
-// Deterministic: no atomics.  Two launches on the caller's stream:
-//   1. dQ: a block per (b, query head, 64 query rows), 16 rows a warp.  It
-//      first writes delta for its rows (a warp's butterfly sum over D, the
-//      same bits in every lane), then walks the KV tiles from key 0 up to the
-//      diagonal in order.
-//   2. dK, dV: a block per (b, KV head, 64 keys), 16 keys a warp.  It walks
-//      the group's query heads in order and, for each, the query tiles from
-//      the diagonal to the end, reading delta from launch 1.
-// So every sum runs in a fixed order, and two calls give the same bits.
+// Deterministic: no atomics.  Two launches on the caller's stream, each
+// block walking its tiles in an order fixed by (S, D, group) alone, so two
+// calls give the same bits, and so does a batch element computed alone:
+//   1. dQ: a block per (b, query head, 64 query rows).  It first writes delta
+//      for its rows, then walks the K/V tiles from key 0 up to the diagonal.
+//   2. dK, dV: a block per (b, KV head, 64 keys).  It walks the group's
+//      query heads in order and, for each, the query tiles from the
+//      diagonal to the end, reading delta from launch 1.  With two consumer
+//      warpgroups (D = 128), one takes the even and one the odd of these
+//      tiles, and the second's sums are added to the first's at the end.
+// Both grids are one-dimensional and heaviest first across every (b, head,
+// tile) item, so the longest blocks start in the first wave on every head.
 //
-// bf16 runs on the tensor cores (mma.sync m16n8k16 bf16 -> f32, csrc/tc.cuh)
-// at D = 64 and 128: the streamed tiles (K/V in launch 1, Q/dO with their
-// lse and delta in launch 2) pass through a 2-stage cp.async ring, rows
-// padded by 16 bytes so ldmatrix is conflict-free, rows past S zero-filled.
-// The logits' and dP's fragments stay in registers; P and dS are rounded to
-// bf16 in registers and used directly as mma A-fragments (as the forward
-// does with P).  f32 runs SIMT FMA kernels (the tensor cores take f32 only as
-// TF32) at D = 16, 64 and 128: one key (launch 1) or one query (launch 2) a
-// lane, 32-row tiles in shared memory.  Masks are applied only on tiles that
-// cross the diagonal or the end of the sequence.
+// bf16 (D = 64, 128) runs on Hopper's warpgroup MMA (csrc/wgmma.cuh): a
+// consumer warpgroup owns a 64-row slab (launch 1: its queries' Q and dO;
+// launch 2: its keys' K and V), loaded once by TMA, and one producer thread
+// keeps a ring of streamed 64-row tiles (launch 1: K and V; launch 2: Q,
+// dO, lse and delta) in flight by TMA with 128-byte swizzle, behind full and
+// empty mbarriers; TMA's zero fill past S stands for the masked rows.
+// S = Q.K^T and dP = dO.V^T (launch 2: their transposes, K.Q^T and V.dO^T)
+// take both operands from shared memory; P and dS, computed in registers
+// and rounded to bf16, are the register A operand of dQ += dS.K (launch 2:
+// dV += P^T.dO, dK += dS^T.Q), whose B is the streamed tile read MN-major.
+// setmaxnreg hands the producer warpgroup's registers to the consumers (the
+// dK and dV sums of 64 x D f32 each live in registers).  f32 runs SIMT FMA
+// kernels (the tensor cores take f32 only as TF32) at D = 16, 64 and 128: one
+// key (launch 1) or one query (launch 2) a lane, 32-row tiles in shared
+// memory.
 //
 // Bound on the card.  Causal attention backward does 5 products of
 // 2 * S^2/2 * D flops each per (b, query head): 10 * B * Hq * S^2 * D / 2
 // flops (8.05e10 at 4 x 2048, 15 heads of 64: 0.081 ms at 989 TFLOP/s bf16)
 // against ~84 MB of inputs and outputs (0.025 ms at 3.35 TB/s), so the
-// tensor cores' rate bounds it.  mma.sync reaches a fraction of that peak
-// (wgmma and TMA would be the next form); the design here is the simple one
-// that is right: two passes rather than atomics, the heaviest query tiles of
-// launch 1 scheduled first.
+// tensor cores' rate bounds it.  Two passes without atomics recompute S and
+// dP in both, 7 products for the bound's 5.  Between a tile's products a
+// warpgroup computes P and dS (an exp, three flops and two conversions an
+// element), with its tensor-core work waiting: that element-wise step, not
+// the products or the tiles' traffic, sets the time, so it has a masked and
+// an unmasked form (compiled as one, every tile paid the mask's compares),
+// takes its exp as one ex2.approx instruction, and several
+// warpgroups share an SM to overlap one's step with another's products: at
+// D = 64 three dQ blocks (136 registers a consumer thread) and two dK/dV
+// blocks an SM.
 #include "common.cuh"
-#include "tc.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int WARPS = 4;              // a block: 4 warps
-constexpr int BROWS = 16 * WARPS;     // 64 query rows (launch 1) or keys (launch 2) a block
-constexpr int PAD = 16;               // bytes after each shared row
+constexpr int WARPS = 4;              // a warpgroup; the SIMT kernels' block
+constexpr int WG = 128;               // threads of a warpgroup
+constexpr int TILE = 64;              // rows of a slab and of each streamed tile
 constexpr int SMEM_LIMIT = 232448;    // shared memory one block may have on sm_90
+constexpr int PRODUCER_REGS = 24;
 
-// Tile widths of the streamed operand: 64 rows at D = 64, 32 at D = 128 (the
-// logits' and dP's fragments of a tile, and the D-wide dQ or dK/dV
-// accumulators, stay within the register file).
+// A TILE x D bf16 tile as TMA writes it: D / 64 column blocks of TILE rows x
+// 128 bytes (swizzled), each 1024-byte aligned.
 template <int D>
-struct Bwd {
-  static constexpr int PITCH = D * 2 + PAD;   // bytes of one shared row
-  static constexpr int PIECES = D * 2 / 16;   // 16-byte copies a row
-  static constexpr int TILE = D == 64 ? 64 : 32;
-  static constexpr int DK = D / 16;           // k steps over D
-  static constexpr int DN = D / 8;            // n tiles over D
-  static constexpr int TN = TILE / 8;         // n tiles over a streamed tile
-  static constexpr int TK = TILE / 16;        // k steps over a streamed tile
-  // Launch 1: each warp's Q and dO rows, then 2 stages of (K tile, V tile).
-  static constexpr int DQ_SMEM = WARPS * 2 * 16 * PITCH + 2 * 2 * TILE * PITCH;
-  // Launch 2: the block's K and V rows, then 2 stages of (Q tile, dO tile,
-  // lse and delta of its rows).
-  static constexpr int STAGE2 = 2 * TILE * PITCH + 2 * TILE * 4;
-  static constexpr int DKV_SMEM = 2 * BROWS * PITCH + 2 * STAGE2;
-  static_assert(DQ_SMEM <= SMEM_LIMIT && DKV_SMEM <= SMEM_LIMIT, "shared memory");
+struct Tile {
+  static constexpr int BYTES = TILE * D * 2;
+  static constexpr int BLOCK = TILE * 128;
+  static constexpr int KSTEPS = D / 16;
+  // K-major operand (rows of the tile are the product's M or N): k step kk.
+  __device__ __forceinline__ static uint64_t kmajor(const char* t, int kk) {
+    return hop::sw128_desc(hop::smem_u32(t + (kk / 4) * BLOCK + (kk % 4) * 32), 16, 1024);
+  }
+  // MN-major operand (rows of the tile are the product's depth): k step kk
+  // of 16 rows; the D columns are the product's N.
+  __device__ __forceinline__ static uint64_t mnmajor(const char* t, int kk) {
+    return hop::sw128_desc(hop::smem_u32(t + kk * 2048), BLOCK, 1024);
+  }
 };
 
-// Copy rows [row0, row0 + rows) of a (., D) bf16 matrix at `base` into
-// shared memory at pitch Bwd<D>::PITCH; rows at or past `n` are zero-filled
-// and not read.  Threads `tid` of `nthreads` share the copies.
-template <int D>
-__device__ __forceinline__ void copy_rows(char* dst, const bf16* base, int row0, int rows, int n, int tid,
-                                          int nthreads) {
-  using L = Bwd<D>;
-  for (int i = tid; i < rows * L::PIECES; i += nthreads) {
-    const int r = i / L::PIECES, c = i % L::PIECES;
-    const bool in = row0 + r < n;
-    cp_async16(smem_addr(dst + r * L::PITCH + c * 16), in ? base + (size_t)(row0 + r) * D + c * 8 : base,
-               in ? 16 : 0);
-  }
+// Launch 1's shared memory: the Q and dO slabs, STAGES (K, V) tiles, the
+// slab's delta, the barriers.  Launch 2's: the K and V slabs, STAGES
+// (Q, dO, lse, delta) tiles, the barriers.
+template <int D, int STAGES>
+struct DqSmem {
+  static constexpr int RING = 2 * Tile<D>::BYTES;
+  static constexpr int DELTA = 2 * Tile<D>::BYTES + STAGES * RING;
+  static constexpr int BARS = DELTA + TILE * 4;
+  static constexpr int BYTES = BARS + 8 * (2 * STAGES + 1) + 1024;   // + alignment
+  static_assert(BYTES <= SMEM_LIMIT, "shared memory");
+};
+template <int D, int NWG>
+struct DkvSmem {
+  static constexpr int STAGES = 2 * NWG;   // a warpgroup's tiles, t % STAGES
+  static constexpr int STAGE = (2 * Tile<D>::BYTES + 2 * TILE * 4 + 1023) / 1024 * 1024;
+  static constexpr int SLABS = 2 * Tile<D>::BYTES;
+  static constexpr int BARS = SLABS + STAGES * STAGE;
+  static constexpr int BYTES = BARS + 8 * (2 * STAGES + 1) + 1024;
+  static_assert(BYTES <= SMEM_LIMIT, "shared memory");
+  static_assert(NWG == 1 || STAGES * STAGE >= 2 * D * WG * 4, "the partial sums fit the ring");
+};
+
+__device__ __forceinline__ char* align1024(char* p) {
+  return p + ((1024 - (hop::smem_u32(p) & 1023)) & 1023);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -99,326 +122,453 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&p);
 }
 
-// The A fragment (16 rows x 16) of columns 16 kk .. 16 kk + 15 of a 16-row
-// C-fragment tile x[n][4], rounded to bf16.
-template <int N>
-__device__ __forceinline__ void a_frag(const float (&x)[N][4], int kk, uint32_t (&a)[4]) {
-  a[0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
-  a[1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
-  a[2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-  a[3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+// Columns 16 kk .. 16 kk + 15 of a 64 x 64 accumulator, rounded to bf16, as
+// the register A operand of a k step.
+__device__ __forceinline__ void a_frag(const float (&x)[32], int kk, uint32_t (&a)[4]) {
+  a[0] = pack_bf16(x[8 * kk + 0], x[8 * kk + 1]);
+  a[1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
+  a[2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
+  a[3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
 }
 
-// acc (16 x TN*8) += A (16 x D, fragments af[DK]) . B^T, B a TILE x D tile
-// in shared memory at pitch PITCH (row n of B is column n of the product).
-template <int D>
-__device__ __forceinline__ void mma_abt(float (&acc)[Bwd<D>::TN][4], const uint32_t (&af)[Bwd<D>::DK][4],
-                                        const char* B, int lane) {
-  using L = Bwd<D>;
+// 2^x in one instruction (MUFU.EX2; subnormal results flush to zero, far
+// below what a bf16 P or dS keeps).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Launch 1's element-wise step on a 64 x 64 tile, in place: S -> dS =
+// P o (dP - delta), P = 2^(S scale_log2 - lse2) of the thread's rows row0,
+// row0 + 8 (lse2, delta ls[i], dl[i]) and columns key0 + 8 j + {0, 1}.  MASK
+// (the diagonal tile and the one crossing s, only): dS = 0 past the
+// diagonal and past s.  The masked form is a separate path, so the others
+// pay nothing for it.
+template <bool MASK>
+__device__ __forceinline__ void ds_tile(float (&sf)[32], const float (&dp)[32], const float (&ls)[2],
+                                        const float (&dl)[2], float scale_log2, int key0, int row0, int s) {
 #pragma unroll
-  for (int kk = 0; kk < L::DK; ++kk)
+  for (int j = 0; j < 8; ++j)
 #pragma unroll
-    for (int j = 0; j < L::TN / 2; ++j) {
-      uint32_t b[4];
-      ldsm_x4(smem_addr(B + (16 * j + (lane / 16) * 8 + lane % 8) * L::PITCH + kk * 32 + ((lane / 8) % 2) * 16), b);
-      const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
-      mma(acc[2 * j], af[kk], b0);
-      mma(acc[2 * j + 1], af[kk], b1);
+    for (int e = 0; e < 4; ++e) {
+      const float p = ex2(__fmaf_rn(sf[4 * j + e], scale_log2, -ls[e >> 1]));
+      float ds = __fmul_rn(p, __fsub_rn(dp[4 * j + e], dl[e >> 1]));
+      if (MASK) {
+        const int key = key0 + 8 * j + (e & 1), row = row0 + 8 * (e >> 1);
+        if (key > row || key >= s) ds = 0.f;
+      }
+      sf[4 * j + e] = ds;
     }
 }
 
-// The same with A's 16 rows read from shared memory at pitch PITCH, one
-// k step's fragment at a time (launch 2's K and V rows, so that its two
-// products do not hold 2 x D/16 fragments in registers at once).
-template <int D>
-__device__ __forceinline__ void mma_abt_s(float (&acc)[Bwd<D>::TN][4], const char* A, const char* B, int lane) {
-  using L = Bwd<D>;
+// Launch 2's element-wise step on a 64 x 64 tile of S^T and dP^T, in place:
+// P^T and dS^T for the thread's keys key0, key0 + 8 and the columns (query
+// rows) row0 + 8 j + {0, 1}, whose lse2 and delta are at lt2[4 j + qd] and
+// lt2[32 + 4 j + qd] (float2).  MASK: P = dS = 0 where key > row or row >= s.
+template <bool MASK>
+__device__ __forceinline__ void pds_tile(float (&st)[32], float (&dpt)[32], const float2* lt2, int qd,
+                                         float scale_log2, int key0, int row0, int s) {
 #pragma unroll
-  for (int kk = 0; kk < L::DK; ++kk) {
-    uint32_t af[4];
-    ldsm_x4(smem_addr(A + (lane % 16) * L::PITCH + kk * 32 + (lane / 16) * 16), af);
+  for (int j = 0; j < 8; ++j) {
+    const float2 l2 = lt2[4 * j + qd], d2 = lt2[TILE / 2 + 4 * j + qd];
 #pragma unroll
-    for (int j = 0; j < L::TN / 2; ++j) {
-      uint32_t b[4];
-      ldsm_x4(smem_addr(B + (16 * j + (lane / 16) * 8 + lane % 8) * L::PITCH + kk * 32 + ((lane / 8) % 2) * 16), b);
-      const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
-      mma(acc[2 * j], af, b0);
-      mma(acc[2 * j + 1], af, b1);
-    }
-  }
-}
-
-// acc (16 x D) += X (16 x TILE, C fragments x[TN], rounded to bf16) . B, B a
-// TILE x D tile in shared memory (ldmatrix.trans).
-template <int D>
-__device__ __forceinline__ void mma_xb(float (&acc)[Bwd<D>::DN][4], const float (&x)[Bwd<D>::TN][4],
-                                       const char* B, int lane) {
-  using L = Bwd<D>;
-#pragma unroll
-  for (int kk = 0; kk < L::TK; ++kk) {
-    uint32_t a[4];
-    a_frag(x, kk, a);
-#pragma unroll
-    for (int j = 0; j < L::DN / 2; ++j) {
-      uint32_t b0[2], b1[2];
-      ldsm_x4_trans(smem_addr(B + (16 * kk + lane % 16) * L::PITCH + (16 * j + (lane / 16) * 8) * 2), b0[0], b0[1],
-                    b1[0], b1[1]);
-      mma(acc[2 * j], a, b0);
-      mma(acc[2 * j + 1], a, b1);
+    for (int e = 0; e < 4; ++e) {
+      float p = ex2(__fmaf_rn(st[4 * j + e], scale_log2, -((e & 1) ? l2.y : l2.x)));
+      float ds = __fmul_rn(p, __fsub_rn(dpt[4 * j + e], (e & 1) ? d2.y : d2.x));
+      if (MASK) {
+        const int key = key0 + 8 * (e >> 1), row = row0 + 8 * j + (e & 1);
+        if (key > row || row >= s) p = ds = 0.f;
+      }
+      st[4 * j + e] = p;     // P^T
+      dpt[4 * j + e] = ds;   // dS^T
     }
   }
 }
 
-// Store a 16 x D C-fragment accumulator times `mul` as bf16 rows row0 ..
-// row0 + 15 of `out` (rows at or past n skipped).
+// Store a warpgroup's 64 x D accumulator times `mul` as bf16 rows row0 ..
+// row0 + 63 of `out` (rows at or past n skipped).
 template <int D>
-__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[Bwd<D>::DN][4], float mul, int row0, int n,
-                                           int lane) {
-  const int g = lane / 4, t = lane % 4;
+__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[D / 2], float mul, int row0, int n) {
+  const int warp = (threadIdx.x / 32) % WARPS, lane = threadIdx.x % 32;
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + g + 8 * r;
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 16 * warp + lane / 4 + 8 * i;
     if (row >= n) continue;
-    bf16* dst = out + (size_t)row * D + 2 * t;
+    bf16* dst = out + (size_t)row * D + 2 * (lane % 4);
 #pragma unroll
-    for (int nn = 0; nn < Bwd<D>::DN; ++nn)
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * nn) =
-          __floats2bfloat162_rn(__fmul_rn(acc[nn][2 * r], mul), __fmul_rn(acc[nn][2 * r + 1], mul));
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+          __floats2bfloat162_rn(__fmul_rn(acc[4 * j + 2 * i], mul), __fmul_rn(acc[4 * j + 2 * i + 1], mul));
   }
 }
 
 // ---------------------------------------------------------------------------
-// bf16, launch 1: delta, then dQ.  Grid: x the query tiles (latest, the
-// heaviest, first), y = b * hq + h.
+// bf16, launch 1: delta, then dQ.  Block x: query tile nt - 1 - x / (b hq)
+// (the heaviest first), (b, query head) x % (b hq).  Warpgroup 0 computes,
+// warpgroup 1's first thread loads.
 // ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(WARPS * 32)
-attn_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-                      const bf16* __restrict__ o, const bf16* __restrict__ dout, const float* __restrict__ lse,
-                      float* __restrict__ delta, bf16* __restrict__ dq, int hq, int hkv, int s, float scale_log2,
-                      float scale) {
-  using L = Bwd<D>;
-  extern __shared__ __align__(128) char bwd_smem[];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int bh = blockIdx.y, b = bh / hq, h = bh - b * hq, hk = h / (hq / hkv);
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BROWS;
-  const int wq0 = q0 + warp * 16;  // the warp's first query row
-  char* Qs = bwd_smem + warp * 2 * 16 * L::PITCH;
-  char* dOs = Qs + 16 * L::PITCH;
-  char* ring = bwd_smem + WARPS * 2 * 16 * L::PITCH;
-  const size_t row_base = (size_t)bh * s;
-  const bf16* qp = q + row_base * D;
-  const bf16* dop = dout + row_base * D;
-  const bf16* kp = k + (size_t)(b * hkv + hk) * s * D;
-  const bf16* vp = v + (size_t)(b * hkv + hk) * s * D;
+template <int D, int STAGES, int BLOCKS, int REGS>
+__global__ void __launch_bounds__(2 * WG, BLOCKS)
+attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                   const bf16* __restrict__ o, const bf16* __restrict__ dout, const float* __restrict__ lse,
+                   float* __restrict__ aux, bf16* __restrict__ dq, int bhq, int hq, int hkv, int s,
+                   float scale_log2, float scale) {
+  using T = Tile<D>;
+  using L = DqSmem<D, STAGES>;
+  extern __shared__ char bwd_smem_raw[];
+  char* sm = align1024(bwd_smem_raw);
+  char* Qs = sm;
+  char* dOs = sm + T::BYTES;
+  char* ring = sm + 2 * T::BYTES;
+  float* dl_s = reinterpret_cast<float*>(sm + L::DELTA);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BARS);
+  uint64_t* empty = full + STAGES;
+  uint64_t* slab = empty + STAGES;
+  const int nt = (s + TILE - 1) / TILE;
+  const int qt = nt - 1 - blockIdx.x / bhq, bh = blockIdx.x % bhq;
+  const int b = bh / hq, h = bh - b * hq, bkv = b * hkv + h / (hq / hkv);
+  const int q0 = qt * TILE, ntiles = qt + 1;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      hop::mbar_init(&full[i], 1);
+      hop::mbar_init(&empty[i], WG);
+    }
+    hop::mbar_init(slab, 1);
+    hop::fence_barrier_init();
+  }
+  __syncthreads();
 
-  // The warp's Q and dO rows, and K/V tile 0: the first copy group.
-  copy_rows<D>(Qs, qp, wq0, 16, s, lane, 32);
-  copy_rows<D>(dOs, dop, wq0, 16, s, lane, 32);
-  const int kv_end = min(s, q0 + BROWS);  // the block's last row sees keys below it
-  const int ntiles = (kv_end + L::TILE - 1) / L::TILE;
-  auto load_kv = [&](int stage, int tile) {
-    char* Ks = ring + stage * 2 * L::TILE * L::PITCH;
-    copy_rows<D>(Ks, kp, tile * L::TILE, L::TILE, s, threadIdx.x, blockDim.x);
-    copy_rows<D>(Ks + L::TILE * L::PITCH, vp, tile * L::TILE, L::TILE, s, threadIdx.x, blockDim.x);
-  };
-  load_kv(0, 0);
-  cp_async_commit();
-
-  // delta = rowsum(dO o O) of the warp's rows, in a fixed order (lane c
-  // sums columns 2c, 2c + 1, 2c + 64, ...; then the butterfly), written
-  // for launch 2; lane keeps rows g and g + 8, and their lse in log2 units.
-  const bf16* op = o + row_base * D;
-  float dl[2] = {0.f, 0.f}, ls[2] = {0.f, 0.f};
-  for (int r = 0; r < 16; ++r) {
-    const int row = wq0 + r;
-    float acc = 0.f;
-    if (row < s) {
-#pragma unroll
-      for (int c = 2 * lane; c < D; c += 64) {
-        const float2 of = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(op + (size_t)row * D + c));
-        const float2 df = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dop + (size_t)row * D + c));
-        acc = __fmaf_rn(of.x, df.x, acc);
-        acc = __fmaf_rn(of.y, df.y, acc);
+  if (threadIdx.x >= WG) {  // the producer warpgroup
+    hop::regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x == WG) {
+      hop::mbar_expect_tx(slab, 2 * T::BYTES);
+      for (int c = 0; c < D / 64; ++c) {
+        hop::tma_load_3d(Qs + c * T::BLOCK, &tq, slab, 64 * c, q0, bh);
+        hop::tma_load_3d(dOs + c * T::BLOCK, &tdo, slab, 64 * c, q0, bh);
+      }
+      for (int t = 0; t < ntiles; ++t) {
+        const int st = t % STAGES;
+        if (t >= STAGES) hop::mbar_wait(&empty[st], (t / STAGES - 1) & 1);
+        hop::mbar_expect_tx(&full[st], 2 * T::BYTES);
+        char* kt = ring + st * L::RING;
+        for (int c = 0; c < D / 64; ++c) {
+          hop::tma_load_3d(kt + c * T::BLOCK, &tk, &full[st], 64 * c, t * TILE, bkv);
+          hop::tma_load_3d(kt + T::BYTES + c * T::BLOCK, &tv, &full[st], 64 * c, t * TILE, bkv);
+        }
       }
     }
-    acc = warp_sum(acc);
-    if (r == g) dl[0] = acc;
-    if (r == g + 8) dl[1] = acc;
-    if (lane == 0 && row < s) delta[row_base + row] = acc;
-  }
+  } else {  // the consumer warpgroup: query rows q0 .. q0 + 63
+    hop::regs_inc<REGS>();
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, qd = lane % 4;
+    const size_t row_base = (size_t)bh * s;
+    // delta = rowsum(dO o O): a row's D / 8 lanes each sum one 16-byte vector
+    // in order, then an xor tree over those lanes; the warp's 16 rows in
+    // 16 / RPP passes, every load issued first.  Launch 2 reads each row's
+    // lse in log2 units and delta from aux: (b hq, 2, SP) f32, rows padded
+    // to SP = nt * TILE, with zeros past s.
+    {
+      constexpr int LPR = D / 8, RPP = 32 / LPR, PASSES = 16 / RPP;
+      uint4 ov[PASSES], dv[PASSES];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = wq0 + g + 8 * r;
-    ls[r] = row < s ? __fmul_rn(lse[row_base + row], LOG2E) : 0.f;
-  }
-
-  uint32_t qf[L::DK][4], df[L::DK][4];
-  float acc[L::DN][4];
+      for (int i = 0; i < PASSES; ++i) {
+        const int row = q0 + 16 * warp + i * RPP + lane / LPR;
+        if (row < s) {
+          const size_t at = (row_base + row) * D + (lane % LPR) * 8;
+          ov[i] = *reinterpret_cast<const uint4*>(o + at);
+          dv[i] = *reinterpret_cast<const uint4*>(dout + at);
+        } else {
+          ov[i] = dv[i] = make_uint4(0, 0, 0, 0);
+        }
+      }
 #pragma unroll
-  for (int n = 0; n < L::DN; ++n)
+      for (int i = 0; i < PASSES; ++i) {
+        const __nv_bfloat162* a = reinterpret_cast<const __nv_bfloat162*>(&ov[i]);
+        const __nv_bfloat162* c = reinterpret_cast<const __nv_bfloat162*>(&dv[i]);
+        float acc = 0.f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  const bool active = wq0 < s;
-  for (int i = 0; i < ntiles; ++i) {
-    if (i + 1 < ntiles) load_kv((i + 1) % 2, i + 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // tile i (and Q, dO) landed: this thread's copies
-    __syncthreads();     // ... everyone's
-    if (i == 0 && active) {
+        for (int j = 0; j < 4; ++j) {
+          const float2 x = __bfloat1622float2(a[j]), y = __bfloat1622float2(c[j]);
+          acc = __fmaf_rn(x.x, y.x, acc);
+          acc = __fmaf_rn(x.y, y.y, acc);
+        }
 #pragma unroll
-      for (int kk = 0; kk < L::DK; ++kk) {
-        ldsm_x4(smem_addr(Qs + (lane % 16) * L::PITCH + kk * 32 + (lane / 16) * 16), qf[kk]);
-        ldsm_x4(smem_addr(dOs + (lane % 16) * L::PITCH + kk * 32 + (lane / 16) * 16), df[kk]);
+        for (int off = LPR / 2; off > 0; off >>= 1) acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, off));
+        const int r = 16 * warp + i * RPP + lane / LPR;
+        if (lane % LPR == 0) {
+          dl_s[r] = acc;
+          float* at = aux + (size_t)bh * 2 * (nt * TILE) + q0 + r;
+          at[0] = q0 + r < s ? __fmul_rn(lse[row_base + q0 + r], LOG2E) : 0.f;
+          at[nt * TILE] = acc;
+        }
       }
     }
-    const int key0 = i * L::TILE;
-    // Tiles wholly past the warp's last row are masked for all of it.
-    if (active && key0 <= wq0 + 15) {
-      const char* Ks = ring + (i % 2) * 2 * L::TILE * L::PITCH;
-      const char* Vs = Ks + L::TILE * L::PITCH;
-      float sf[L::TN][4], dp[L::TN][4];
+    hop::bar_sync<1>(WG);
+    float dl[2], ls[2];
 #pragma unroll
-      for (int j = 0; j < L::TN; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sf[j][e] = dp[j][e] = 0.f;
-      mma_abt<D>(sf, qf, Ks, lane);   // S = Q.K^T
-      mma_abt<D>(dp, df, Vs, lane);   // dP = dO.V^T
-      const bool mask = key0 + L::TILE - 1 > wq0 || key0 + L::TILE > s;
-#pragma unroll
-      for (int j = 0; j < L::TN; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = key0 + 8 * j + 2 * t + (e & 1), row = wq0 + g + 8 * (e >> 1);
-          float p = exp2f(__fsub_rn(__fmul_rn(sf[j][e], scale_log2), ls[e >> 1]));
-          if (mask && (key > row || key >= s)) p = 0.f;
-          sf[j][e] = __fmul_rn(p, __fsub_rn(dp[j][e], dl[e >> 1]));  // dS
-        }
-      mma_xb<D>(acc, sf, Ks, lane);   // dQ += dS.K
+    for (int i = 0; i < 2; ++i) {
+      const int r = 16 * warp + g + 8 * i;
+      dl[i] = dl_s[r];
+      ls[i] = q0 + r < s ? __fmul_rn(lse[row_base + q0 + r], LOG2E) : 0.f;
     }
-    __syncthreads();  // stage i % 2 is read: the next iteration may refill it
-  }
-  cp_async_wait<0>();
-  if (active) store_rows<D>(dq + row_base * D, acc, scale, wq0, s, lane);
-}
-
-// ---------------------------------------------------------------------------
-// bf16, launch 2: dK and dV.  Grid: x the key tiles (earliest, the heaviest,
-// first), y = b * hkv + hk.
-// ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(WARPS * 32)
-attn_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-                       const bf16* __restrict__ dout, const float* __restrict__ lse,
-                       const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int hq,
-                       int hkv, int s, float scale_log2, float scale) {
-  using L = Bwd<D>;
-  extern __shared__ __align__(128) char bwd_smem[];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int bk = blockIdx.y, b = bk / hkv, hk = bk - b * hkv, group = hq / hkv;
-  const int kv0 = blockIdx.x * BROWS;
-  const int wk0 = kv0 + warp * 16;  // the warp's first key
-  char* Ks = bwd_smem;
-  char* Vs = Ks + BROWS * L::PITCH;
-  char* ring = Vs + BROWS * L::PITCH;
-  const size_t kv_base = (size_t)bk * s;
-
-  copy_rows<D>(Ks, k + kv_base * D, kv0, BROWS, s, threadIdx.x, blockDim.x);
-  copy_rows<D>(Vs, v + kv_base * D, kv0, BROWS, s, threadIdx.x, blockDim.x);
-  // Work items in order: the group's query heads, each from the query tile
-  // holding row kv0 (the first that sees a key of the block) to the last.
-  const int qt0 = kv0 / L::TILE, per = (s + L::TILE - 1) / L::TILE - qt0, items = group * per;
-  auto load_q = [&](int stage, int item) {
-    const int h = hk * group + item / per, qrow0 = (qt0 + item % per) * L::TILE;
-    const size_t base = (size_t)(b * hq + h) * s;
-    char* Qt = ring + stage * L::STAGE2;
-    char* dOt = Qt + L::TILE * L::PITCH;
-    float* lt = reinterpret_cast<float*>(dOt + L::TILE * L::PITCH);
-    copy_rows<D>(Qt, q + base * D, qrow0, L::TILE, s, threadIdx.x, blockDim.x);
-    copy_rows<D>(dOt, dout + base * D, qrow0, L::TILE, s, threadIdx.x, blockDim.x);
-    for (int i = threadIdx.x; i < L::TILE; i += blockDim.x) {
-      const int row = qrow0 + i;
-      lt[i] = row < s ? __fmul_rn(lse[base + row], LOG2E) : 0.f;
-      lt[L::TILE + i] = row < s ? delta[base + row] : 0.f;
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    hop::mbar_wait(slab, 0);
+    for (int t = 0; t < ntiles; ++t) {
+      const int st = t % STAGES;
+      hop::mbar_wait(&full[st], (t / STAGES) & 1);
+      const char* Kt = ring + st * L::RING;
+      const char* Vt = Kt + T::BYTES;
+      float sf[32], dp[32];
+      hop::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < T::KSTEPS; ++kk)
+        hop::Wgmma<64>::ss(sf, T::kmajor(Qs, kk), T::kmajor(Kt, kk), kk > 0);   // S = Q.K^T
+#pragma unroll
+      for (int kk = 0; kk < T::KSTEPS; ++kk)
+        hop::Wgmma<64>::ss(dp, T::kmajor(dOs, kk), T::kmajor(Vt, kk), kk > 0);  // dP = dO.V^T
+      hop::wg_commit();
+      hop::wg_wait();
+      hop::fence_regs(sf);
+      hop::fence_regs(dp);
+      // The last tile holds the diagonal, and is the only one that can
+      // cross s.
+      if (t == ntiles - 1)
+        ds_tile<true>(sf, dp, ls, dl, scale_log2, t * TILE + 2 * qd, q0 + 16 * warp + g, s);
+      else
+        ds_tile<false>(sf, dp, ls, dl, scale_log2, t * TILE + 2 * qd, q0 + 16 * warp + g, s);
+      uint32_t a[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) a_frag(sf, kk, a[kk]);
+      hop::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) hop::Wgmma<D>::rs(acc, a[kk], T::mnmajor(Kt, kk));   // dQ += dS.K
+      hop::wg_commit();
+      hop::wg_wait();
+      hop::fence_regs(acc);
+      hop::mbar_arrive(&empty[st]);
     }
-  };
-  load_q(0, 0);
-  cp_async_commit();
-
-  float dka[L::DN][4], dva[L::DN][4];
-#pragma unroll
-  for (int n = 0; n < L::DN; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
-  const bool active = wk0 < s;
-  for (int i = 0; i < items; ++i) {
-    if (i + 1 < items) load_q((i + 1) % 2, i + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const int qrow0 = (qt0 + i % per) * L::TILE;
-    // Query tiles wholly before the warp's first key are masked for all of it.
-    if (active && qrow0 + L::TILE - 1 >= wk0) {
-      const char* Qt = ring + (i % 2) * L::STAGE2;
-      const char* dOt = Qt + L::TILE * L::PITCH;
-      const float* lt = reinterpret_cast<const float*>(dOt + L::TILE * L::PITCH);
-      float st[L::TN][4], dpt[L::TN][4];
-#pragma unroll
-      for (int j = 0; j < L::TN; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-      mma_abt_s<D>(st, Ks + warp * 16 * L::PITCH, Qt, lane);    // S^T = K.Q^T
-      mma_abt_s<D>(dpt, Vs + warp * 16 * L::PITCH, dOt, lane);  // dP^T = V.dO^T
-      const bool mask = qrow0 < wk0 + 15 || qrow0 + L::TILE > s;
-#pragma unroll
-      for (int j = 0; j < L::TN; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = 8 * j + 2 * t + (e & 1), key = wk0 + g + 8 * (e >> 1), row = qrow0 + col;
-          float p = exp2f(__fsub_rn(__fmul_rn(st[j][e], scale_log2), lt[col]));
-          if (mask && (key > row || row >= s)) p = 0.f;
-          st[j][e] = p;                                                      // P^T
-          dpt[j][e] = __fmul_rn(p, __fsub_rn(dpt[j][e], lt[L::TILE + col]));  // dS^T
-        }
-      mma_xb<D>(dva, st, dOt, lane);   // dV += P^T.dO
-      mma_xb<D>(dka, dpt, Qt, lane);   // dK += dS^T.Q
-    }
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-  if (active) {
-    store_rows<D>(dk + kv_base * D, dka, scale, wk0, s, lane);
-    store_rows<D>(dv + kv_base * D, dva, 1.f, wk0, s, lane);
+    store_rows<D>(dq + row_base * D, acc, scale, q0, s);
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16, launch 2: dK and dV.  Block x: key tile x / (b hkv) (the heaviest
+// first) of (b, KV head) x % (b hkv); it walks the group's query heads and,
+// for each, the query tiles from the diagonal to the end.  Warpgroups 0 ..
+// NWG - 1 compute (tile t of the walk goes to warpgroup t % NWG), warpgroup
+// NWG's first thread loads.
+// ---------------------------------------------------------------------------
+template <int D, int NWG>
+__global__ void __launch_bounds__((NWG + 1) * WG, 3 - NWG)
+attn_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                    const __grid_constant__ CUtensorMap taux, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                    int bhkv, int hq, int hkv, int s, float scale_log2, float scale) {
+  using T = Tile<D>;
+  using L = DkvSmem<D, NWG>;
+  constexpr int STAGES = L::STAGES;
+  extern __shared__ char bwd_smem_raw[];
+  char* sm = align1024(bwd_smem_raw);
+  char* Ks = sm;
+  char* Vs = sm + T::BYTES;
+  char* ring = sm + L::SLABS;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BARS);
+  uint64_t* empty = full + STAGES;
+  uint64_t* slab = empty + STAGES;
+  const int nt = (s + TILE - 1) / TILE;
+  const int kt = blockIdx.x / bhkv, bk = blockIdx.x % bhkv;
+  const int b = bk / hkv, hk = bk - b * hkv, group = hq / hkv;
+  const int k0 = kt * TILE, per = nt - kt, items = group * per;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      hop::mbar_init(&full[i], 1);
+      hop::mbar_init(&empty[i], WG);
+    }
+    hop::mbar_init(slab, 1);
+    hop::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= NWG * WG) {  // the producer warpgroup
+    hop::regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x == NWG * WG) {
+      hop::mbar_expect_tx(slab, 2 * T::BYTES);
+      for (int c = 0; c < D / 64; ++c) {
+        hop::tma_load_3d(Ks + c * T::BLOCK, &tk, slab, 64 * c, k0, bk);
+        hop::tma_load_3d(Vs + c * T::BLOCK, &tv, slab, 64 * c, k0, bk);
+      }
+      for (int t = 0; t < items; ++t) {
+        const int st = t % STAGES;
+        if (t >= STAGES) hop::mbar_wait(&empty[st], (t / STAGES - 1) & 1);
+        hop::mbar_expect_tx(&full[st], 2 * T::BYTES + 2 * TILE * 4);
+        const int bh = b * hq + hk * group + t / per, qrow0 = (kt + t % per) * TILE;
+        char* Qt = ring + st * L::STAGE;
+        for (int c = 0; c < D / 64; ++c) {
+          hop::tma_load_3d(Qt + c * T::BLOCK, &tq, &full[st], 64 * c, qrow0, bh);
+          hop::tma_load_3d(Qt + T::BYTES + c * T::BLOCK, &tdo, &full[st], 64 * c, qrow0, bh);
+        }
+        // The tile's rows' lse (log2 units) and delta, zeros past s.
+        hop::tma_load_2d(Qt + 2 * T::BYTES, &taux, &full[st], qrow0, 2 * bh);
+      }
+    }
+  } else {  // consumer warpgroup wg: keys k0 .. k0 + 63
+    hop::regs_inc<NWG == 2 ? 240 : 232>();
+    const int wg = threadIdx.x / WG, warp = (threadIdx.x / 32) % WARPS, lane = threadIdx.x % 32;
+    const int g = lane / 4, qd = lane % 4;
+    float dka[D / 2], dva[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+    hop::mbar_wait(slab, 0);
+    for (int t = wg; t < items; t += NWG) {
+      const int st = t % STAGES;
+      hop::mbar_wait(&full[st], (t / STAGES) & 1);
+      const int qt = kt + t % per, qrow0 = qt * TILE;
+      const char* Qt = ring + st * L::STAGE;
+      const char* dOt = Qt + T::BYTES;
+      const float2* lt2 = reinterpret_cast<const float2*>(Qt + 2 * T::BYTES);   // lse2, then delta
+      float st_[32], dpt[32];
+      hop::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < T::KSTEPS; ++kk)
+        hop::Wgmma<64>::ss(st_, T::kmajor(Ks, kk), T::kmajor(Qt, kk), kk > 0);   // S^T = K.Q^T
+#pragma unroll
+      for (int kk = 0; kk < T::KSTEPS; ++kk)
+        hop::Wgmma<64>::ss(dpt, T::kmajor(Vs, kk), T::kmajor(dOt, kk), kk > 0);  // dP^T = V.dO^T
+      hop::wg_commit();
+      hop::wg_wait();
+      hop::fence_regs(st_);
+      hop::fence_regs(dpt);
+      // The diagonal tile, and the one that crosses s, are masked.
+      if (qt == kt || qrow0 + TILE > s)
+        pds_tile<true>(st_, dpt, lt2, qd, scale_log2, k0 + 16 * warp + g, qrow0 + 2 * qd, s);
+      else
+        pds_tile<false>(st_, dpt, lt2, qd, scale_log2, k0 + 16 * warp + g, qrow0 + 2 * qd, s);
+      uint32_t pa[4][4], da[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        a_frag(st_, kk, pa[kk]);
+        a_frag(dpt, kk, da[kk]);
+      }
+      hop::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) hop::Wgmma<D>::rs(dva, pa[kk], T::mnmajor(dOt, kk));   // dV += P^T.dO
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) hop::Wgmma<D>::rs(dka, da[kk], T::mnmajor(Qt, kk));    // dK += dS^T.Q
+      hop::wg_commit();
+      hop::wg_wait();
+      hop::fence_regs(dva);
+      hop::fence_regs(dka);
+      hop::mbar_arrive(&empty[st]);
+    }
+    if (NWG == 2) {
+      // Every tile is consumed, so the ring is free: warpgroup 1 leaves its
+      // sums there and warpgroup 0 adds them to its own (first + second).
+      float* part = reinterpret_cast<float*>(ring);
+      const int tid = threadIdx.x % WG;
+      hop::bar_sync<1>(NWG * WG);
+      if (wg == 1) {
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) {
+          part[i * WG + tid] = dka[i];
+          part[(D / 2 + i) * WG + tid] = dva[i];
+        }
+      }
+      hop::bar_sync<1>(NWG * WG);
+      if (wg == 0) {
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) {
+          dka[i] = __fadd_rn(dka[i], part[i * WG + tid]);
+          dva[i] = __fadd_rn(dva[i], part[(D / 2 + i) * WG + tid]);
+        }
+      }
+    }
+    if (wg == 0) {
+      store_rows<D>(dk + (size_t)bk * s * D, dka, scale, k0, s);
+      store_rows<D>(dv + (size_t)bk * s * D, dva, 1.f, k0, s);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, fetched from the driver at run time (no -lcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// Rows (bh, s, d) of bf16 as boxes of TILE rows x 64 columns, 128-byte
+// swizzle; rows past s read as zeros.
+bool map_rows(CUtensorMap* m, const void* base, int bh, int s, int d) {
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)s * d * 2};
+  const cuuint32_t box[3] = {64, TILE, 1}, unit[3] = {1, 1, 1};
+  return encoder()(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box, unit,
+                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// aux (rows, sp) f32 as boxes of 2 rows x TILE values.
+bool map_aux(CUtensorMap* m, const float* base, int rows, int sp) {
+  const cuuint64_t dims[2] = {(cuuint64_t)sp, (cuuint64_t)rows}, strides[1] = {(cuuint64_t)sp * 4};
+  const cuuint32_t box[2] = {TILE, 2}, unit[2] = {1, 1};
+  return encoder()(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(base), dims, strides, box, unit,
+                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// dQ at D = 64 (3 stages): three blocks an SM, its consumer held to 136
+// registers; at D = 128 (2 stages) two, 232 registers.  dK/dV: one consumer
+// warpgroup at D = 64 (two blocks an SM), two at D = 128, so that a KV
+// head's heaviest key tile takes half the time and Qwen3-8B's 8 KV heads
+// (256 blocks on 132 SMs) stop waiting on one block.  Fixed by D alone: the
+// split changes dK's and dV's summation order, so it must not follow B.
 template <int D>
 int launch_tc(const void* q, const void* k, const void* v, const void* o, const void* dout, const float* lse,
-              float* delta, void* dq, void* dk, void* dv, int b, int hq, int hkv, int s, float scale,
+              float* aux, void* dq, void* dk, void* dv, int b, int hq, int hkv, int s, float scale,
               cudaStream_t st) {
-  using L = Bwd<D>;
-  auto k1 = attn_bwd_dq_tc_kernel<D>;
-  auto k2 = attn_bwd_dkv_tc_kernel<D>;
+  constexpr int QSTAGES = D == 64 ? 3 : 2, QBLOCKS = D == 64 ? 3 : 2, QREGS = D == 64 ? 136 : 232;
+  constexpr int NWG = D == 64 ? 1 : 2;
+  auto k1 = attn_bwd_dq_kernel<D, QSTAGES, QBLOCKS, QREGS>;
+  auto k2 = attn_bwd_dkv_kernel<D, NWG>;
+  constexpr int SM1 = DqSmem<D, QSTAGES>::BYTES, SM2 = DkvSmem<D, NWG>::BYTES;
   static bool configured = false;
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(k1, cudaFuncAttributeMaxDynamicSharedMemorySize, L::DQ_SMEM);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(k2, cudaFuncAttributeMaxDynamicSharedMemorySize, L::DKV_SMEM);
+    cudaError_t err = cudaFuncSetAttribute(k1, cudaFuncAttributeMaxDynamicSharedMemorySize, SM1);
+    if (err == cudaSuccess) err = cudaFuncSetAttribute(k2, cudaFuncAttributeMaxDynamicSharedMemorySize, SM2);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  const int tiles = (s + BROWS - 1) / BROWS;
+  if (encoder() == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap tq, tk, tv, tdo, taux;
+  const int nt = (s + TILE - 1) / TILE;
+  if (!map_rows(&tq, q, b * hq, s, D) || !map_rows(&tk, k, b * hkv, s, D) || !map_rows(&tv, v, b * hkv, s, D) ||
+      !map_rows(&tdo, dout, b * hq, s, D) || !map_aux(&taux, aux, 2 * b * hq, nt * TILE))
+    return (int)cudaErrorInvalidValue;
   const float scale_log2 = scale * LOG2E;
-  k1<<<dim3(tiles, b * hq), WARPS * 32, L::DQ_SMEM, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), hq, hkv, s,
-      scale_log2, scale);
+  k1<<<nt * b * hq, 2 * WG, SM1, st>>>(tq, tk, tv, tdo, static_cast<const bf16*>(o),
+                                       static_cast<const bf16*>(dout), lse, aux, static_cast<bf16*>(dq), b * hq,
+                                       hq, hkv, s, scale_log2, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  k2<<<dim3(tiles, b * hkv), WARPS * 32, L::DKV_SMEM, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), hq, hkv, s,
-      scale_log2, scale);
+  k2<<<nt * b * hkv, (NWG + 1) * WG, SM2, st>>>(tq, tk, tv, tdo, taux, static_cast<bf16*>(dk),
+                                                static_cast<bf16*>(dv), b * hkv, hq, hkv, s, scale_log2, scale);
   return (int)cudaGetLastError();
 }
 
@@ -620,8 +770,11 @@ int launch_simt(const void* q, const void* k, const void* v, const void* o, cons
 // (b, hq, s, d); k, v, dk, dv: (b, hkv, s, d); all contiguous, of one dtype
 // (0 = f32 at d = 16, 64, 128; 1 = bf16 at d = 64, 128; bf16 pointers
 // 16-byte aligned); lse (b, hq, s) f32 from flash_attention_launch; delta
-// (b, hq, s) f32 scratch, written by launch 1 and read by launch 2.
-// Anything else: cudaErrorInvalidValue, and nothing is launched.
+// f32 scratch, written by launch 1 and read by launch 2: (b, hq, s) for f32,
+// (b, hq, 2, ceil(s / 64) * 64) for bf16 (each row's lse in log2 units and
+// its delta, rows padded to whole tiles, 16-byte aligned).  Anything else
+// (and b * hq > 65535 in f32, b * hq * s >= 2^31 in bf16):
+// cudaErrorInvalidValue, and nothing is launched.
 extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v, const void* o,
                                           const void* dout, const void* lse, void* delta, void* dq, void* dk,
                                           void* dv, int b, int hq, int hkv, int s, int d, int dtype, float scale,
@@ -629,8 +782,9 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
-  if (b < 1 || hq < 1 || hkv < 1 || hq % hkv || s < 1 || (size_t)b * hq > 65535) return (int)cudaErrorInvalidValue;
+  if (b < 1 || hq < 1 || hkv < 1 || hq % hkv || s < 1) return (int)cudaErrorInvalidValue;
   if (dtype == 0) {
+    if ((size_t)b * hq > 65535) return (int)cudaErrorInvalidValue;
     switch (d) {
       case 16: return launch_simt<16>(q, k, v, o, dout, l, dl, dq, dk, dv, b, hq, hkv, s, scale, st);
       case 64: return launch_simt<64>(q, k, v, o, dout, l, dl, dq, dk, dv, b, hq, hkv, s, scale, st);
@@ -638,7 +792,7 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
       default: return (int)cudaErrorInvalidValue;
     }
   }
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if (dtype != 1 || (size_t)b * hq * s > 0x7fffffff) return (int)cudaErrorInvalidValue;
   switch (d) {
     case 64: return launch_tc<64>(q, k, v, o, dout, l, dl, dq, dk, dv, b, hq, hkv, s, scale, st);
     case 128: return launch_tc<128>(q, k, v, o, dout, l, dl, dq, dk, dv, b, hq, hkv, s, scale, st);

@@ -33,11 +33,12 @@ Training differentiates it through :class:`FlashAttention`: the forward
 kernel also writes each row's log-sum-exp (``return_lse``; the output's
 bits and the launch are serving's), and :func:`flash_attention_bwd`, the
 hand-written backward (``csrc/flash_attention_bwd.cu``: FlashAttention-2's,
-two passes, no atomics, so two calls give the same bits), computes dQ, dK
-and dV from it.  The reference trains by autodiff of its jnp oracle (its
-Pallas kernel has no VJP); the backward replaces that VJP for the one form
-training runs, causal at ``q_offset`` 0 over every key.
-:data:`bwd_launches` counts its calls (two kernels each).
+two passes, no atomics, so two calls give the same bits; bf16 on ``wgmma``
+fed by TMA, both grids heaviest first across every (b, head, tile)),
+computes dQ, dK and dV from it.  The reference trains by autodiff of its
+jnp oracle (its Pallas kernel has no VJP); the backward replaces that
+VJP for the one form training runs, causal at ``q_offset`` 0 over every
+key.  :data:`bwd_launches` counts its calls (two kernels each).
 """
 
 from __future__ import annotations
@@ -301,6 +302,9 @@ def check_bwd_form(causal: bool, q_offset: int, kv_len: Optional[int],
             f"q_offset={q_offset} Sq={sq} Sk={sk} kv_len={kv_len}")
 
 
+BWD_TILE = 64            # rows of a bf16 backward tile (the scratch pads to it)
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor,
                         dout: torch.Tensor, *,
@@ -330,11 +334,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention_bwd needs lse ({b}, {hq}, {s}) "
                          f"f32, contiguous, on {q.device}; got "
                          f"{tuple(lse.shape)} {lse.dtype} on {lse.device}")
-    # 16-byte cp.async (bf16) needs 16-byte aligned operands.
-    q, k, v, o, dout = (t if t.data_ptr() % 16 == 0 else t.clone()
-                        for t in (q, k, v, o, dout))
+    # TMA and 16-byte vector loads need 16-byte aligned operands.
+    q, k, v, o, dout, lse = (t if t.data_ptr() % 16 == 0 else t.clone()
+                             for t in (q, k, v, o, dout, lse))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    delta = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+    # The dQ pass's scratch for the dK/dV pass: delta a row (f32), and for
+    # bf16 also lse in log2 units, rows padded to whole tiles.
+    delta = torch.empty(
+        (b, hq, s) if q.dtype == torch.float32 else
+        (b, hq, 2, -(-s // BWD_TILE) * BWD_TILE),
+        dtype=torch.float32, device=q.device)
     lib = _bwd_lib()
     err = lib.flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),

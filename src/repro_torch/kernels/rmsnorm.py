@@ -12,7 +12,9 @@ with one.
 
 :func:`layernorm` is the same for RWKV-6's LayerNorm and GroupNorm,
 whose rows must not depend on the batch either (``--verify`` holds a
-batched decode to a one-slot one).
+batched decode to a one-slot one).  Its kernel reads a row once into
+registers, spread over the threads :func:`ln_plan` gives (a function of
+the row's width and dtype alone, so its summation order is too).
 
 :func:`rmsnorm` runs the plain version (:data:`plain`, float64 sums),
 :func:`layernorm` its own (:data:`plain_layernorm`, f32 as the
@@ -27,6 +29,7 @@ expression's backward.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -40,8 +43,16 @@ ln_launches = 0
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
              + [ctypes.c_float, ctypes.c_void_p])
-_LN_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+_LN_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                 + [ctypes.c_float, ctypes.c_void_p])
+LN_MAX_PER = 8           # vectors a layernorm thread holds, at most
+LN_MAX_THREADS = 256     # threads of a layernorm row, at most
+
+
+class LnPlan(NamedTuple):
+    vec: int        # elements a vector: vec_width(w, dtype)
+    threads: int    # threads a row (a power of two)
+    per: int        # vectors a thread: thread t holds t, t + threads, ...
 
 
 def vec_width(d: int, dtype: torch.dtype) -> int:
@@ -53,6 +64,29 @@ def vec_width(d: int, dtype: torch.dtype) -> int:
         raise ValueError(f"rmsnorm takes f32 or bf16, got {dtype}")
     wide = 16 // torch.tensor([], dtype=dtype).element_size()
     return wide if d % wide == 0 else 1
+
+
+def ln_plan(w: int, dtype: torch.dtype) -> LnPlan:
+    """How the layernorm kernel splits a row of ``w`` values: ``nv = w /
+    vec`` vectors over ``threads`` threads, ``per`` each.  At most 32
+    vectors: the largest power of two of threads <= nv (a GroupNorm row of
+    64 bf16: 8 lanes, a warp 4 rows); more: the least power of two, at
+    least 32, that leaves a thread at most :data:`LN_MAX_PER` (2560 bf16:
+    64 threads of 5).  A function of (w, dtype) alone, so a row's sums run
+    in one order whatever the call holds; the kernel refuses another
+    split."""
+    vec = vec_width(w, dtype)
+    nv = w // vec
+    if nv <= 32:
+        threads = 1 << (nv.bit_length() - 1)
+    else:
+        need = -(-nv // LN_MAX_PER)
+        threads = max(32, 1 << (need - 1).bit_length())
+    if threads > LN_MAX_THREADS:
+        raise ValueError(f"layernorm takes rows of at most "
+                         f"{LN_MAX_THREADS * LN_MAX_PER} vectors, got "
+                         f"w={w} {dtype}")
+    return LnPlan(vec, threads, -(-nv // threads))
 
 
 def _lib() -> ctypes.CDLL:
@@ -104,7 +138,10 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     """x: (..., d) f32 or bf16; scale, bias: (d,) -> x's shape and dtype.
     ``groups`` > 1: a GroupNorm over ``groups`` consecutive slices of each
     row (the kernel's rows are the slices, each with its part of scale
-    and bias)."""
+    and bias).  The kernel takes a row (a slice) of at most
+    ``LN_MAX_THREADS * LN_MAX_PER`` = 2048 vectors: 16384 bf16 or 8192 f32
+    values when w is a whole number of 16-byte vectors, else 2048 values
+    (a wider row raises ``ValueError``; no model's width comes near)."""
     global ln_launches
     if all(t.device.type == "cpu" for t in (x, scale, bias)):
         return plain_layernorm(x, scale, bias, eps, groups)
@@ -129,15 +166,16 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     w = d // groups
     rows = x.reshape(-1, w).contiguous()
     out = torch.empty_like(rows)
-    vec = vec_width(w, x.dtype)
-    if vec > 1 and rows.data_ptr() % 16:
-        rows = rows.clone()          # 16-byte vector loads
+    p = ln_plan(w, x.dtype)
     scale, bias = scale.float().contiguous(), bias.float().contiguous()
+    if p.vec > 1:                    # 16-byte vector loads of all three
+        rows, scale, bias = (t if t.data_ptr() % 16 == 0 else t.clone()
+                             for t in (rows, scale, bias))
     lib = _lib()
     err = lib.layernorm_launch(
         rows.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        rows.shape[0], w, groups, _DTYPES[x.dtype], vec, float(eps),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        rows.shape[0], w, groups, _DTYPES[x.dtype], p.vec, p.threads, p.per,
+        float(eps), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, "rmsnorm", err)
     ln_launches += 1
     return out.reshape(x.shape)
