@@ -123,8 +123,9 @@
    counterpart) against its plain loop from a nonzero state at
    Jamba-v0.1 52B's decode (8 slots), a serial prompt and a 448-token
    one, in bf16 and f32 (a control with the state 1% off must fail; each
-   slot alone equal to its rows of the batch bit for bit) and at the
-   SMOKE width; ``gama_gemm`` at every Jamba weight GEMM (the MoE router
+   slot alone equal to its rows of the batch bit for bit; a prompt split
+   in two with the state carried equal to the whole bit for bit) and at
+   the SMOKE width; ``gama_gemm`` at every Jamba weight GEMM (the MoE router
    in f32) at M = 2, 8 and 448, rows independent of M, and at the MoE
    and hybrid SMOKE configs' GEMMs.  Then the serve launcher's Jamba
    (dense, and ``--kv paged`` asked: the Mamba state stays dense),
@@ -228,7 +229,7 @@ from repro_torch.kernels.dequant import dequantize as dequant_kernel  # noqa: E4
 from repro_torch.kernels.rmsnorm import layernorm as layernorm_kernel  # noqa: E402,E501
 from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_kernel  # noqa: E402
 from repro_torch.kernels.selective_scan import (  # noqa: E402
-    selective_scan as scan_kernel)
+    scan_plan, selective_scan as scan_kernel)
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_chunk, flash_decode, flash_paged_decode)
 from repro_torch.kernels.flash_attention import blocks as attn_blocks  # noqa: E402
@@ -1316,8 +1317,10 @@ def profile_decode(cfg, params, max_len, steps=5):
 # step, the same ones in every attempt; every record of a shorter session).
 # So each traced run starts with spin kernels spread over a margin, the
 # entry of its attempt, and ends ``PROFILE_MARGIN_S`` after the card was
-# idle; the spin kernels are left out of every sum.
-PROFILE_MARGINS_S = (0.05, 0.5, 2.0)
+# idle; the spin kernels are left out of every sum.  A margin of 0.05 s
+# lost records in 8 profiles of one run where 0.5 s lost none, so the
+# first attempt takes 0.5 s.
+PROFILE_MARGINS_S = (0.5, 2.0)
 PROFILE_MARGIN_S = 0.05
 
 
@@ -2654,7 +2657,7 @@ def profile_step(step_fn, params, opt, batch, label, mean_ms):
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
-        _prime(PROFILE_MARGINS_S[1])
+        _prime(PROFILE_MARGINS_S[0])
         t0 = time.perf_counter()
         params, opt, m = step_fn(params, opt, batch)
         torch.cuda.synchronize()
@@ -2977,7 +2980,7 @@ def _pass_ms(call, reps=8, warm=8):
     torch.cuda.synchronize()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        _prime(PROFILE_MARGINS_S[1])
+        _prime(PROFILE_MARGINS_S[0])
         for _ in range(warm + reps):
             call()
         torch.cuda.synchronize()
@@ -3395,6 +3398,10 @@ def archs_kernel_phase():
                     torch.bfloat16, seed=74)
     check_layernorm("smoke", 3, 64, 1, torch.float32, seed=75)
     check_layernorm("smoke-groupnorm", 12, 64, 4, torch.float32, seed=76)
+    # A row wider than the registers hold (2561 bf16 values: not a whole
+    # number of 16-byte vectors, so 2561 of one value, 11 a thread), which
+    # the kernel walks in chunks.
+    check_layernorm("wide-row", LONG_REQS, 2561, 1, torch.bfloat16, seed=77)
     # RWKV-6 3B training's 8 x 64 tokens (the grad check below runs them).
     check_layernorm("train-512", 512, rwkv.d_model, 1, torch.bfloat16,
                     seed=70)
@@ -3755,7 +3762,7 @@ def _scan_inputs(gen, b, t, di, n, dtype):
 
 
 def check_selective_scan(label, b, t, di, n, dtype, seed, main=False,
-                         per_step=None):
+                         per_step=None, split=None):
     """selective_scan against its plain version (the per-token loop) from
     a nonzero state: in f32, y and the final state within 1e-5 * (1 +
     |plain|) (the same f32 operations, the contraction over N summed in
@@ -3764,8 +3771,11 @@ def check_selective_scan(label, b, t, di, n, dtype, seed, main=False,
     the cast, the same sum over N in another order: the f32 cases measure
     it, about 1e-6 at these inputs, a tenth of the floor), and the f32 state
     within 1e-5 * (1 + |plain|).  A control in either dtype: h0 x 1.01
-    must break those bounds.  Two calls repeat their bits, and each
-    sequence alone gives its rows of the batch bit for bit.  Timed beside
+    must break those bounds.  Two calls repeat their bits, each
+    sequence alone gives its rows of the batch bit for bit, and, given
+    ``split``, the prompt as steps [0, split) then [split, T) with the
+    state carried gives the whole call's y and state bit for bit.  The
+    kernel's plan (``scan_plan``) is printed.  Timed beside
     its bound (dt, x, B, C, A and h0 read once, y and the state written
     once; 7 f32 operations a state a step) and the plain loop."""
     gen = _gen(seed)
@@ -3798,6 +3808,15 @@ def check_selective_scan(label, b, t, di, n, dtype, seed, main=False,
         if not (torch.equal(yi, y[i:i + 1]) and torch.equal(hi, h[i:i + 1])):
             raise AssertionError(f"selective_scan {label}: sequence {i} "
                                  f"alone differs from its rows of the batch")
+    if split is not None:
+        ya, ha = scan_kernel(*(v[:, :split] for v in args[:4]), *args[4:])
+        yb, hb = scan_kernel(*(v[:, split:] for v in args[:4]), args[4], ha)
+        if not (torch.equal(torch.cat([ya, yb], 1), y)
+                and torch.equal(hb, h)):
+            raise AssertionError(f"selective_scan {label}: the prompt split "
+                                 f"at {split} differs from the whole")
+        del ya, ha, yb, hb
+    plan = scan_plan(di, n, dtype)
     del want_y, want_h, y2, h2
     e = y.element_size()
     nbytes = ((3 * b * t * di + 2 * b * t * n) * e + di * n * 4
@@ -3824,6 +3843,9 @@ def check_selective_scan(label, b, t, di, n, dtype, seed, main=False,
           + f") hT={err_h:.3e} (tol 1e-5*(1+|plain|)) control: h0*1.01 "
           f"fails on {'+'.join(caught)}; repeat bits OK; "
           f"{'alone == batch rows bitwise; ' if b > 1 else ''}"
+          + ("" if split is None else
+             f"split {split}+{t - split} == whole bitwise; ")
+          + f"plan={json.dumps(plan._asdict())} "
           f"kernel_ms={kern:.5f} plain_ms={plain:.5f} bound_ms={bms:.6f} "
           f"({by}: {nbytes / 1e6:.3f} MB, {flops / 1e9:.4f} GFLOP f32) "
           f"library_ms=null bound/kernel={bms / kern:.3f}"
@@ -3865,9 +3887,9 @@ def hybrid_kernel_phase():
                              seed=90, main=dtype == torch.bfloat16,
                              per_step=n_mamba)
         check_selective_scan(f"prompt-11-{tag}", 1, 11, di, n, dtype,
-                             seed=91)
+                             seed=91, split=5)
         check_selective_scan(f"prompt-448-{tag}", 1, LONG_PROMPT, di, n,
-                             dtype, seed=92)
+                             dtype, seed=92, split=200)
     smoke = C.get_smoke("jamba_v01_52b")
     sdi, sn = smoke.mamba.expand * smoke.d_model, smoke.mamba.d_state
     check_selective_scan("smoke-decode", 3, 1, sdi, sn, torch.float32,

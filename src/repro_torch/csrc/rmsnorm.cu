@@ -215,9 +215,82 @@ __global__ void __launch_bounds__(LN_MAX_THREADS)
   }
 }
 
+// A row wider than LN_MAX_THREADS x LN_MAX_PER vectors (ln_plan: 256
+// threads, per > 8; no served width): thread t walks its vectors t, t + 256,
+// ... in chunks of LN_MAX_PER, in that order, three times (the mean, the
+// squares, the output), reading the row from memory each time instead of
+// holding it.  The sums run in layernorm_kernel's order: the thread's values
+// in order, the xor tree over the warp, the warps' partials in warp order.
+template <typename T, int V>
+__global__ void __launch_bounds__(LN_MAX_THREADS)
+    layernorm_chunked_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                             const float* __restrict__ bias, T* __restrict__ y, int w, int groups,
+                             float eps, int per) {
+  __shared__ float part[2 * 32];
+  constexpr int NWARPS = LN_MAX_THREADS / 32;
+  const int tr = threadIdx.x;
+  const long row = blockIdx.x;   // a block is one row
+  const int nv = w / V;
+  const T* xr = x + row * w;
+  T* yr = y + row * w;
+  const long at = (row % groups) * w;
+  auto row_sum = [&](float a, float* buf) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) a = __fadd_rn(a, __shfl_xor_sync(0xffffffffu, a, off));
+    if (tr % 32 == 0) buf[tr / 32] = a;
+    __syncthreads();
+    a = buf[0];
+#pragma unroll
+    for (int i = 1; i < NWARPS; ++i) a = __fadd_rn(a, buf[i]);
+    return a;
+  };
+  // Chunk by chunk: load up to LN_MAX_PER vectors, then fold them in order.
+  auto walk = [&](auto fold) {
+    for (int p0 = 0; p0 < per; p0 += LN_MAX_PER) {
+      float v[LN_MAX_PER][V];
+#pragma unroll
+      for (int q = 0; q < LN_MAX_PER; ++q) {
+        const int c = tr + (p0 + q) * LN_MAX_THREADS;
+        if (c < nv) Vec<T, V>::load(xr + c * V, v[q]);
+      }
+#pragma unroll
+      for (int q = 0; q < LN_MAX_PER; ++q) {
+        const int c = tr + (p0 + q) * LN_MAX_THREADS;
+        if (c < nv) fold(c, v[q]);
+      }
+    }
+  };
+  float acc = 0.f;
+  walk([&](int, const float* v) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) acc = __fadd_rn(acc, v[j]);
+  });
+  const float mu = __fdiv_rn(row_sum(acc, part), (float)w);
+  float sq = 0.f;
+  walk([&](int, const float* v) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const float dx = __fsub_rn(v[j], mu);
+      sq = __fmaf_rn(dx, dx, sq);
+    }
+  });
+  sq = row_sum(sq, part + 32);
+  const float r = __frsqrt_rn(__fadd_rn(__fdiv_rn(sq, (float)w), eps));
+  walk([&](int c, const float* v) {
+    float sc[V], bi[V], o[V];
+    Vec<float, V>::load(scale + at + c * V, sc);
+    Vec<float, V>::load(bias + at + c * V, bi);
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      o[j] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[j], mu), r), sc[j]), bi[j]);
+    Vec<T, V>::store(yr + c * V, o);
+  });
+}
+
 // ln_plan's rule (kernels/rmsnorm.py): threads and vectors a thread for a
 // row of nv vectors.  nv <= 32: the largest power of two <= nv; else the
-// least power of two, at least 32, that leaves each thread at most 8.
+// least power of two, at least 32, that leaves each thread at most 8, but
+// at most LN_MAX_THREADS (then a thread may hold more, in chunks).
 __host__ int ln_threads(int nv) {
   int t = 1;
   if (nv <= 32) {
@@ -225,7 +298,7 @@ __host__ int ln_threads(int nv) {
     return t;
   }
   const int need = (nv + LN_MAX_PER - 1) / LN_MAX_PER;
-  while (t < need) t *= 2;
+  while (t < need && t < LN_MAX_THREADS) t *= 2;
   return t < 32 ? 32 : t;
 }
 
@@ -242,6 +315,11 @@ void launch_ln(const void* x, const float* scale, const float* bias, void* y, in
 template <typename T, int V>
 void launch_ln_per(int per, const void* x, const float* scale, const float* bias, void* y,
                    int rows, int w, int groups, float eps, int threads, cudaStream_t s) {
+  if (per > LN_MAX_PER) {   // threads == LN_MAX_THREADS
+    layernorm_chunked_kernel<T, V><<<(unsigned)rows, LN_MAX_THREADS, 0, s>>>(
+        static_cast<const T*>(x), scale, bias, static_cast<T*>(y), w, groups, eps, per);
+    return;
+  }
   switch (per) {
     case 1: launch_ln<T, V, 1>(x, scale, bias, y, rows, w, groups, eps, threads, s); break;
     case 2: launch_ln<T, V, 2>(x, scale, bias, y, rows, w, groups, eps, threads, s); break;
@@ -291,7 +369,8 @@ extern "C" int rmsnorm_launch(const void* x, const void* scale, void* y, int row
 // (groups * w,) f32 (16-byte aligned too when vec > 1), row i normalised
 // with the slice (i % groups) * w;
 // threads and per the row's threads and each one's vectors (ln_plan; any
-// other split is refused, as is another vec).
+// other split is refused, as is another vec; per > LN_MAX_PER runs
+// layernorm_chunked_kernel).
 extern "C" int layernorm_launch(const void* x, const void* scale, const void* bias, void* y,
                                 int rows, int w, int groups, int dtype, int vec, int threads,
                                 int per, float eps, void* stream) {
@@ -300,8 +379,7 @@ extern "C" int layernorm_launch(const void* x, const void* scale, const void* bi
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   if (vec != (w % wide == 0 ? wide : 1)) return (int)cudaErrorInvalidValue;
   const int nv = w / vec;
-  if (threads != ln_threads(nv) || threads > LN_MAX_THREADS || per != (nv + threads - 1) / threads ||
-      per > LN_MAX_PER)
+  if (threads != ln_threads(nv) || per != (nv + threads - 1) / threads)
     return (int)cudaErrorInvalidValue;
   if (vec > 1 && (reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(y) % 16 ||
                   reinterpret_cast<uintptr_t>(scale) % 16 || reinterpret_cast<uintptr_t>(bias) % 16))

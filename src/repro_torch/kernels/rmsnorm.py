@@ -14,7 +14,8 @@ with one.
 whose rows must not depend on the batch either (``--verify`` holds a
 batched decode to a one-slot one).  Its kernel reads a row once into
 registers, spread over the threads :func:`ln_plan` gives (a function of
-the row's width and dtype alone, so its summation order is too).
+the row's width and dtype alone, so its summation order is too); a row
+too wide for the registers is walked in chunks, in the same order.
 
 :func:`rmsnorm` runs the plain version (:data:`plain`, float64 sums),
 :func:`layernorm` its own (:data:`plain_layernorm`, f32 as the
@@ -72,20 +73,22 @@ def ln_plan(w: int, dtype: torch.dtype) -> LnPlan:
     vectors: the largest power of two of threads <= nv (a GroupNorm row of
     64 bf16: 8 lanes, a warp 4 rows); more: the least power of two, at
     least 32, that leaves a thread at most :data:`LN_MAX_PER` (2560 bf16:
-    64 threads of 5).  A function of (w, dtype) alone, so a row's sums run
-    in one order whatever the call holds; the kernel refuses another
-    split."""
+    64 threads of 5), but at most :data:`LN_MAX_THREADS`.  A row wider
+    than ``LN_MAX_THREADS * LN_MAX_PER`` vectors (2561 bf16: 256 threads of
+    11) leaves a thread more than :data:`LN_MAX_PER`, which it walks in
+    chunks of that many, in the same order.  A function of (w, dtype)
+    alone, so a row's sums run in one order whatever the call holds; the
+    kernel refuses another split."""
+    if w < 1:
+        raise ValueError(f"layernorm needs a row of at least one value, got "
+                         f"w={w}")
     vec = vec_width(w, dtype)
     nv = w // vec
     if nv <= 32:
         threads = 1 << (nv.bit_length() - 1)
     else:
         need = -(-nv // LN_MAX_PER)
-        threads = max(32, 1 << (need - 1).bit_length())
-    if threads > LN_MAX_THREADS:
-        raise ValueError(f"layernorm takes rows of at most "
-                         f"{LN_MAX_THREADS * LN_MAX_PER} vectors, got "
-                         f"w={w} {dtype}")
+        threads = min(LN_MAX_THREADS, max(32, 1 << (need - 1).bit_length()))
     return LnPlan(vec, threads, -(-nv // threads))
 
 
@@ -138,10 +141,10 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     """x: (..., d) f32 or bf16; scale, bias: (d,) -> x's shape and dtype.
     ``groups`` > 1: a GroupNorm over ``groups`` consecutive slices of each
     row (the kernel's rows are the slices, each with its part of scale
-    and bias).  The kernel takes a row (a slice) of at most
-    ``LN_MAX_THREADS * LN_MAX_PER`` = 2048 vectors: 16384 bf16 or 8192 f32
-    values when w is a whole number of 16-byte vectors, else 2048 values
-    (a wider row raises ``ValueError``; no model's width comes near)."""
+    and bias).  A row (a slice) of any width: past
+    ``LN_MAX_THREADS * LN_MAX_PER`` = 2048 vectors (16384 bf16 or 8192 f32
+    values when w is a whole number of 16-byte vectors, else 2048 values)
+    the kernel reads it three times instead of once (:func:`ln_plan`)."""
     global ln_launches
     if all(t.device.type == "cpu" for t in (x, scale, bias)):
         return plain_layernorm(x, scale, bias, eps, groups)

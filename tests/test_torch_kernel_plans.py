@@ -20,7 +20,8 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_bwd)
-from repro_torch.kernels.rmsnorm import LN_MAX_PER, layernorm, ln_plan
+from repro_torch.kernels.rmsnorm import (LN_MAX_PER, LN_MAX_THREADS,
+                                         layernorm, ln_plan)
 
 def test_bwd_wrapper_on_the_cpu_runs_the_plain_version():
     """CPU tensors run ``ref.attention_bwd``."""
@@ -73,8 +74,54 @@ def test_ln_plan_depends_on_width_and_dtype_alone(dtype):
 
 
 def test_ln_plan_refuses_rows_too_wide():
-    with pytest.raises(ValueError, match="at most"):
-        ln_plan(8 * 8 * 256 + 8, torch.bfloat16)
+    """No positive width is too wide: a row past LN_MAX_THREADS x
+    LN_MAX_PER vectors gets 256 threads of more than LN_MAX_PER vectors,
+    walked in chunks.  Only a row of no values is refused."""
+    assert tuple(ln_plan(8 * 8 * 256 + 8, torch.bfloat16)) == (8, 256, 9)
+    for w in (0, -1):
+        with pytest.raises(ValueError, match="at least one"):
+            ln_plan(w, torch.bfloat16)
+
+
+# Each width's plan before rows wider than 2048 vectors were taken:
+# (vec, threads, per) for f32 and bf16, as RWKV-6's replays ran them.
+LN_PLANS = {
+    torch.float32: [(4, 4, 1), (4, 16, 1), (4, 32, 8), (4, 128, 5),
+                    (1, 32, 2), (4, 16, 2), (4, 256, 5)],
+    torch.bfloat16: [(8, 2, 1), (8, 8, 1), (8, 32, 4), (8, 64, 5),
+                     (1, 32, 2), (1, 32, 4), (8, 128, 5)],
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ln_plan_keeps_every_narrower_rows_plan(dtype):
+    """LN_WIDTHS keep their plans exactly, and so does every width up to
+    2048 vectors: the rule without the cap on threads, which never bound
+    there."""
+    assert [tuple(ln_plan(w, dtype)) for w in LN_WIDTHS] == LN_PLANS[dtype]
+    for w in range(1, 2048 * 8 + 1):
+        p = ln_plan(w, dtype)
+        nv = w // p.vec
+        if nv > 2048:
+            continue
+        need = -(-nv // LN_MAX_PER)
+        threads = (1 << (nv.bit_length() - 1) if nv <= 32
+                   else max(32, 1 << (need - 1).bit_length()))
+        assert tuple(p) == (p.vec, threads, -(-nv // threads)), w
+
+
+@pytest.mark.parametrize("w,dtype,per", [
+    (2561, torch.bfloat16, 11), (4097, torch.bfloat16, 17),
+    (8193, torch.float32, 33)])
+def test_ln_plan_takes_rows_wider_than_the_registers(w, dtype, per):
+    """Rows of more than 2048 vectors: 256 threads, each walking ``per``
+    vectors (in chunks of LN_MAX_PER), the row covered exactly."""
+    p = ln_plan(w, dtype)
+    assert (p.vec, p.threads, p.per) == (1, LN_MAX_THREADS, per)
+    nv = w // p.vec
+    held = sorted(t + i * p.threads for t in range(p.threads)
+                  for i in range(p.per) if t + i * p.threads < nv)
+    assert held == list(range(nv))
 
 
 def test_layernorm_on_the_cpu_is_the_plain_version():
@@ -134,12 +181,15 @@ def test_cuda_bwd_matches_plain_and_a_batch_element_alone(b, hq, hkv, s, d):
 @pytest.mark.cuda
 @pytest.mark.parametrize("w,groups,dtype", [
     (2560, 1, torch.bfloat16), (2560, 40, torch.bfloat16),
-    (64, 4, torch.float32), (37, 1, torch.float32)])
+    (64, 4, torch.float32), (37, 1, torch.float32),
+    (2561, 1, torch.bfloat16), (16392, 1, torch.bfloat16),
+    (8193, 1, torch.float32)])
 def test_cuda_layernorm_rows_alone_equal_the_batch(w, groups, dtype):
     """The layernorm kernel within its tolerance of the plain version
     (1e-5 (1 + |plain|) in f32, 1e-2 (1 + |plain|) in bf16), and every row
     (a GroupNorm's rows of 64 included) the same bits alone, in a batch of
-    8 and in one of 512."""
+    8 and in one of 512; rows wider than 2048 vectors (walked in chunks)
+    too."""
     _require_cuda()
     g = torch.Generator(device="cuda").manual_seed(w + groups)
     x = (torch.randn((512, w), generator=g, device="cuda") * 3 + 0.5
