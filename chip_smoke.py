@@ -182,10 +182,25 @@
    flash_attention_bwd and rmsnorm launches checked, ``ops.attention.ref``
    0, losses falling), one step of each profiled, and a 2-layer step with
    attention and the norms on their kernels against their plain versions
-   in f32 and bf16, each beside a control.  Last, the training launcher
-   at SMOKE size for RWKV-6 and for its default arch, SmolLM-360M, each
-   with a restart after an injected failure that must resume with the
-   uninterrupted run's losses.
+   in f32 and bf16, each beside a control.  The training launcher at
+   SMOKE size for RWKV-6, for its default arch, SmolLM-360M, and for
+   Jamba, each with a restart after an injected failure that must resume
+   with the uninterrupted run's losses.  ``selective_scan_bwd`` (the
+   Mamba scan's backward, ``csrc/selective_scan.cu``) against
+   ``ref.selective_scan_bwd`` at Jamba-v0.1's training shape (8 x 64
+   tokens, d_inner 8192, 16 states) in bf16 and f32, a 448-token prompt,
+   T=11, a ragged width on plain loads and the SMOKE f32 shape (a control
+   with A x 1.01 that must fail; two calls, and each sequence alone
+   against its batch rows, bit for bit; the forward that saves the tile
+   states giving y and hT bit for bit), timed beside its bound and the
+   plain backward.  Then Jamba-v0.1 52B at full width cut to the first
+   two blocks of its period (Mamba + dense FFN, Mamba + 16-expert MoE;
+   3.74 B f32 parameters, bf16 compute, ``tp_outs``) takes training steps
+   at 8 x 64 tokens (each step's selective_scan, selective_scan_bwd and
+   rmsnorm launches checked, ``ops.selective_scan.ref`` 0; step time,
+   tokens/s and peak memory), one profiled, and a 1-layer step with the
+   scan's kernels against the plain scan in f32 and bf16, each beside a
+   control.
 6. A ``[phase]`` line with each phase's seconds, a ``{"kernels":
    [...]}`` JSON line, the card line, and last the ``{"ok": true,
    "device": ...}`` line.
@@ -229,7 +244,9 @@ from repro_torch.kernels.dequant import dequantize as dequant_kernel  # noqa: E4
 from repro_torch.kernels.rmsnorm import layernorm as layernorm_kernel  # noqa: E402,E501
 from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_kernel  # noqa: E402
 from repro_torch.kernels.selective_scan import (  # noqa: E402
-    scan_plan, selective_scan as scan_kernel)
+    scan_plan, selective_scan as scan_kernel, selective_scan_bwd as scan_bwd,
+    selective_scan_fwd as scan_fwd)
+from repro_torch.kernels import selective_scan as scan_mod  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_chunk, flash_decode, flash_paged_decode)
 from repro_torch.kernels.flash_attention import blocks as attn_blocks  # noqa: E402
@@ -283,7 +300,8 @@ SOURCES = {"gama_gemm": "src/repro_torch/csrc/gemm.cu",
            "rmsnorm": "src/repro_torch/csrc/rmsnorm.cu",
            "layernorm": "src/repro_torch/csrc/rmsnorm.cu",
            "dequant": "src/repro_torch/csrc/dequant.cu",
-           "selective_scan": "src/repro_torch/csrc/selective_scan.cu"}
+           "selective_scan": "src/repro_torch/csrc/selective_scan.cu",
+           "selective_scan_bwd": "src/repro_torch/csrc/selective_scan.cu"}
 # wkv6_bwd replaces the VJP that JAX derives through the same pallas_call;
 # wkv6_state the same kernel's recurrence run from a carried state (the
 # reference's cached RWKV branch scans it in jnp, src/repro/models/rwkv.py).
@@ -305,7 +323,10 @@ REPLACES = {"gama_gemm": "src/repro/kernels/gemm.py:113",
                        "at src/repro/serving/quant.py:44)",
             "selective_scan": "none: no Pallas counterpart (jnp "
                               "_ssm_scan_chunked and the decode step at "
-                              "src/repro/models/mamba.py:83, :151)"}
+                              "src/repro/models/mamba.py:83, :151)",
+            "selective_scan_bwd": "none: no Pallas counterpart (the VJP JAX "
+                                  "derives through src/repro/models/"
+                                  "mamba.py:83-114 and :158)"}
 # The long replay: 8 requests of 448-token prompts and 32 new tokens on 8
 # slots; max_len = 488 is also its last prefill bucket, and its scratch
 # cache has pages_for(488, 16) * 16 = 496 rows.
@@ -325,6 +346,7 @@ CHUNK, CHUNK_BUDGET = 128, 8 + 2 * 128
 SHARED16_HIT_RATE = 0.6
 SHARED16_HWM = {True: 11, False: 20}
 TRAIN_KERNELS = ("wkv6", "wkv6_bwd")
+SCAN_TRAIN_KERNELS = ("selective_scan", "selective_scan_bwd")
 ATTN_TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "rmsnorm")
 # The serve replays of SmolLM-360M, Qwen3-8B, Phi-3-medium, Minitron-8B and
 # Qwen2-VL-72B run at full width and this many layers.  Their time is the
@@ -2730,20 +2752,23 @@ def train_phase(steps=4):
     return total
 
 
-def _grads(cfg, params, batch, mode, u_scale=1.0):
-    """Loss and the gradient of every leaf with ``ops.wkv`` in ``mode``.  A
-    ``ref`` run must launch no wkv kernel: the counts may not move."""
+def _grads(cfg, params, batch, mode, scale=1.0, router=None,
+           kernels=TRAIN_KERNELS):
+    """Loss and the gradient of every leaf with the recurrence routed by
+    ``router(mode, scale)`` (default ``wkv_mode``: ``ops.wkv`` in ``mode``
+    with u scaled).  A ``ref`` run must launch none of ``kernels``: the
+    counts may not move."""
     leaves = adamw.leaves(params)
     for p in leaves:
         p.requires_grad_(True)
     before = K.launch_counts()
-    with wkv_mode(mode, u_scale):
+    with (router or wkv_mode)(mode, scale):
         loss, _ = loss_fn(params, batch, cfg, remat=False)
         grads = torch.autograd.grad(loss, leaves)
     torch.cuda.synchronize()
-    moved = {n: K.launch_counts()[n] - before[n] for n in TRAIN_KERNELS}
+    moved = {n: K.launch_counts()[n] - before[n] for n in kernels}
     if mode == "ref" and any(moved.values()):
-        raise AssertionError(f"the plain run launched wkv kernels: {moved}")
+        raise AssertionError(f"the plain run launched {kernels}: {moved}")
     return loss.item(), grads, moved
 
 
@@ -2759,52 +2784,66 @@ def _worst(rel, n=5):
 
 
 def train_kernel_vs_plain():
-    """One step's loss and gradients at FULL width and 2 layers, with the
-    wkv6 kernels (``ops.wkv`` auto) and with the plain recurrence (``ref``,
-    torch autograd of the loop), same parameters and batch, twice:
+    """RWKV-6 3B at FULL width and 2 layers: :func:`kernel_vs_plain` with
+    the wkv6 kernels (``ops.wkv`` auto) against the plain recurrence
+    (``ref``, torch autograd of the loop); the control scales u."""
+    base = dataclasses.replace(C.get("rwkv6_3b"), n_layers=2)
+    kernel_vs_plain(base, "rwkv6-3b width, 2 layers", wkv_mode, "u",
+                    TRAIN_KERNELS, {"wkv6": 2, "wkv6_bwd": 2}, seed=3)
+
+
+def kernel_vs_plain(base, label, router, knob, kernels, want, seed):
+    """One step's loss and gradients of ``base`` at 8 x 64 tokens, with
+    the recurrence's kernels (``router("auto")``) and with its plain version
+    (``router("ref")``, torch autograd of the loop), same parameters and
+    batch, twice:
 
     * f32 compute: the two differ only in the f32 summation order inside
       the recurrence.  Bounds: the loss within 1e-5, every leaf's gradient
-      within 1e-4 of its largest element.  Control: the plain run with u
-      1% off must break the gradient bound, so a wrong kernel would.
-    * bf16 compute (the FULL config's): y, gr, gk and gv round to bf16,
-      and a last-bit difference before rounding flips a bf16 ulp (2**-8).
-      Control: the plain run with u scaled by 1 + 1e-6, a change of the
-      size of a summation-order difference, gives the rounding floor.
-      Bounds, as a witness that the step stays finite and close: the loss
-      within 1e-2, every leaf within 5e-2 of its largest element."""
-    base = dataclasses.replace(C.get("rwkv6_3b"), n_layers=2)
-    params = init_params(base, seed=3, device=DEV, dtype=torch.float32)
+      within 1e-4 of its largest element.  Control: the plain run with
+      ``knob`` 1% off must break the gradient bound, so a wrong kernel
+      would.
+    * bf16 compute (the FULL config's): the recurrence's outputs round to
+      bf16, and a last-bit difference before rounding flips a bf16 ulp
+      (2**-8).  Control: the plain run with ``knob`` scaled by 1 + 1e-6, a
+      change of the size of a summation-order difference, gives the
+      rounding floor.  Bounds, as a witness that the step stays finite and
+      close: the loss within 1e-2, every leaf within 5e-2 of its largest
+      element.  The kernel run must launch ``want``."""
+    params = init_params(base, seed=seed, device=DEV, dtype=torch.float32)
     names = [n for n, _ in _leaf_names(params)]
     batch = {k: torch.as_tensor(v, device=DEV)
              for k, v in _batches(base, 8, 64, seed=1).batch_at(0).items()}
-    for compute, loss_tol, grad_tol, u_scale in (
+    for compute, loss_tol, grad_tol, scale in (
             ("float32", 1e-5, 1e-4, 1.01), ("bfloat16", 1e-2, 5e-2, 1 + 1e-6)):
         cfg = dataclasses.replace(base, compute_dtype=compute)
-        loss_k, g_k, counts = _grads(cfg, params, batch, "auto")
-        loss_p, g_p, _ = _grads(cfg, params, batch, "ref")
+        run = functools.partial(_grads, cfg, params, batch, router=router,
+                                kernels=kernels)
+        loss_k, g_k, counts = run("auto")
+        loss_p, g_p, _ = run("ref")
         rel = _grad_diff(names, g_k, g_p)
         del g_k
-        loss_c, g_c, _ = _grads(cfg, params, batch, "ref", u_scale)
+        loss_c, g_c, _ = run("ref", scale)
         rel_c = _grad_diff(names, g_c, g_p)
         del g_c, g_p
-        print(f"[train] kernel vs plain (rwkv6-3b width, 2 layers, 8x64 "
-              f"tokens, compute={compute}): loss {loss_k:.7f} vs "
-              f"{loss_p:.7f} (|diff| {abs(loss_k - loss_p):.3e}, bound "
-              f"{loss_tol:g}); gradient max rel diff {max(rel.values()):.3e}"
-              f" over {len(rel)} leaves (bound {grad_tol:g}), largest: "
-              f"{_worst(rel)}; launches {json.dumps(counts)}")
-        print(f"[train]   control, plain with u x {u_scale!r} vs plain "
+        print(f"[train] kernel vs plain ({label}, 8x64 tokens, compute="
+              f"{compute}): loss {loss_k:.7f} vs {loss_p:.7f} (|diff| "
+              f"{abs(loss_k - loss_p):.3e}, bound {loss_tol:g}); gradient "
+              f"max rel diff {max(rel.values()):.3e} over {len(rel)} leaves "
+              f"(bound {grad_tol:g}), largest: {_worst(rel)}; launches "
+              f"{json.dumps(counts)}")
+        print(f"[train]   control, plain with {knob} x {scale!r} vs plain "
               f"({'must break the bound' if compute == 'float32' else 'the bf16 rounding floor'}): "
               f"loss |diff| {abs(loss_c - loss_p):.3e}, gradient max rel diff "
               f"{max(rel_c.values()):.3e}, largest: {_worst(rel_c)}")
-        if counts != {"wkv6": 2, "wkv6_bwd": 2}:
+        if counts != want:
             raise AssertionError(f"kernel path launched {counts}")
         if abs(loss_k - loss_p) > loss_tol or max(rel.values()) > grad_tol:
             raise AssertionError(f"kernel and plain training steps differ "
-                                 f"({compute})")
+                                 f"({label}, {compute})")
         if compute == "float32" and max(rel_c.values()) <= grad_tol:
-            raise AssertionError("the f32 bound does not catch u 1% off")
+            raise AssertionError(f"the f32 bound does not catch {knob} 1% "
+                                 f"off")
     del params
     torch.cuda.empty_cache()
 
@@ -3214,14 +3253,20 @@ def trainer_phase():
     """The training launcher at SMOKE size on the card, then a restart
     check: a Trainer that fails once at step 3 restores the step-2
     checkpoint and must log the uninterrupted run's losses exactly.  For
-    RWKV-6 (the wkv6 kernels) and for the launcher's default arch,
-    SmolLM-360M (attention and its backward kernel, one tied leaf)."""
+    RWKV-6 (the wkv6 kernels), for the launcher's default arch,
+    SmolLM-360M (attention and its backward kernel, one tied leaf), and for
+    Jamba (the selective scan and its backward kernel, with an attention
+    layer and MoE FFNs).  The Trainers' GEMMs are plain matrix products,
+    as the launcher's (``gemm_mode("ref")``), whatever phase ran before."""
+    set_gemm_mode("ref")
     ckpt_root = os.path.join(ROOT, "build", "chip_smoke_ckpt")
     shutil.rmtree(ckpt_root, ignore_errors=True)
     try:
         for arch, kernels, argv in (
                 ("rwkv6_3b", TRAIN_KERNELS, ["--arch", "rwkv6_3b"]),
-                ("smollm_360m", ATTN_TRAIN_KERNELS, [])):
+                ("smollm_360m", ATTN_TRAIN_KERNELS, []),
+                ("jamba_v01_52b", SCAN_TRAIN_KERNELS,
+                 ["--arch", "jamba_v01_52b"])):
             trainer_check(arch, kernels, argv, ckpt_root)
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
@@ -3277,6 +3322,238 @@ def trainer_check(arch, kernels, argv, ckpt_root):
                              "run's losses")
     if [m["step"] for m in hurt["metrics"]] != [0, 1, 2, 2, 3, 4, 5]:
         raise AssertionError("restart did not resume from step 2")
+
+
+# ---------------------------------------------------------------------------
+# 5c. Train Jamba: selective_scan_bwd, then Jamba-v0.1 at full width
+# ---------------------------------------------------------------------------
+
+SCAN_GRADS = ("gdt", "gx", "gbm", "gc", "ga", "gh0")
+# Operations a state a step in selective_scan_bwd's formula: the tile's
+# recomputation 5 (dt A, its exp, dtx B, and the update's product and sum),
+# the reverse walk 15 (g's product and sum, gbm's and gc's terms and their
+# sums over channels, gdtx's product and sum, v's two products, sA's
+# product and sum, ga's product and sum, the carry's product).
+SCAN_BWD_OPS = 20
+
+
+def _scan_bwd_inputs(gen, b, t, di, n, dtype):
+    """``_scan_inputs`` (a nonzero state), the output gradient gy ~ N(0, 1)
+    in ``dtype`` and the final state's ght ~ N(0, 1) f32."""
+    args = _scan_inputs(gen, b, t, di, n, dtype)
+    gy = torch.randn((b, t, di), generator=gen, device=DEV).to(dtype)
+    ght = torch.randn((b, di, n), generator=gen, device=DEV)
+    return args, gy, ght
+
+
+def _scan_bwd_errs(got, want):
+    """Per output, max |got - want| over tol * max(1, max|want|): 1e-4 for
+    the f32 outputs (ga, gh0, and all six in f32: sums over di, over
+    (b, t) and over N in another order), 1e-2 for bf16 ones (one bf16 ulp
+    is 2**-8 of a value).  Returns (errors, the outputs that fail)."""
+    errs, bad = {}, []
+    for name, g, w in zip(SCAN_GRADS, got, want):
+        try:
+            errs[name] = _err_to_max(
+                g, w, 1e-2 if g.dtype == torch.bfloat16 else 1e-4)
+        except AssertionError as e:
+            bad.append(f"{name}: {e}")
+    return errs, bad
+
+
+def check_selective_scan_bwd(label, b, t, di, n, dtype, seed, main=False):
+    """selective_scan_bwd against ``ref.selective_scan_bwd`` from a nonzero
+    state with a final-state gradient, at :func:`_scan_bwd_errs`'s
+    tolerances; a control, the plain backward with A x 1.01, must fail
+    them.  The forward that saves the states must give y and hT bit for bit
+    as the forward that does not; two backward calls repeat their bits;
+    each sequence alone gives its gdt, gx, gbm and gc rows of the batch bit
+    for bit.  Timed beside its bound (the VJP's inputs dt, x, gy, B, C, A,
+    h0 and ght read once, gdt, gx, gbm, gc, ga and gh0 written once, as
+    wkv6_bwd's bound counts them: the saved states are this design's
+    choice, not the function's; SCAN_BWD_OPS f32 operations a state a
+    step) and the plain backward (a Python loop over T, twice)."""
+    gen = _gen(seed)
+    (dt, x, bm, c, a, h0), gy, ght = _scan_bwd_inputs(gen, b, t, di, n,
+                                                      dtype)
+    y, h, states = scan_fwd(dt, x, bm, c, a, h0)
+    y0, h_0 = scan_kernel(dt, x, bm, c, a, h0)
+    if not (torch.equal(y, y0) and torch.equal(h, h_0)):
+        raise AssertionError(f"selective_scan {label}: the forward that "
+                             f"saves its states changed y or hT")
+    args = (dt, x, bm, c, a, h0, gy)
+    got = scan_bwd(*args, states, ght)
+    again = scan_bwd(*args, states, ght)
+    want = ref.selective_scan_bwd(*args, ght)
+    torch.cuda.synchronize()
+    if not all(torch.equal(p, q) for p, q in zip(got, again)):
+        raise AssertionError(f"selective_scan_bwd {label}: two calls differ")
+    errs, bad = _scan_bwd_errs(got, want)
+    if bad:
+        raise AssertionError(f"selective_scan_bwd {label}: {bad}")
+    _, caught = _scan_bwd_errs(got, ref.selective_scan_bwd(
+        dt, x, bm, c, a * 1.01, h0, gy, ght))
+    if not caught:
+        raise AssertionError(f"selective_scan_bwd {label}: A x 1.01 passed "
+                             f"the tolerance: the check cannot see A")
+    del want, again
+    for i in range(b if b > 1 else 0):
+        one = [v[i:i + 1] for v in (dt, x, bm, c)]
+        _, _, st = scan_fwd(*one, a, h0[i:i + 1])
+        alone = scan_bwd(*one, a, h0[i:i + 1], gy[i:i + 1], st,
+                         ght[i:i + 1])
+        if not all(torch.equal(p, q[i:i + 1])
+                   for p, q in zip(alone[:4], got[:4])):
+            raise AssertionError(f"selective_scan_bwd {label}: sequence {i} "
+                                 f"alone differs from its rows of the batch")
+    del got, states
+    e = dt.element_size()
+    nbytes = ((5 * b * t * di + 4 * b * t * n) * e + 2 * di * n * 4
+              + 3 * b * di * n * 4)
+    flops = float(SCAN_BWD_OPS) * b * t * di * n
+
+    def mk(plain):
+        def make():     # fresh inputs per copy, rotated past the L2
+            f_args, f_gy, f_ght = _scan_bwd_inputs(gen, b, t, di, n, dtype)
+            if plain:
+                return lambda: ref.selective_scan_bwd(*f_args, f_gy, f_ght)
+            _, _, f_st = scan_fwd(*f_args)
+            return lambda: scan_bwd(*f_args, f_gy, f_st, f_ght)
+        return make
+
+    kern = device_ms(mk(False), nbytes)
+    plain = device_ms(mk(True), nbytes, reps=24 if t <= 16 else 1)
+    bms, by = bound(nbytes, flops, torch.float32)
+    res = RESULTS["selective_scan_bwd"]
+    err = max(errs.values())
+    res["max_abs_err"] = max(res["max_abs_err"], err)
+    plan = scan_plan(di, n, dtype)
+    f32 = dtype == torch.float32
+    print(f"[kernel] selective_scan_bwd {label} B={b} T={t} di={di} N={n} "
+          f"{'f32' if f32 else 'bf16'} from h0 with ght max_abs_err "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})} "
+          f"(tol {'1e-4' if f32 else '1e-2 (bf16) / 1e-4 (f32 ga, gh0)'}"
+          f"*max(1,max|plain|)) control: A*1.01 fails on "
+          f"{'+'.join(x.split(':')[0] for x in caught)}; repeat bits OK; "
+          + ("alone == batch rows bitwise (gdt, gx, gbm, gc); " if b > 1
+             else "")
+          + f"forward with states == without bitwise; "
+          f"plan={json.dumps(plan._asdict())} kernel_ms={kern:.5f} "
+          f"plain_ms={plain:.5f} bound_ms={bms:.6f} ({by}: "
+          f"{nbytes / 1e6:.3f} MB, {flops / 1e9:.4f} GFLOP f32) "
+          f"library_ms=null (none: no single PyTorch call computes the "
+          f"scan's VJP) bound/kernel={bms / kern:.3f} scratch_bytes="
+          f"{4 * scan_mod.scratch_floats(b, t, di, n)} states_bytes="
+          f"{4 * b * scan_mod.saved_states(t) * di * n}")
+    if main:
+        res.update(ms=kern, plain_ms=plain, library_ms=None, bound_ms=bms,
+                   bound_by=by, shape=f"B={b} T={t} di={di} N={n} "
+                   f"{'f32' if f32 else 'bf16'} from h0 ({label})")
+
+
+def scan_bwd_phase():
+    """selective_scan_bwd at Jamba-v0.1 52B's training shape (8 x 64
+    tokens, d_inner 8192, 16 states) in bf16 (the kernels line) and f32, a
+    448-token prompt, a length that is not a multiple of 8, a ragged width
+    on plain loads (di=100, N=12, bf16), and the SMOKE launcher's f32
+    shape (8 x 64, di=128, N=8)."""
+    jamba = C.get("jamba_v01_52b")
+    di, n = jamba.mamba.expand * jamba.d_model, jamba.mamba.d_state
+    check_selective_scan_bwd("train-bf16", 8, 64, di, n, torch.bfloat16,
+                             seed=101, main=True)
+    check_selective_scan_bwd("train-f32", 8, 64, di, n, torch.float32,
+                             seed=102)
+    check_selective_scan_bwd("prompt-448", 1, LONG_PROMPT, di, n,
+                             torch.bfloat16, seed=103)
+    check_selective_scan_bwd("ragged-T11", 2, 11, di, n, torch.bfloat16,
+                             seed=104)
+    check_selective_scan_bwd("ragged-width", 3, 21, 100, 12, torch.bfloat16,
+                             seed=105)
+    smoke = C.get_smoke("jamba_v01_52b")
+    check_selective_scan_bwd("smoke-f32", 8, 64,
+                             smoke.mamba.expand * smoke.d_model,
+                             smoke.mamba.d_state, torch.float32, seed=106)
+
+
+@contextlib.contextmanager
+def scan_mode(mode, a_scale=1.0):
+    """Route the Mamba mixers' ``ops.selective_scan`` calls through
+    ``mode`` for a while, with A scaled by ``a_scale`` (the controls'
+    perturbation)."""
+    orig = ops.selective_scan
+
+    def routed(dt, x, bm, c, a, h0):
+        return orig(dt, x, bm, c, a * a_scale if a_scale != 1.0 else a, h0,
+                    mode=mode)
+    ops.selective_scan = routed
+    try:
+        yield
+    finally:
+        ops.selective_scan = orig
+
+
+def train_jamba_phase(steps=4):
+    """Jamba-v0.1 52B at its published widths (d_model 4096, d_inner 8192,
+    16 states, 16 experts top-2 at d_ff 14336, vocab 65536), cut in depth
+    to the first two blocks of its period: Mamba with a dense FFN, then
+    Mamba with the MoE FFN.  f32 parameters, bf16 compute, AdamW, the
+    launcher's ``tp_outs`` remat; ``steps`` steps at 8 x 64 tokens, the
+    first a warm-up, then one profiled.  Launches a step: selective_scan
+    twice a Mamba layer (the forward and the recomputation),
+    selective_scan_bwd once, rmsnorm twice for each of a layer's two norms
+    and once for the final norm; the route counters ``ops.selective_scan
+    .ref`` 0 and ``.kernel`` the forward's launches.  Then the 1-layer
+    kernel-vs-plain step."""
+    set_gemm_mode("ref")
+    full = C.get("jamba_v01_52b")
+    cfg = dataclasses.replace(full, n_layers=2, pattern=full.pattern[:2])
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    params = train_tree(init_params(cfg, seed=6, device=DEV,
+                                    dtype=torch.float32))
+    n_params = sum(p.numel() for p in adamw.leaves(params))
+    opt_cfg = adamw.AdamWConfig(lr=1e-4, warmup_steps=2, total_steps=100)
+    opt = adamw.init(params)
+    step_fn = make_train_step(cfg, opt_cfg, remat=True,
+                              remat_policy="tp_outs")
+    n_mamba = sum(spec.mixer == "mamba" for spec in cfg.pattern)
+    want = {"selective_scan": 2 * n_mamba, "selective_scan_bwd": n_mamba,
+            "rmsnorm": 4 * cfg.n_layers + 1}
+    print(f"[train] arch={cfg.name} layers={cfg.n_layers} (blocks "
+          f"{[(s.mixer, s.ffn) for s in cfg.pattern]}) d_model={cfg.d_model}"
+          f" d_inner={full.mamba.expand * cfg.d_model} N="
+          f"{full.mamba.d_state} experts={cfg.moe.num_experts} top-"
+          f"{cfg.moe.top_k} d_ff={cfg.d_ff} vocab={cfg.vocab_size} params="
+          f"{n_params} (f32; 16 bytes a parameter with gradients and AdamW "
+          f"= {16 * n_params} bytes) compute={cfg.compute_dtype} "
+          f"remat=tp_outs gemm=torch.matmul")
+    reg = obs.get_obs().registry
+    reg.reset_values()
+    data = _batches(cfg, 8, 64, seed=5)
+    label = f"{cfg.name} FULL width, 2 layers, 8x64"
+    params, opt, step_ms, total, losses = timed_steps(
+        step_fn, params, opt, data, steps, want, 8 * 64, label)
+    routes = {k: v for k, v in reg.snapshot()["counters"].items()
+              if k.startswith("ops.selective_scan")}
+    mean = sum(step_ms) / len(step_ms)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[train] {label}: steps 1-{steps - 1} mean step_ms={mean:.3f} "
+          f"tok_s={8 * 64 / mean * 1e3:.1f} max_memory_allocated={peak} "
+          f"({peak / (16 * n_params):.3f}x the 16-byte reckoning) losses "
+          f"{losses} routes {json.dumps(routes)} launches a step "
+          f"{json.dumps(want)}")
+    if routes.get("ops.selective_scan.ref", 0) or routes.get(
+            "ops.selective_scan.kernel") != steps * want["selective_scan"]:
+        raise AssertionError(f"{label}: selective_scan routes {routes}")
+    params, opt = profile_step(step_fn, params, opt, data.batch_at(steps),
+                               label, mean)
+    del params, opt
+    _free()
+    base = dataclasses.replace(full, n_layers=1, pattern=full.pattern[:1])
+    kernel_vs_plain(base, "jamba-v0.1 width, 1 layer", scan_mode, "A",
+                    SCAN_TRAIN_KERNELS,
+                    {"selective_scan": 1, "selective_scan_bwd": 1}, seed=7)
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -4678,6 +4955,9 @@ def _main(card, kind, only=None) -> int:
     for name, n in timed("train attention", train_attention_phase).items():
         counts[name] = counts.get(name, 0) + n
     timed("trainer", trainer_phase)
+    timed("scan bwd kernels", scan_bwd_phase)
+    for name, n in timed("train jamba", train_jamba_phase).items():
+        counts[name] = counts.get(name, 0) + n
     timed("attention bwd passes", bwd_pass_phase)
     print(f"[phase] total: {time.perf_counter() - t0:.1f} s")
     if only is not None:

@@ -6,8 +6,8 @@ from repro_torch.kernels import (decode_attention, dequant, flash_attention,
 
 # Every ported kernel: its wrapper's module and the name of the launch
 # counter there (flash_decode and flash_paged_decode share a module and
-# count apart, as do wkv6, its backward and its state-carrying form, and
-# flash_attention and its backward).
+# count apart, as do wkv6, its backward and its state-carrying form,
+# flash_attention and its backward, and selective_scan and its backward).
 KERNEL_COUNTERS = {
     "gama_gemm": (gemm, "launches"),
     "flash_attention": (flash_attention, "launches"),
@@ -21,6 +21,7 @@ KERNEL_COUNTERS = {
     "layernorm": (rmsnorm, "ln_launches"),
     "dequant": (dequant, "launches"),
     "selective_scan": (selective_scan, "launches"),
+    "selective_scan_bwd": (selective_scan, "bwd_launches"),
 }
 
 

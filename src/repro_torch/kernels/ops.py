@@ -48,6 +48,7 @@ from repro_torch.kernels.flash_attention import (FlashAttention,
 from repro_torch.kernels.gemm import gama_gemm
 from repro_torch.kernels.rmsnorm import LayerNorm, RMSNorm
 from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_kernel
+from repro_torch.kernels.selective_scan import SelectiveScan
 from repro_torch.kernels.selective_scan import check_shapes as _scan_shapes
 from repro_torch.kernels.selective_scan import \
     selective_scan as selective_scan_kernel
@@ -322,12 +323,25 @@ def selective_scan(dt: torch.Tensor, x: torch.Tensor, bm: torch.Tensor,
     -> (y (B, T, di) in x's dtype, the final state (B, di, N) f32).  The
     ``selective_scan`` kernel for CUDA tensors, ``ref.selective_scan`` for
     CPU tensors and in mode ``ref``.  Ticks ``ops.selective_scan.kernel``
-    or ``ops.selective_scan.ref``."""
+    or ``ops.selective_scan.ref``.
+
+    When grad is enabled and an input requires it (training), ``auto`` and
+    ``kernel`` go through :class:`~repro_torch.kernels.selective_scan.
+    SelectiveScan`: the forward kernel saving its tile states and the
+    hand-written backward for CUDA tensors, the plain forward and
+    ``ref.selective_scan_bwd`` for CPU tensors.  ``ref`` differentiates the
+    plain loop by torch autograd."""
     _scan_shapes(dt, x, bm, c, a, h0)
-    if not _use_kernel(mode, dt, x, bm, c, a, h0):
-        _count("ops.selective_scan.ref")
+    train = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (dt, x, bm, c, a, h0))
+    on_kernel = _use_kernel(mode, dt, x, bm, c, a, h0)
+    _count("ops.selective_scan.kernel" if on_kernel
+           else "ops.selective_scan.ref")
+    if train and mode != "ref":
+        return SelectiveScan.apply(*(t.contiguous()
+                                     for t in (dt, x, bm, c, a, h0)))
+    if not on_kernel:
         return ref.selective_scan(dt, x, bm, c, a, h0)
-    _count("ops.selective_scan.kernel")
     return selective_scan_kernel(dt, x, bm, c, a, h0)
 
 

@@ -490,3 +490,48 @@ def selective_scan(dt: torch.Tensor, x: torch.Tensor, bm: torch.Tensor,
     if not ys:
         return x.new_empty(x.shape), h
     return torch.stack(ys, dim=1).to(x.dtype), h
+
+
+def selective_scan_bwd(dt: torch.Tensor, x: torch.Tensor, bm: torch.Tensor,
+                       c: torch.Tensor, a: torch.Tensor, h0: torch.Tensor,
+                       gy: torch.Tensor,
+                       ght: Optional[torch.Tensor] = None):
+    """Plain VJP of :func:`selective_scan` for the output gradient gy (B,
+    T, di) and, optionally, the final state's ght (B, di, N) f32 ->
+    (gdt, gx, gbm, gc in their inputs' dtype, ga (di, N) and gh0 (B, di,
+    N) in f32).  With dA_t = exp(dt_t a), dtx_t = dt_t x_t, h_t the state
+    after step t (kept from a forward walk) and g_t the gradient flowing
+    into h_t (g_T = gy_T C_T + ght, g_t = gy_t C_t + dA_{t+1} g_{t+1}):
+
+    * gc_t[n] = sum_d gy_t[d] h_t[d, n]; gbm_t[n] = sum_d g_t[d, n] dtx_t[d]
+    * gdtx_t[d] = sum_n g_t[d, n] B_t[n]; gx_t = gdtx_t dt_t
+    * gdt_t[d] = gdtx_t[d] x_t[d] + sum_n g_t h_{t-1} dA_t a
+    * ga = sum_{b, t} g_t h_{t-1} dA_t dt_t; gh0 = dA_1 g_1
+
+    every value in f32, each output rounded once.  A walk of plain torch
+    ops a step at a time, as the kernel's (``csrc/selective_scan.cu``)."""
+    b, t, di = dt.shape
+    dtf, xf, bf, cf, gyf = (v.float() for v in (dt, x, bm, c, gy))
+    dtx = dtf * xf
+    h = h0.float()
+    states, decays = [h], []
+    for i in range(t):
+        da = torch.exp(dtf[:, i, :, None] * a)
+        h = da * h + dtx[:, i, :, None] * bf[:, i, None, :]
+        decays.append(da)
+        states.append(h)
+    g_next = (torch.zeros_like(h) if ght is None else ght.float())
+    gdt, gx, gbm, gc = (torch.empty_like(v) for v in (dtf, xf, bf, cf))
+    ga = torch.zeros_like(a, dtype=torch.float32)
+    for i in reversed(range(t)):
+        g = gyf[:, i, :, None] * cf[:, i, None, :] + g_next
+        gc[:, i] = (gyf[:, i, :, None] * states[i + 1]).sum(1)
+        gbm[:, i] = (g * dtx[:, i, :, None]).sum(1)
+        gdtx = (g * bf[:, i, None, :]).sum(-1)
+        v = g * states[i] * decays[i]
+        gdt[:, i] = gdtx * xf[:, i] + (v * a).sum(-1)
+        gx[:, i] = gdtx * dtf[:, i]
+        ga = ga + (v * dtf[:, i, :, None]).sum(0)
+        g_next = decays[i] * g
+    return (gdt.to(dt.dtype), gx.to(x.dtype), gbm.to(bm.dtype),
+            gc.to(c.dtype), ga, g_next)

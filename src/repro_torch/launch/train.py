@@ -3,6 +3,7 @@
     PYTHONPATH=src python -m repro_torch.launch.train --steps 6
                                   # SmolLM-360M FULL on the card
     ... --arch rwkv6_3b --smoke --steps 6 --ckpt_every 2
+    ... --arch jamba_v01_52b --smoke --steps 3 --device cpu
     ... --smoke --device cpu      # the plain versions
 
 Builds the model from a seeded generator with f32 parameters (a tied table
@@ -10,13 +11,13 @@ one leaf), AdamW, the synthetic LM pipeline and the fault-tolerant
 ``Trainer``; every GEMM is a plain matrix product in the compute dtype
 (gemm mode ``ref``, as the reference's launcher leaves it), attention runs
 through the flash_attention forward and backward kernels, the norms
-through their kernels, and the wkv6 recurrence through its forward and
-backward kernels.  Every step's loss is logged (the reference logs every
-fifth).  Options and the default arch mirror the reference's; a mesh
-(``--model_parallel > 1``, ``--schedule``) waits for the multi-device
-slice.  Jamba raises (its selective scan has no backward yet);
-SeamlessM4T fails at its first step with ``KeyError 'enc_embeds'``, as the
-reference launcher does (the synthetic pipeline has no encoder inputs).
+through their kernels, and the wkv6 and selective-scan recurrences
+through their forward and backward kernels.  Every step's loss is logged
+(the reference logs every fifth).  Options and the default arch mirror the
+reference's; a mesh (``--model_parallel > 1``, ``--schedule``) waits for
+the multi-device slice.  SeamlessM4T fails at its first step with
+``KeyError 'enc_embeds'``, as the reference launcher does (the synthetic
+pipeline has no encoder inputs).
 """
 
 from __future__ import annotations
@@ -27,12 +28,11 @@ from typing import List, Optional
 from repro_torch import configs as C
 from repro_torch import resolve_device
 
-# Architectures the reference's launcher trains, less Jamba, whose
-# selective_scan kernel has no backward yet.  (SeamlessM4T is taken, and
-# fails as the reference's does.)
+# Architectures the reference's launcher trains: all of them.
+# (SeamlessM4T is taken, and fails as the reference's does.)
 TRAINED = ("smollm_360m", "qwen3_8b", "phi3_medium_14b", "minitron_8b",
            "qwen2_vl_72b", "llama4_maverick_400b_a17b", "kimi_k2_1t_a32b",
-           "rwkv6_3b", "seamless_m4t_large_v2")
+           "rwkv6_3b", "jamba_v01_52b", "seamless_m4t_large_v2")
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
@@ -63,9 +63,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
             "come with the multi-device slice (ROADMAP Queue A item 12)")
     if args.arch not in TRAINED:
         raise NotImplementedError(
-            f"training {args.arch!r} is not ported (trained: {TRAINED}); "
-            f"Jamba's selective_scan needs a backward kernel first "
-            f"(ROADMAP Queue A item 11)")
+            f"training {args.arch!r} is not ported (trained: {TRAINED})")
     dev = resolve_device(args.device)
 
     from repro_torch.models.layers import gemm_mode

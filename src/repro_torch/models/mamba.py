@@ -7,8 +7,11 @@ contraction with C run through ``ops.selective_scan`` (the hand-written
 the zero state without a cache and from the cached state with one, for a
 prompt and for a decode step alike; the reference runs a prompt as a
 chunked associative scan and a decode step as one update, the same
-recurrence in another order of operations.  The cache is the conv
-window and the SSM state, fixed-size per sequence, whatever its length.
+recurrence in another order of operations.  Under autograd (training)
+``ops.selective_scan`` goes through ``SelectiveScan``, whose backward is a
+hand-written kernel too; the conv, the softplus and the D skip are torch
+autograd's.  The cache is the conv window and the SSM state, fixed-size
+per sequence, whatever its length.
 ``dt``'s low-rank projection goes through ``layers.gemm`` (the GAMA
 kernel, whose rows do not depend on the batch).
 """

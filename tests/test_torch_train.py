@@ -551,7 +551,6 @@ def test_launcher_trains_smoke_on_cpu(tmpdir_path, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--arch", "jamba_v01_52b"], "selective_scan"),
     (["--model_parallel", "2"], "Queue A item 12"),
     (["--schedule", "allreduce"], "Queue A item 12"),
 ])

@@ -13,9 +13,10 @@ f32 (B=3 T=1 and B=1 T=12).  Inputs as ``chip_smoke.py`` makes them, from
 a nonzero state.
 
 ``--baseline DIR`` names a directory holding an older
-``selective_scan.cu`` and its ``common.cuh`` with the first kernel's entry
-point (no plan arguments), e.g. ``git show
-<commit>:src/repro_torch/csrc/<file>``; it reaches the card only if it is
+``selective_scan.cu`` whose entry takes the plan but no saved-states
+pointer (the redesigned forward, as at ``c05368a``) and the headers it
+includes (``common.cuh``, ``tc.cuh``), e.g. ``git show
+c05368a:src/repro_torch/csrc/<file>``; it reaches the card only if it is
 on disk in the repo, so put it under ``build/``.  It is built with the
 port's nvcc flags, its y and final state must equal the port's kernel's
 bit for bit at every shape, and it is timed at the same shapes (order:
@@ -80,17 +81,20 @@ def load_baseline(directory: str):
     if proc.returncode:
         raise RuntimeError(f"nvcc failed for the baseline:\n{proc.stdout}")
     fn = ctypes.CDLL(out).selective_scan_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
-    def call(*tensors):     # as the first kernel's wrapper calls it
+    def call(*tensors):     # as that kernel's wrapper calls it
         dt, x, bm, c, a, h0 = (v.contiguous() for v in tensors)
         b, t, di = dt.shape
+        n = a.shape[-1]
         y, h_end = torch.empty_like(x), torch.empty_like(h0)
+        plan = S.scan_plan(di, n, x.dtype)
         err = fn(dt.data_ptr(), x.data_ptr(), bm.data_ptr(), c.data_ptr(),
                  a.data_ptr(), h0.data_ptr(), y.data_ptr(), h_end.data_ptr(),
-                 b, t, di, a.shape[-1], S._DTYPES[x.dtype],
+                 b, t, di, n, S._DTYPES[x.dtype], plan.lanes,
+                 plan.channels, plan.steps, int(plan.wide),
                  torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"baseline selective_scan failed: {err}")
