@@ -31,9 +31,14 @@
    max_pages (paged) or Sk (dense), buffers=1 equal to buffers=2, a
    float pool equal to flash_decode on the gathered cache, and a NaN
    null sink page changing nothing.  ``rmsnorm`` (no Pallas counterpart)
-   at SmolLM-360M's d_model 960 in bf16 (8, 128 and 488 rows), the SMOKE
-   configs' 96 in f32 and Qwen3-8B's qk_norm and d_model, every row
-   ``torch.equal`` at M = 1, 3, 8, 488 and 512 and alone.
+   at every served width: SmolLM-360M's d_model 960 in bf16 (8, 128 and
+   488 rows), SeamlessM4T's 1024, Qwen3-8B's 4096 and qk_norm rows of
+   128, Phi-3-medium's 5120 and Qwen2-VL-72B's 8192 in bf16, the SMOKE
+   configs' 96 in f32, every row ``torch.equal`` at M = 1, 3, 8, 488 and
+   512 and alone, a control with the scale 1% off that must fail; and
+   its fused form (the residual add in the same launch) ``torch.equal``
+   to torch's ``x + r`` followed by the unfused kernel, rows alone equal
+   to the batch, timed beside ``x + r`` then ``F.rms_norm``.
 4. Serve: the SMOKE config (f32, heads of 16) replays smoke6 on dense
    KV, f32 pages and int8 pages, an impossible ITL target trips the
    flight recorder (its file written with reason ``slo_breach``), then
@@ -70,9 +75,11 @@
    with the attention kernel against the same prefill with the plain
    attention, a profile of a decode step (by kernel and by kind, with its
    7 ``gama_gemm`` launches a layer and the head's checked), the 8-slot
-   decode step with the rmsnorm kernel against the eager plain norm
-   (wall, device time, kernels a step, 2 rmsnorm launches a layer and the
-   final norm's checked), the engine's
+   decode step with the eager plain norm, with the rmsnorm kernel after
+   eager residual adds, and with the adds fused into the kernel (wall,
+   device time, kernels a step, torch's add kernels left, 2 rmsnorm
+   launches a layer and the final norm's checked, 2 kernels a layer
+   fewer fused), the engine's
    own step attribution (``device_ms``, ``bubble_ms``,
    ``bubble_fraction``) beside ``torch.profiler``'s device-busy time and
    idle share for the same 8-slot decode steps, and the step's wall with
@@ -220,6 +227,7 @@ import io
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -241,7 +249,9 @@ from repro_torch.configs.gama_paper import ARRAY_GEMMS  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels.dequant import dequantize as dequant_kernel  # noqa: E402,E501
+from repro_torch.kernels.rmsnorm import add_rmsnorm as add_rmsnorm_kernel  # noqa: E402,E501
 from repro_torch.kernels.rmsnorm import layernorm as layernorm_kernel  # noqa: E402,E501
+from repro_torch.kernels.rmsnorm import rms_plan  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_kernel  # noqa: E402
 from repro_torch.kernels.selective_scan import (  # noqa: E402
     scan_plan, selective_scan as scan_kernel, selective_scan_bwd as scan_bwd,
@@ -565,27 +575,78 @@ def gemm_rows_independent(cfgs, ms):
           f"GEMMs of {[c.name for c in cfgs]}: {checked} rows, OK")
 
 
+# The rmsnorm kernel's served shapes (label, rows, d, dtype):
+# SmolLM-360M's d_model at the 8 x 448 replay's decode batch (the kernels
+# line), a prefill chunk and the 488 bucket; the SMOKE configs' 96 in f32;
+# Qwen3-8B's qk_norm (d=128 over 3 tokens x 32 heads) and d_model (also
+# Minitron-8B's and Jamba's 4096); SeamlessM4T's 1024, Phi-3-medium's 5120
+# and Qwen2-VL-72B's 8192 at an 8-slot decode.  tools/norm_table.py times
+# the same.
+NORM_SHAPES = [("decode", LONG_REQS, 960, torch.bfloat16),
+               ("chunk", CHUNK, 960, torch.bfloat16),
+               ("prefill-488", LONG_LEN, 960, torch.bfloat16),
+               ("smoke", 16, 96, torch.float32),
+               ("qwen3-8b-qk_norm", 96, 128, torch.bfloat16),
+               ("qwen3-8b", 3, 4096, torch.bfloat16),
+               ("decode-4096", LONG_REQS, 4096, torch.bfloat16),
+               ("seamless-1024", LONG_REQS, 1024, torch.bfloat16),
+               ("phi3-medium-5120", LONG_REQS, 5120, torch.bfloat16),
+               ("qwen2-vl-72b-8192", LONG_REQS, 8192, torch.bfloat16)]
+
+
+def norm_inputs(m, d, dtype, seed):
+    """x and r (max(m, 512) rows of d, N(0, 9) in ``dtype``) and the f32
+    scale 1 + N(0, 0.01), from ``seed`` on the card."""
+    gen = _gen(seed)
+    x, r = ((torch.randn((max(m, 512), d), generator=gen, device=DEV) * 3
+             ).to(dtype) for _ in range(2))
+    return x, r, 1 + 0.1 * torch.randn((d,), generator=gen, device=DEV)
+
+
+def norm_bounds(m, d, dtype):
+    """(bytes, operations) of rmsnorm and of its fused form on m rows:
+    x (and r) read, y (and s) written, the f32 scale read; 3 (4)
+    operations an element."""
+    elt = torch.tensor([], dtype=dtype).element_size()
+    return ((2 * m * d * elt + 4 * d, 3.0 * m * d),
+            (4 * m * d * elt + 4 * d, 4.0 * m * d))
+
+
+def norm_times(xm, rm, scale):
+    """Device ms of the rmsnorm kernel, its plain version, F.rms_norm, the
+    fused form, x + r then the kernel, and x + r then F.rms_norm, on the
+    same rows, in that order."""
+    d = xm.shape[-1]
+    nbytes = norm_bounds(xm.shape[0], d, xm.dtype)[1][0]
+    sc = scale.to(xm.dtype)
+    calls = {
+        "kernel": lambda: rmsnorm_kernel(xm, scale),
+        "plain": lambda: ops.rmsnorm(xm, scale, mode="ref"),
+        "library": lambda: F.rms_norm(xm, (d,), sc, 1e-6),
+        "fused": lambda: add_rmsnorm_kernel(xm, rm, scale),
+        "add+kernel": lambda: rmsnorm_kernel(xm + rm, scale),
+        "add+library": lambda: F.rms_norm(xm + rm, (d,), sc, 1e-6)}
+    return {k: device_ms(lambda c=c: c, nbytes) for k, c in calls.items()}
+
+
 def check_rmsnorm(label, m, d, dtype, seed, main=False, per_step=None):
     """The rmsnorm kernel against its plain version (float64 sums): within
-    1e-6 * |plain| in f32 and one bf16 ulp (2**-7 * |plain|) in bf16;
-    timed beside its bound, the plain version and F.rms_norm.  Bit for
-    bit: every row equal at M = 1, 3, 8, 488 and 512 and computed
-    alone."""
-    gen = _gen(seed)
-    x = (torch.randn((max(m, 512), d), generator=gen, device=DEV) * 3
-         ).to(dtype)
-    scale = 1 + 0.1 * torch.randn((d,), generator=gen, device=DEV)
+    1e-6 * |plain| in f32 and one bf16 ulp (2**-7 * |plain|) in bf16, the
+    plain version with the scale 1% off failing it; every row equal at M
+    = 1, 3, 8, 488 and 512 and computed alone.  Its fused form: s
+    ``torch.equal`` to torch's x + r and y to the unfused kernel on it,
+    rows alone equal to the batch.  Timed beside the bound, the plain
+    version and F.rms_norm; the fused form beside x + r then the kernel,
+    and x + r then F.rms_norm."""
+    x, r, scale = norm_inputs(m, d, dtype, seed)
     whole = rmsnorm_kernel(x, scale)
     want = ops.rmsnorm(x, scale, mode="ref")
     torch.cuda.synchronize()
     tol = 1e-6 if dtype == torch.float32 else 2.0 ** -7
-    g, w = whole.double(), want.double()
-    if not torch.isfinite(g).all():
-        raise AssertionError(f"rmsnorm {label}: non-finite output")
-    err = (g - w).abs()
-    if (err > tol * w.abs()).any():
-        raise AssertionError(f"rmsnorm {label}: max abs err "
-                             f"{err.max().item():.3e} over {tol:g} * |plain|")
+    err = max_err(whole, want, tol, 0.0)
+    must_fail(f"rmsnorm {label}: the kernel against the plain version with "
+              f"the scale x 1.01", whole,
+              ops.rmsnorm(x, scale * 1.01, mode="ref"), tol, 0.0)
     for rows in (1, 3, 8, 488, 512):
         if not torch.equal(rmsnorm_kernel(x[:rows].contiguous(), scale),
                            whole[:rows]):
@@ -595,28 +656,43 @@ def check_rmsnorm(label, m, d, dtype, seed, main=False, per_step=None):
                        for i in range(16)])
     if not torch.equal(alone, whole[:16]):
         raise AssertionError(f"rmsnorm {label}: a row alone differs")
-    r = RESULTS["rmsnorm"]
-    r["max_abs_err"] = max(r["max_abs_err"], err.max().item())
-    xm = x[:m].contiguous()
-    elt = x.element_size()
-    nbytes = 2 * m * d * elt + 4 * d
-    kern = device_ms(lambda: (lambda: rmsnorm_kernel(xm, scale)), nbytes)
-    plain = device_ms(lambda: (lambda: ops.rmsnorm(xm, scale, mode="ref")),
-                      nbytes)
-    lib = device_ms(lambda: (lambda: F.rms_norm(xm, (d,), scale.to(dtype),
-                                                1e-6)), nbytes)
-    bms, by = bound(nbytes, 3.0 * m * d, torch.float32)
+    s, y = add_rmsnorm_kernel(x, r, scale)
+    if not (torch.equal(s, x + r)
+            and torch.equal(y, rmsnorm_kernel(x + r, scale))):
+        raise AssertionError(f"rmsnorm {label}: the fused form differs from "
+                             f"x + r then the kernel")
+    for rows in (1, 3, 8, 488):
+        if not torch.equal(add_rmsnorm_kernel(
+                x[:rows].contiguous(), r[:rows].contiguous(), scale)[1],
+                y[:rows]):
+            raise AssertionError(f"rmsnorm {label}: fused rows of an "
+                                 f"M={rows} call differ")
+    res = RESULTS["rmsnorm"]
+    res["max_abs_err"] = max(res["max_abs_err"], err)
+    xm, rm = x[:m].contiguous(), r[:m].contiguous()
+    t = norm_times(xm, rm, scale)
+    (nb, no), (fb, fo) = norm_bounds(m, d, dtype)
+    bms, by = bound(nb, no, torch.float32)
+    fms, fby = bound(fb, fo, torch.float32)
     print(f"[kernel] rmsnorm {label} M={m} d={d} {str(dtype)[6:]} "
-          f"max_abs_err={err.max().item():.3e} tol={tol:g}*|plain| "
-          f"rows torch.equal at M=1,3,8,488,512 and alone, OK "
-          f"kernel_ms={kern:.5f} plain_ms={plain:.5f} "
-          f"library_ms={lib:.5f} (F.rms_norm) bound_ms={bms:.6f} ({by}) "
-          f"bound/kernel={bms / kern:.4f}"
+          f"plan={tuple(rms_plan(d, dtype))} max_abs_err={err:.3e} "
+          f"tol={tol:g}*|plain| (scale*1.01 fails) rows torch.equal at "
+          f"M=1,3,8,488,512 and alone, OK kernel_ms={t['kernel']:.5f} "
+          f"plain_ms={t['plain']:.5f} library_ms={t['library']:.5f} "
+          f"(F.rms_norm) bound_ms={bms:.6f} ({by}) "
+          f"bound/kernel={bms / t['kernel']:.4f}"
           + ("" if per_step is None else f" launches_per_decode_step="
              f"{per_step}"))
+    print(f"[kernel] rmsnorm fused add {label} M={m} d={d} "
+          f"{str(dtype)[6:]}: s == x + r and y == kernel(x + r) "
+          f"torch.equal, rows alone == batch, OK fused_ms={t['fused']:.5f} "
+          f"add_then_kernel_ms={t['add+kernel']:.5f} "
+          f"add_then_library_ms={t['add+library']:.5f} (x + r, F.rms_norm) "
+          f"bound_ms={fms:.6f} ({fby}) bound/fused={fms / t['fused']:.4f}")
     if main:
-        r.update(ms=kern, plain_ms=plain, library_ms=lib, bound_ms=bms,
-                 bound_by=by, shape=f"M={m} d={d} {str(dtype)[6:]} {label}")
+        res.update(ms=t["kernel"], plain_ms=t["plain"],
+                   library_ms=t["library"], bound_ms=bms, bound_by=by,
+                   shape=f"M={m} d={d} {str(dtype)[6:]} {label}")
 
 
 def check_layernorm(label, m, d, groups, dtype, seed, main=False,
@@ -1123,20 +1199,11 @@ def kernel_phase(cfg, max_len, smoke_len):
                                  and label == "lm_head"),
                            per_step=per_step if m <= 16 else None)
     gemm_rows_independent([cfg, qwen], (3, 8, 16, 512))
-    # rmsnorm at the serve path's shapes: SmolLM-360M's d_model in bf16 at
-    # the 8 x 448 replay's decode batch (the kernels line), a prefill
-    # chunk and the 488 bucket; the SMOKE configs' 96 in f32; Qwen3-8B's
-    # qk_norm (d=128 over 3 tokens x 32 heads) and d_model.
+    # rmsnorm and its fused form at every served width (NORM_SHAPES).
     norms = 2 * cfg.n_layers + 1
-    check_rmsnorm("decode", LONG_REQS, cfg.d_model, torch.bfloat16, seed=50,
-                  main=True, per_step=norms)
-    check_rmsnorm("chunk", CHUNK, cfg.d_model, torch.bfloat16, seed=51)
-    check_rmsnorm("prefill-488", LONG_LEN, cfg.d_model, torch.bfloat16,
-                  seed=52)
-    check_rmsnorm("smoke", 16, 96, torch.float32, seed=53)
-    check_rmsnorm("qwen3-8b-qk_norm", 3 * qwen.n_heads, qwen.d_head,
-                  torch.bfloat16, seed=54)
-    check_rmsnorm("qwen3-8b", 3, qwen.d_model, torch.bfloat16, seed=55)
+    for i, (label, m, d, dtype) in enumerate(NORM_SHAPES):
+        check_rmsnorm(label, m, d, dtype, seed=50 + i, main=i == 0,
+                      per_step=norms if i == 0 else None)
     # Attention: bf16 within 2e-2 * (1 + |plain|) (P rounds to bf16 for
     # P.V and the output once from f32), f32 at the JAX suite's 2e-5.  The
     # replays' prefill shapes: the 16-token bucket against the dense smoke6
@@ -1423,13 +1490,33 @@ def _unmeasured(lost):
     return "the profiler saw no CUDA events"
 
 
+@contextlib.contextmanager
+def eager_adds():
+    """The models' fused residual adds undone for a while: ``ops.
+    add_rmsnorm`` as torch's ``x + r`` then ``ops.rmsnorm`` (the kernel on
+    the card), the serve path's form before the fusion."""
+    orig = ops.add_rmsnorm
+
+    def unfused(x, r, scale, *, eps=1e-6, mode="auto"):
+        s = x + r
+        return s, ops.rmsnorm(s, scale, eps=eps, mode=mode)
+    ops.add_rmsnorm = unfused
+    try:
+        yield
+    finally:
+        ops.add_rmsnorm = orig
+
+
 def profile_decode_norms(cfg, params, steps=5):
-    """A decode step with the rmsnorm kernel against the same step with the
-    eager plain rmsnorm: the 8 x 448 replay's decode shape (8 slots at
-    449-487 keys on bf16 pages of 16).  Wall per step (host clock,
-    synchronised, profiler off) in turns plain, kernel, kernel, plain;
-    then one profiled run each: kernels launched a step, device time, and
-    the rmsnorm kernel's launches a step (2 a layer + the final norm)."""
+    """A decode step with its norms three ways: the eager plain rmsnorm
+    (no kernel), the rmsnorm kernel after torch's residual adds, and the
+    adds fused into the kernel, at the 8 x 448 replay's decode shape (8
+    slots at 449-487 keys on bf16 pages of 16).  Wall per step (host
+    clock, synchronised, profiler off) in turns plain, eager adds, fused,
+    fused, eager adds, plain; then one profiled run each: kernels launched
+    a step, device time, torch's add kernels left a step and the rmsnorm
+    kernel's launches a step (2 a layer + the final norm, fused or not;
+    the fused step runs 2 kernels a layer fewer)."""
     b = LONG_REQS
     max_pages = pages_for(LONG_LEN, 16)
     tok = torch.zeros(b, dtype=torch.long, device=DEV)
@@ -1439,33 +1526,46 @@ def profile_decode_norms(cfg, params, steps=5):
     caches = init_paged_cache(cfg, b * max_pages, 16, device=DEV)
     tables = torch.arange(b * max_pages, dtype=torch.int32,
                           device=DEV).view(b, max_pages)
+    forms = {"ref": "eager plain rmsnorm",
+             "eager": "rmsnorm kernel, eager residual adds",
+             "fused": "residual adds fused into the rmsnorm kernel"}
 
-    def run(mode):
-        with op_mode("rmsnorm", mode):
+    def run(form):
+        with contextlib.ExitStack() as stack:
+            if form == "ref":
+                stack.enter_context(op_mode("rmsnorm", "ref"))
+                stack.enter_context(op_mode("add_rmsnorm", "ref"))
+            elif form == "eager":
+                stack.enter_context(eager_adds())
             t0 = time.perf_counter()
             for _ in range(steps):
-                decode_step(params, tok, pos, cfg, caches,
-                            block_tables=tables)
+                logits, _ = decode_step(params, tok, pos, cfg, caches,
+                                        block_tables=tables)
             torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3 / steps
+        return (time.perf_counter() - t0) * 1e3 / steps, logits
 
-    for mode in ("ref", "kernel"):
-        run(mode)                          # warm-up
-    walls = {"ref": [], "kernel": []}
-    for mode in ("ref", "kernel", "kernel", "ref"):
-        walls[mode].append(run(mode))
-    for mode, name in (("ref", "eager plain rmsnorm"),
-                       ("kernel", "rmsnorm kernel")):
+    outs = {form: run(form)[1] for form in forms}      # warm-up
+    if not torch.equal(outs["fused"], outs["eager"]):
+        raise AssertionError("decode step: the fused adds changed the "
+                             "logits")
+    walls = {form: [] for form in forms}
+    for form in ("ref", "eager", "fused", "fused", "eager", "ref"):
+        walls[form].append(run(form)[0])
+    kernels = {}
+    for form, name in forms.items():
         _, by_name, launched, lost = _profiled(
-            lambda: run(mode), f"decode step, 8 slots, {name}")
+            lambda: run(form), f"decode step, 8 slots, {name}")
         per_step = launched["rmsnorm"] / steps
-        wall = sum(walls[mode]) / 2
+        wall = sum(walls[form]) / 2
         if by_name and not lost:
             busy = sum(us for _, us in by_name.values()) / 1e3 / steps
             n = sum(c for c, _ in by_name.values()) // steps
+            kernels[form] = n
             norm_us = sum(us for k, (_, us) in by_name.items()
                           if k.startswith("rmsnorm")) / steps
+            adds = by_name.get(TORCH_ADD, (0, 0.0))[0] / steps
             dev = (f"device_ms={busy:.3f} kernels_per_step={n} "
+                   f"torch_add_kernels_per_step={adds:g} "
                    f"rmsnorm_kernel_ms_per_step={norm_us / 1e3:.4f}")
         else:
             dev = f"device time not measured ({_unmeasured(lost)})"
@@ -1473,10 +1573,15 @@ def profile_decode_norms(cfg, params, steps=5):
               f"wall_ms={wall:.3f} (profiler off, mean of 2; turns "
               f"{json.dumps(walls)}) {dev} rmsnorm_launches_per_step="
               f"{per_step:g}")
-        want = 2 * cfg.n_layers + 1 if mode == "kernel" else 0
+        want = 2 * cfg.n_layers + 1 if form != "ref" else 0
         if per_step != want:
             raise AssertionError(f"decode step ({name}): {per_step} rmsnorm "
                                  f"launches a step, expected {want}")
+    if ("eager" in kernels and "fused" in kernels
+            and kernels["eager"] - kernels["fused"] != 2 * cfg.n_layers):
+        raise AssertionError(f"decode step: {kernels['eager']} kernels a "
+                             f"step with eager adds, {kernels['fused']} "
+                             f"fused: expected {2 * cfg.n_layers} fewer")
 
 
 # The ops wrappers' route counters and the kernel launch counters they
@@ -1619,11 +1724,13 @@ def replay(cfg, params, trace, scfg, label, verify=True, warm=True):
 @contextlib.contextmanager
 def op_mode(name, mode):
     """Route the models' ``ops.<name>`` calls through ``mode`` for a while
-    (``"ref"``: the plain version, no kernel)."""
+    (``"ref"``: the plain version, no kernel), whatever mode the caller
+    names (``ops.add_rmsnorm`` under grad passes its own to
+    ``ops.rmsnorm``)."""
     orig = getattr(ops, name)
 
     def routed(*args, **kwargs):
-        return orig(*args, mode=mode, **kwargs)
+        return orig(*args, **{**kwargs, "mode": mode})
     setattr(ops, name, routed)
     try:
         yield
@@ -2592,7 +2699,13 @@ def _batches(cfg, batch, seq_len, seed):
                                   global_batch=batch, seed=seed))
 
 
+# torch's elementwise add kernel (its functor named, the template cut).
+TORCH_ADD = "torch add (elementwise)"
+
+
 def _clean_name(name):
+    if "Functor_add" in name:
+        return TORCH_ADD
     return name.replace("void ", "").replace(
         "(anonymous namespace)::", "").split("<")[0].split("(")[0][:70]
 
@@ -3082,8 +3195,9 @@ def attention_bwd_phase():
 @contextlib.contextmanager
 def attention_mode(mode, scale_mult=1.0):
     """Route the models' ``ops.attention`` and ``ops.rmsnorm`` calls through
-    ``mode`` for a while, attention's softmax scale multiplied by
-    ``scale_mult`` (the controls' perturbation)."""
+    ``mode`` for a while (whatever mode the caller names), attention's
+    softmax scale multiplied by ``scale_mult`` (the controls'
+    perturbation)."""
     orig_attn, orig_norm = ops.attention, ops.rmsnorm
 
     def attn(q, k, v, *, scale=None, **kw):
@@ -3092,8 +3206,10 @@ def attention_mode(mode, scale_mult=1.0):
                      else scale) * scale_mult
         return orig_attn(q, k, v, scale=scale, mode=mode, **kw)
 
-    def norm(x, scale, *, eps=1e-6):
-        return orig_norm(x, scale, eps=eps, mode=mode)
+    route = mode
+
+    def norm(x, scale, *, eps=1e-6, mode=None):
+        return orig_norm(x, scale, eps=eps, mode=route)
     ops.attention, ops.rmsnorm = attn, norm
     try:
         yield
@@ -3451,28 +3567,31 @@ def check_selective_scan_bwd(label, b, t, di, n, dtype, seed, main=False):
                    f"{'f32' if f32 else 'bf16'} from h0 ({label})")
 
 
+# selective_scan_bwd's shapes (label, B, T, di, N, dtype): Jamba-v0.1
+# 52B's training step (8 x 64 tokens, d_inner 8192, 16 states) in bf16
+# (the kernels line) and f32, a 448-token prompt, a length that is not a
+# multiple of 8, a ragged width on plain loads, and the SMOKE launcher's
+# f32 shape.  tools/scan_table.py times the same.
+SCAN_BWD_SHAPES = [("train-bf16", 8, 64, 8192, 16, torch.bfloat16),
+                   ("train-f32", 8, 64, 8192, 16, torch.float32),
+                   ("prompt-448", 1, LONG_PROMPT, 8192, 16, torch.bfloat16),
+                   ("ragged-T11", 2, 11, 8192, 16, torch.bfloat16),
+                   ("ragged-width", 3, 21, 100, 12, torch.bfloat16),
+                   ("smoke-f32", 8, 64, 128, 8, torch.float32)]
+
+
 def scan_bwd_phase():
-    """selective_scan_bwd at Jamba-v0.1 52B's training shape (8 x 64
-    tokens, d_inner 8192, 16 states) in bf16 (the kernels line) and f32, a
-    448-token prompt, a length that is not a multiple of 8, a ragged width
-    on plain loads (di=100, N=12, bf16), and the SMOKE launcher's f32
-    shape (8 x 64, di=128, N=8)."""
-    jamba = C.get("jamba_v01_52b")
-    di, n = jamba.mamba.expand * jamba.d_model, jamba.mamba.d_state
-    check_selective_scan_bwd("train-bf16", 8, 64, di, n, torch.bfloat16,
-                             seed=101, main=True)
-    check_selective_scan_bwd("train-f32", 8, 64, di, n, torch.float32,
-                             seed=102)
-    check_selective_scan_bwd("prompt-448", 1, LONG_PROMPT, di, n,
-                             torch.bfloat16, seed=103)
-    check_selective_scan_bwd("ragged-T11", 2, 11, di, n, torch.bfloat16,
-                             seed=104)
-    check_selective_scan_bwd("ragged-width", 3, 21, 100, 12, torch.bfloat16,
-                             seed=105)
-    smoke = C.get_smoke("jamba_v01_52b")
-    check_selective_scan_bwd("smoke-f32", 8, 64,
-                             smoke.mamba.expand * smoke.d_model,
-                             smoke.mamba.d_state, torch.float32, seed=106)
+    """selective_scan_bwd at SCAN_BWD_SHAPES (their widths those of
+    Jamba-v0.1 52B's config and of its SMOKE config)."""
+    jamba, smoke = C.get("jamba_v01_52b"), C.get_smoke("jamba_v01_52b")
+    widths = {(m.mamba.expand * m.d_model, m.mamba.d_state)
+              for m in (jamba, smoke)}
+    for i, (label, b, t, di, n, dtype) in enumerate(SCAN_BWD_SHAPES):
+        if label != "ragged-width" and (di, n) not in widths:
+            raise AssertionError(f"scan bwd {label}: ({di}, {n}) is no "
+                                 f"served width {sorted(widths)}")
+        check_selective_scan_bwd(label, b, t, di, n, dtype, seed=101 + i,
+                                 main=i == 0)
 
 
 @contextlib.contextmanager
@@ -4682,7 +4801,8 @@ def plain_route():
     GEMMs as ``x @ w`` (gemm mode "ref"), attention, decode and the norms
     through ``ops.*(mode="ref")``."""
     with contextlib.ExitStack() as stack:
-        for name in ("attention", "decode", "decode_paged", "rmsnorm"):
+        for name in ("attention", "decode", "decode_paged", "rmsnorm",
+                     "add_rmsnorm"):
             stack.enter_context(op_mode(name, "ref"))
         set_gemm_mode("ref")
         try:
@@ -4904,6 +5024,27 @@ def main(argv=None) -> int:
         shutil.rmtree(cache_dir, ignore_errors=True)
 
 
+def ptxas_summary(logs, names):
+    """One line per compiled kernel whose name holds one of ``names``:
+    its registers a thread and spill bytes, from ``-Xptxas -v``."""
+    out = []
+    for log in logs.values():
+        kernel = None
+        for line in log.splitlines():
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                kernel, spill = m.group(1), ""
+                continue
+            if kernel and "spill" in line:
+                spill = line.strip()
+            m = re.search(r"Used (\d+) registers", line)
+            if kernel and m:
+                if any(n in kernel for n in names):
+                    out.append(f"{kernel}: {m.group(1)} registers, {spill}")
+                kernel = None
+    return out
+
+
 def _main(card, kind, only=None) -> int:
     print(f"[device] {card} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | {kind} x{torch.cuda.device_count()}")
@@ -4912,6 +5053,10 @@ def _main(card, kind, only=None) -> int:
     for name, log in logs.items():
         print(f"[build] {name}:\n{log.strip()}")
     print(f"[build] {len(logs)} libraries in {time.perf_counter() - t0:.1f}s")
+    for line in ptxas_summary(logs, ("rmsnorm_kernel", "rmsnorm_wide",
+                                     "rmsnorm_chunked",
+                                     "selective_scan_bwd")):
+        print(f"[build] {line}")
 
     cfg = C.get("smollm_360m")
     trace = S.load_trace(S.resolve_trace_path("smoke6"), cfg.vocab_size)

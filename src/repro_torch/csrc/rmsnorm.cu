@@ -24,6 +24,21 @@
 // compiler no contraction to choose, so a row's output bits are a
 // function of the row, eps and scale alone.
 //
+// rmsnorm's form (redesigned after its first form, a loop over the row
+// whose trip count was known only at run time, walked twice, with the
+// scale read as scalar f32 after the shuffle tree, took 0.00298 ms at 8
+// rows of 960 bf16 against a 0.000010 ms bound on an H100): a lane issues
+// every load of its part of the row, and of the f32 scale vectors it
+// meets, before any arithmetic, with a compile-time number of vectors a
+// lane (rms_plan(d, dtype)); a row of 9-32 vectors a lane (4096-8192
+// bf16) is loaded by a block of 128 threads and summed by one warp from
+// shared memory (rmsnorm_wide_kernel), a wider one walked in chunks of 8,
+// each in the same order.  The order of every sum is the first
+// form's, so are its bits.  The fused residual add: given r, the kernel
+// forms s = x + r (f32, rounded once: torch's x + r), writes s and
+// normalises it, one launch where the serve path ran an eager add and a
+// norm.
+//
 // layernorm (redesigned after rmsnorm's one-warp form took 1.34x
 // F.layer_norm's time on an H100 at RWKV-6 3B's decode, 8 rows of 2560: three dependent
 // passes over the row, a loop whose trip count was known only at run time,
@@ -35,17 +50,20 @@
 // (see layernorm_kernel), which depends on (w, dtype) alone, so its rows are
 // batch-independent too.
 //
-// Bound on the card: bytes.  A row is read once and written once (rmsnorm
-// reads it twice, the second pass mostly from L1); 3 (rmsnorm) or 6
-// (layernorm) operations an element.  A decode step's norms are 3-8 rows
-// of 960 or 2560, where the launch and one round trip to memory, not the
-// bytes, are the cost: one launch a norm replaces torch's ~10 elementwise
-// and reduction launches.
+// Bound on the card: bytes.  A row is read once and written once (the
+// fused form also reads r and writes s); 3 (rmsnorm) or 6 (layernorm)
+// operations an element.  A decode step's norms are 3-8 rows of 960 or
+// 2560, where the launch and one round trip to memory, not the bytes, are
+// the cost: one launch a norm replaces torch's ~10 elementwise and
+// reduction launches, and the fused form the residual add's launch too.
 #include "common.cuh"
 
 namespace {
 
-constexpr int WARPS = 4;          // rmsnorm: rows a block, one warp a row
+constexpr int RMS_ROWS = 2;       // rmsnorm: rows a block, one warp a row
+constexpr int RMS_MAX_PER = 8;    // rmsnorm: vectors a lane holds in registers as f32, at most
+constexpr int RMS_MAX_WIDE = 32;  // rmsnorm: vectors a lane sums from shared memory (8192 bf16)
+constexpr int WIDE_THREADS = 128;  // rmsnorm: a wide row's threads (RMS_MAX_WIDE / 4 vectors each)
 constexpr int LN_MAX_PER = 8;     // layernorm: vectors a thread, at most
 constexpr int LN_MAX_THREADS = 256;  // (so a thread may keep its row's 3 P V values in registers)
 
@@ -98,35 +116,232 @@ struct Vec<T, 1> {
   __device__ __forceinline__ static void store(T* p, const float* v) { store_f32(p, v[0]); }
 };
 
+// x (+ r) rounded to T: torch's x + r (the sum in f32, rounded once to
+// the tensors' dtype); f32 values pass unchanged.
+__device__ __forceinline__ float round_as(float v, const float*) { return v; }
+__device__ __forceinline__ float round_as(float v, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// The fused add on vector c of a row: r's values w added to x's v in f32,
+// each sum rounded to T (torch's x + r) and the vector stored to sr.
 template <typename T, int V>
-__global__ void __launch_bounds__(WARPS * 32)
-    rmsnorm_kernel(const T* __restrict__ x, const float* __restrict__ scale, T* __restrict__ y,
+__device__ __forceinline__ void add_vec(float (&v)[V], const float (&w)[V], T* sr, int c) {
+#pragma unroll
+  for (int j = 0; j < V; ++j) v[j] = round_as(__fadd_rn(v[j], w[j]), sr);
+  Vec<T, V>::store(sr + c * V, v);
+}
+
+// rmsnorm (the first form's order, the row read once): one warp owns one row, RMS_ROWS rows
+// a block.  Lane l holds the row's vectors l, l + 32, ..., P of them (P =
+// ceil(nvec / 32), a compile-time count: kernels/rmsnorm.py:rms_plan), and
+// issues every 16-byte load of x, of r (the fused residual, or none) and
+// of the f32 scale vectors they meet before any arithmetic; the row stays
+// in registers for the output.  Given r, s = x + r (rounded to T) is
+// written to `sum` and normalised.  The sum of squares: the lane's values
+// in order (__fmaf_rn), then the xor tree over the 32 lanes (__fadd_rn;
+// a + b == b + a, so every lane ends with the same bits).
+template <typename T, int V, int P>
+__global__ void __launch_bounds__(RMS_ROWS * 32)
+    rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ res,
+                   const float* __restrict__ scale, T* __restrict__ sum, T* __restrict__ y,
                    int rows, int d, float eps) {
   const int lane = threadIdx.x & 31;
-  const long row = (long)blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  const T* xr = x + row * d;
-  T* yr = y + row * d;
+  const long row = (long)blockIdx.x * RMS_ROWS + (threadIdx.x >> 5);
+  if (row >= rows) return;   // the whole warp: a row is a warp's
   const int nvec = d / V;
-  float acc = 0.f;
-  for (int c = lane; c < nvec; c += 32) {
-    float v[V];
-    Vec<T, V>::load(xr + c * V, v);
+  const T* xr = x + row * d;
+  float v[P][V], sc[P][V];
 #pragma unroll
-    for (int j = 0; j < V; ++j) acc = __fmaf_rn(v[j], v[j], acc);
+  for (int p = 0; p < P; ++p) {
+    const int c = lane + 32 * p;
+    if (c < nvec) {
+      Vec<T, V>::load(xr + c * V, v[p]);
+      Vec<float, V>::load(scale + c * V, sc[p]);
+    }
   }
+  if (res != nullptr) {
+    const T* rr = res + row * d;
+    float w[P][V];
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      if (lane + 32 * p < nvec) Vec<T, V>::load(rr + (lane + 32 * p) * V, w[p]);
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      if (lane + 32 * p < nvec) add_vec<T, V>(v[p], w[p], sum + row * d, lane + 32 * p);
+  }
+  float acc = 0.f;
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+    if (lane + 32 * p < nvec)
+#pragma unroll
+      for (int j = 0; j < V; ++j) acc = __fmaf_rn(v[p][j], v[p][j], acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, off));
-  acc = __shfl_sync(0xffffffffu, acc, 0);
   const float r = __frsqrt_rn(__fadd_rn(__fdiv_rn(acc, (float)d), eps));
-  for (int c = lane; c < nvec; c += 32) {
-    float v[V];
-    Vec<T, V>::load(xr + c * V, v);
+  T* yr = y + row * d;
 #pragma unroll
-    for (int j = 0; j < V; ++j) v[j] = __fmul_rn(__fmul_rn(v[j], r), scale[c * V + j]);
-    Vec<T, V>::store(yr + c * V, v);
+  for (int p = 0; p < P; ++p) {
+    const int c = lane + 32 * p;
+    if (c < nvec) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) v[p][j] = __fmul_rn(__fmul_rn(v[p][j], r), sc[p][j]);
+      Vec<T, V>::store(yr + c * V, v[p]);
+    }
   }
+}
+
+// A vector of V values of T as it lies in memory, widened to f32 where it
+// is used: a wide row's vectors in shared memory.
+template <typename T, int V>
+struct alignas(sizeof(T) * V) Raw {
+  T e[V];
+  __device__ __forceinline__ void unpack(float (&v)[V]) const {
+#pragma unroll
+    for (int j = 0; j < V; ++j) v[j] = to_f32(e[j]);
+  }
+  __device__ __forceinline__ void pack(const float (&v)[V]) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) store_f32(&e[j], v[j]);
+  }
+};
+
+// A row of 8 < per <= RMS_MAX_WIDE vectors a lane (4096, 5120 and 8192
+// bf16): a block of WIDE_THREADS threads a row.  Thread t loads vectors t,
+// t + WIDE_THREADS, ... (Q <= 8 of them), of r (the fused add) and of the
+// scale, all before any arithmetic, forms s (and stores it), and leaves
+// its vectors in shared memory as T.  Warp 0 then sums the squares in
+// rmsnorm_kernel's order (lane l its vectors l, l + 32, ..., read back from
+// shared memory; the xor tree), so the bits are rmsnorm_kernel's, and every
+// thread writes its vectors' output from its registers: the scale's loads
+// ride beside the row's, not after the sum.
+template <typename T, int V, int Q>
+__global__ void __launch_bounds__(WIDE_THREADS)
+    rmsnorm_wide_kernel(const T* __restrict__ x, const T* __restrict__ res,
+                        const float* __restrict__ scale, T* __restrict__ sum,
+                        T* __restrict__ y, int d, float eps) {
+  __shared__ Raw<T, V> held[WIDE_THREADS * Q];
+  __shared__ float factor;
+  const int t = threadIdx.x;
+  const long row = blockIdx.x;
+  const int nvec = d / V;
+  const T* xr = x + row * d;
+  float v[Q][V], sc[Q][V];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const int c = t + WIDE_THREADS * q;
+    if (c < nvec) {
+      Vec<T, V>::load(xr + c * V, v[q]);
+      Vec<float, V>::load(scale + c * V, sc[q]);
+    }
+  }
+  if (res != nullptr) {
+    const T* rr = res + row * d;
+    float w[Q][V];
+#pragma unroll
+    for (int q = 0; q < Q; ++q)
+      if (t + WIDE_THREADS * q < nvec) Vec<T, V>::load(rr + (t + WIDE_THREADS * q) * V, w[q]);
+#pragma unroll
+    for (int q = 0; q < Q; ++q)
+      if (t + WIDE_THREADS * q < nvec) add_vec<T, V>(v[q], w[q], sum + row * d, t + WIDE_THREADS * q);
+  }
+#pragma unroll
+  for (int q = 0; q < Q; ++q)
+    if (t + WIDE_THREADS * q < nvec) held[t + WIDE_THREADS * q].pack(v[q]);   // exact: v holds T values
+  __syncthreads();
+  if (t < 32) {
+    float acc = 0.f;
+#pragma unroll
+    for (int p = 0; p < WIDE_THREADS / 32 * Q; ++p)
+      if (t + 32 * p < nvec) {
+        float a[V];
+        held[t + 32 * p].unpack(a);
+#pragma unroll
+        for (int j = 0; j < V; ++j) acc = __fmaf_rn(a[j], a[j], acc);
+      }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, off));
+    if (t == 0) factor = __frsqrt_rn(__fadd_rn(__fdiv_rn(acc, (float)d), eps));
+  }
+  __syncthreads();
+  const float r = factor;
+  T* yr = y + row * d;
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const int c = t + WIDE_THREADS * q;
+    if (c < nvec) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) v[q][j] = __fmul_rn(__fmul_rn(v[q][j], r), sc[q][j]);
+      Vec<T, V>::store(yr + c * V, v[q]);
+    }
+  }
+}
+
+// A row of more than RMS_MAX_WIDE vectors a lane (no served width):
+// lane l walks its vectors l, l + 32, ... in chunks of RMS_MAX_PER (a
+// chunk's loads all in flight before its arithmetic), in rmsnorm_kernel's
+// order, then walks them again for the output, re-reading x (and r: s is
+// formed again, the same bits, rather than read back from `sum`).
+template <typename T, int V>
+__global__ void __launch_bounds__(RMS_ROWS * 32)
+    rmsnorm_chunked_kernel(const T* __restrict__ x, const T* __restrict__ res,
+                           const float* __restrict__ scale, T* __restrict__ sum,
+                           T* __restrict__ y, int rows, int d, float eps) {
+  const int lane = threadIdx.x & 31;
+  const long row = (long)blockIdx.x * RMS_ROWS + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const int nvec = d / V;
+  const T* xr = x + row * d;
+  const T* rr = res == nullptr ? nullptr : res + row * d;
+  // Chunk by chunk: x (and r, their sum stored with `store`) loaded, then
+  // fold(c, v) on each vector in order.
+  auto walk = [&](bool store, auto fold) {
+    for (int c0 = lane; c0 < nvec; c0 += 32 * RMS_MAX_PER) {
+      float v[RMS_MAX_PER][V];
+#pragma unroll
+      for (int q = 0; q < RMS_MAX_PER; ++q)
+        if (c0 + 32 * q < nvec) Vec<T, V>::load(xr + (c0 + 32 * q) * V, v[q]);
+      if (rr != nullptr) {
+        float w[RMS_MAX_PER][V];
+#pragma unroll
+        for (int q = 0; q < RMS_MAX_PER; ++q)
+          if (c0 + 32 * q < nvec) Vec<T, V>::load(rr + (c0 + 32 * q) * V, w[q]);
+#pragma unroll
+        for (int q = 0; q < RMS_MAX_PER; ++q) {
+          const int c = c0 + 32 * q;
+          if (c >= nvec) continue;
+          if (store) {
+            add_vec<T, V>(v[q], w[q], sum + row * d, c);
+          } else {
+#pragma unroll
+            for (int j = 0; j < V; ++j) v[q][j] = round_as(__fadd_rn(v[q][j], w[q][j]), xr);
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < RMS_MAX_PER; ++q)
+        if (c0 + 32 * q < nvec) fold(c0 + 32 * q, v[q]);
+    }
+  };
+  float acc = 0.f;
+  walk(true, [&](int, const float (&v)[V]) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) acc = __fmaf_rn(v[j], v[j], acc);
+  });
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, off));
+  const float r = __frsqrt_rn(__fadd_rn(__fdiv_rn(acc, (float)d), eps));
+  T* yr = y + row * d;
+  walk(false, [&](int c, const float (&v)[V]) {
+    float sc[V], o[V];
+    Vec<float, V>::load(scale + c * V, sc);
+#pragma unroll
+    for (int j = 0; j < V; ++j) o[j] = __fmul_rn(__fmul_rn(v[j], r), sc[j]);
+    Vec<T, V>::store(yr + c * V, o);
+  });
 }
 
 // LayerNorm: a row of w values (its scale and bias at (row % groups) * w:
@@ -332,37 +547,70 @@ void launch_ln_per(int per, const void* x, const float* scale, const float* bias
   }
 }
 
+template <typename T, int V, int P>
+void launch_rms(const void* x, const void* res, const float* scale, void* sum, void* y, int rows,
+                int d, float eps, cudaStream_t s) {
+  const int blocks = (rows + RMS_ROWS - 1) / RMS_ROWS;
+  const T *X = static_cast<const T*>(x), *R = static_cast<const T*>(res);
+  T *Sum = static_cast<T*>(sum), *Y = static_cast<T*>(y);
+  if constexpr (P > RMS_MAX_WIDE)
+    rmsnorm_chunked_kernel<T, V><<<blocks, RMS_ROWS * 32, 0, s>>>(X, R, scale, Sum, Y, rows, d, eps);
+  else if constexpr (P > RMS_MAX_PER)   // a block a row, P / 4 vectors a thread
+    rmsnorm_wide_kernel<T, V, P / 4><<<rows, WIDE_THREADS, 0, s>>>(X, R, scale, Sum, Y, d, eps);
+  else
+    rmsnorm_kernel<T, V, P><<<blocks, RMS_ROWS * 32, 0, s>>>(X, R, scale, Sum, Y, rows, d, eps);
+}
+
 template <typename T, int V>
-int launch(const void* x, const void* scale, void* y, int rows, int d, float eps,
-           cudaStream_t s) {
-  const int blocks = (rows + WARPS - 1) / WARPS;
-  rmsnorm_kernel<T, V><<<blocks, WARPS * 32, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const float*>(scale), static_cast<T*>(y), rows, d,
-      eps);
-  return (int)cudaGetLastError();
+void launch_rms_per(int per, const void* x, const void* res, const float* scale, void* sum,
+                    void* y, int rows, int d, float eps, cudaStream_t s) {
+  switch (per) {
+    case 1: launch_rms<T, V, 1>(x, res, scale, sum, y, rows, d, eps, s); break;
+    case 2: launch_rms<T, V, 2>(x, res, scale, sum, y, rows, d, eps, s); break;
+    case 3: launch_rms<T, V, 3>(x, res, scale, sum, y, rows, d, eps, s); break;
+    case 4: launch_rms<T, V, 4>(x, res, scale, sum, y, rows, d, eps, s); break;
+    case 5: launch_rms<T, V, 5>(x, res, scale, sum, y, rows, d, eps, s); break;
+    case 6: launch_rms<T, V, 6>(x, res, scale, sum, y, rows, d, eps, s); break;
+    case 7: launch_rms<T, V, 7>(x, res, scale, sum, y, rows, d, eps, s); break;
+    case 8: launch_rms<T, V, 8>(x, res, scale, sum, y, rows, d, eps, s); break;
+    case 9: case 10: case 11: case 12: launch_rms<T, V, 12>(x, res, scale, sum, y, rows, d, eps, s); break;
+    case 13: case 14: case 15: case 16: launch_rms<T, V, 16>(x, res, scale, sum, y, rows, d, eps, s); break;
+    case 17: case 18: case 19: case 20: launch_rms<T, V, 20>(x, res, scale, sum, y, rows, d, eps, s); break;
+    case 21: case 22: case 23: case 24: launch_rms<T, V, 24>(x, res, scale, sum, y, rows, d, eps, s); break;
+    case 25: case 26: case 27: case 28: launch_rms<T, V, 28>(x, res, scale, sum, y, rows, d, eps, s); break;
+    case 29: case 30: case 31: case 32: launch_rms<T, V, 32>(x, res, scale, sum, y, rows, d, eps, s); break;
+    default: launch_rms<T, V, RMS_MAX_WIDE + 1>(x, res, scale, sum, y, rows, d, eps, s); break;
+  }
 }
 
 }  // namespace
 
 // x, y (rows, d) contiguous in dtype 0 = f32 or 1 = bf16; scale (d,) f32.
-// vec is the elements a lane loads at once: 16 bytes' worth (4 f32, 8
-// bf16) when d is a multiple of it, else 1 (kernels/rmsnorm.py:
-// vec_width, a function of (d, dtype) only; any other value is refused).
-// With vec > 1, x and y must be 16-byte aligned.
-extern "C" int rmsnorm_launch(const void* x, const void* scale, void* y, int rows, int d,
-                              int dtype, int vec, float eps, void* stream) {
-  if (rows < 1 || d < 1) return (int)cudaErrorInvalidValue;
+// res and sum (rows, d) in x's dtype, both or neither: the fused residual
+// add (sum = x + res, rounded once, and y its norm).  The plan
+// (kernels/rmsnorm.py:rms_plan, a function of (d, dtype) only; any other
+// is refused): vec, the elements a lane loads at once, 16 bytes' worth (4
+// f32, 8 bf16) when d is a multiple of it, else 1; per = ceil(d / vec /
+// 32), the vectors a lane holds; rows_a_block = RMS_ROWS.  With vec > 1,
+// x, res, sum, y and scale must be 16-byte aligned.
+extern "C" int rmsnorm_launch(const void* x, const void* res, const void* scale, void* sum,
+                              void* y, int rows, int d, int dtype, int vec, int per,
+                              int rows_a_block, float eps, void* stream) {
+  if (rows < 1 || d < 1 || (res == nullptr) != (sum == nullptr)) return (int)cudaErrorInvalidValue;
   const int wide = dtype == 0 ? 4 : 8;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   if (vec != (d % wide == 0 ? wide : 1)) return (int)cudaErrorInvalidValue;
-  if (vec > 1 && (reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(y) % 16))
+  if (per != (d / vec + 31) / 32 || rows_a_block != RMS_ROWS) return (int)cudaErrorInvalidValue;
+  auto off16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
+  if (vec > 1 && (off16(x) || off16(y) || off16(scale) || off16(res) || off16(sum)))
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return vec == 4 ? launch<float, 4>(x, scale, y, rows, d, eps, s)
-                    : launch<float, 1>(x, scale, y, rows, d, eps, s);
-  return vec == 8 ? launch<__nv_bfloat16, 8>(x, scale, y, rows, d, eps, s)
-                  : launch<__nv_bfloat16, 1>(x, scale, y, rows, d, eps, s);
+  const float* S = static_cast<const float*>(scale);
+  if (dtype == 0 && vec == 4) launch_rms_per<float, 4>(per, x, res, S, sum, y, rows, d, eps, s);
+  else if (dtype == 0) launch_rms_per<float, 1>(per, x, res, S, sum, y, rows, d, eps, s);
+  else if (vec == 8) launch_rms_per<__nv_bfloat16, 8>(per, x, res, S, sum, y, rows, d, eps, s);
+  else launch_rms_per<__nv_bfloat16, 1>(per, x, res, S, sum, y, rows, d, eps, s);
+  return (int)cudaGetLastError();
 }
 
 // The same contract for layernorm: x, y (rows, w); scale and bias

@@ -71,15 +71,29 @@
 // are this design's traffic, not the function's.  The walk is
 // serial in time, so the design keeps every step's work in registers and
 // shared memory: the forward's layout (a thread 4 states, the inputs of the next
-// tile in flight by cp.async while one is walked), a tile's 9 states and
-// 8 decays recomputed in registers from its saved start (never a state a
-// step in memory), and the two sums over di (gbm, gc: 512 channel blocks
-// at di = 8192) and the one over sequences (ga) taken as per-block
-// partials that two small kernels add in a fixed order: no atomics, so
-// two calls and a restarted run give the same bits, and a sequence's
-// gdt, gx, gbm, gc rows do not depend on the batch.
+// tile in flight by cp.async while one is walked), a tile's 8 decays
+// recomputed in registers from its saved start (never a state a step in
+// memory), and the two sums over di (gbm, gc) and the one over sequences
+// (ga) taken in a fixed order: no atomics, so two calls and a restarted run
+// give the same bits, and a sequence's gdt, gx, gbm, gc rows do not depend
+// on the batch.
+//
+// The backward's form (redesigned after its first form ran Jamba's 8 x 64
+// bf16 step at 8.8x its operations bound on an H100: 151-165 registers a
+// thread, so about 12 warps an SM; each of a channel's 4 threads widening
+// the same dt, x and gy and forming dtx twice a step; 33.5 MB of
+// per-block channel partials written and read back, and three launches):
+// a tile's inputs are widened to f32 once per (channel, step) and (step,
+// state) into shared memory, read 4 steps to a 16-byte load; of a tile's
+// states only its start and the second half's are held, the first half's
+// formed again from the start (no exponential) when the walk reaches them,
+// for at most 128 registers a thread; and the channel sums are added over
+// a thread-block cluster of 8 channel blocks through distributed shared
+// memory, in rank order, one partial a cluster (4.2 MB at 8 x 64), which
+// one small kernel adds beside ga's sum over sequences: two launches.
 #include "common.cuh"
 #include "tc.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -114,6 +128,10 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
 }
 __device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 u = *reinterpret_cast<const float4*>(p), w = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = u.x, v[1] = u.y, v[2] = u.z, v[3] = u.w, v[4] = w.x, v[5] = w.y, v[6] = w.z, v[7] = w.w;
 }
 
 // States j .. j + 3 of a row of n at p; else those >= n are 0.  WIDE: n %
@@ -421,30 +439,73 @@ int launch_lanes(int lanes, const void* dt, const void* x, const void* bm, const
 }
 
 // ---------------------------------------------------------------------------
-// The backward (selective_scan_bwd).  Shared memory of one block: the
-// inputs of two tiles (the one walked and the one in flight), and per
-// tile each state's terms of the two sums over channels (red[0]: g dtx for
-// gbm, red[1]: gy h for gc; a step's row padded by NSP floats, so the
-// channel sums' reads of two steps hit distinct banks) and the
-// channels' gdt and gx.
+// The backward (selective_scan_bwd).  Shared memory of one block: the raw
+// inputs of the tile in flight; the walked
+// tile's dt, x, gy and dtx = dt x widened to f32 once per (channel, step),
+// a channel's 8 steps in a 16-byte-aligned row (padded to WS floats, so a
+// quarter-warp's 8 channels read distinct banks), and its B and C widened
+// per (step, state), states >= N zero; per tile each state's terms of the
+// two sums over channels (red[0]: g dtx for gbm, red[1]: gy h for gc; a
+// step's row padded by NSP floats, so the channel sums' reads of two steps
+// hit distinct banks), the channels' gdt and gx, and, in a cluster, this
+// rank's share of each block's channel sums of the last two tiles (recv).
+constexpr int WS = STEPS + 4;     // floats a channel's row of a widened input
+// Channel blocks a cluster: 8, the portable size.  tools/scan_table.py
+// --cluster builds the backward with another (-DSCAN_BWD_CLUSTER=K, K a
+// power of two up to 8) to time it against this one.
+#ifndef SCAN_BWD_CLUSTER
+#define SCAN_BWD_CLUSTER 8
+#endif
+constexpr int CLUSTER = SCAN_BWD_CLUSTER;
+
 template <typename T, int L>
 struct BwdSmem {
   static constexpr int LANES = L, NSP = SPT * L;
   static constexpr int RS = CHANNELS * NSP + NSP;   // floats a step of red
-  __align__(16) T raw_dt[2][STEPS][CHANNELS];
-  __align__(16) T raw_x[2][STEPS][CHANNELS];
-  __align__(16) T raw_gy[2][STEPS][CHANNELS];
-  __align__(16) T raw_b[2][STEPS * NSP];
-  __align__(16) T raw_c[2][STEPS * NSP];
+  __align__(16) T raw_dt[1][STEPS][CHANNELS];   // the next tile's inputs, as they lie in memory
+  __align__(16) T raw_x[1][STEPS][CHANNELS];
+  __align__(16) T raw_gy[1][STEPS][CHANNELS];
+  __align__(16) T raw_b[1][STEPS * NSP];
+  __align__(16) T raw_c[1][STEPS * NSP];
+  __align__(16) float wide[4][CHANNELS][WS];   // the walked tile's dt, x, gy, dtx
+  __align__(16) float wb[STEPS][NSP];
+  __align__(16) float wc[STEPS][NSP];
   __align__(16) float red[2][STEPS * RS];
   float outs[2][STEPS][CHANNELS];   // gdt, gx
+  // A rank's share of a tile's channel sums ((which, step, state) values)
+  // from each block of the cluster, by tile parity, and their barriers.
+  __align__(16) float recv[2][CLUSTER][2 * STEPS * NSP / CLUSTER];
+  uint64_t full[2];
 };
+
+// The cluster's barrier (arrive with release, wait with acquire): a full
+// memory barrier on the card, so the backward takes it once, after
+// initialising its mbarriers, and moves its channel sums by st.async.
+__device__ __forceinline__ void cluster_sync_all() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// The shared::cluster address of `local` (this block's shared memory) in
+// block `rank` of the cluster.
+__device__ __forceinline__ uint32_t cluster_addr(const void* local, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(hop::smem_u32(local)), "r"(rank));
+  return r;
+}
+// v[0..3] into another block's shared memory (16-byte aligned), completing
+// 16 bytes on its mbarrier.
+__device__ __forceinline__ void st_async4(uint32_t dst, const float (&v)[4], uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, [%5];\n" ::"r"(dst),
+               "r"(__float_as_uint(v[0])), "r"(__float_as_uint(v[1])), "r"(__float_as_uint(v[2])),
+               "r"(__float_as_uint(v[3])), "r"(bar)
+               : "memory");
+}
 
 // One block walks CHANNELS channels of one sequence backwards in time, a
 // tile at a time from its last, on the forward's thread layout: a thread
 // the same SPT states of one channel.  For tile i it reloads the state
-// the forward saved at the tile's start, recomputes the tile's states and
-// decays with the forward's operations (so the forward's bits), then walks
+// the forward saved at the tile's start, recomputes the tile's decays and
+// states with the forward's operations (so the forward's bits), then walks
 // the tile's steps in reverse carrying g, the gradient flowing into the
 // state.  Per step and state (f32, each product rounded; fmaf where noted):
 //   g    = gy C + carry                 carry = dA g, for the step before
@@ -453,13 +514,30 @@ struct BwdSmem {
 //   gdtx = sum_n g B (fmaf)   sA = sum_n v A (fmaf)   ga += v dt (fmaf)
 // the sums over a channel's states taken in state order in each thread,
 // then across its `lanes` threads by an xor butterfly; gdt = gdtx x + sA
-// and gx = gdtx dt, rounded once.  After each tile the block sums gbm's and
-// gc's terms over its channels in channel order into part_bc (batch,
-// t_len, blocks, n) x 2; at the end each thread's ga over the sequence goes
-// to part_a (batch, di, n) and, given gh0, dA_1 g_1 to gh0.
-// selective_scan_bwd_sum_* add the partials in block and in sequence order.
+// and gx = gdtx dt, rounded once.
+//
+// Registers: the tile's 8 decays stay in registers, but of its 9 states
+// only the tile's start and the second half's 5: the first half's states
+// are formed again from the start (three steps of two products and a sum,
+// no exponential) when the reverse walk reaches them.  Every value is the
+// one the forward gave, so gdt, gx, ga and gh0 keep their bits.
+//
+// Channel sums: after each tile the block sums gbm's and gc's terms over
+// its 16 channels in order; the CLUSTER consecutive channel blocks of a
+// cluster (the grid padded to whole clusters) then add those sums in rank
+// order through distributed shared memory: each block sends each of its
+// values to the rank that owns it by st.async, counted on the owner's
+// mbarrier (a cluster barrier would cost a full memory barrier a tile),
+// and the owner adds them and writes one partial a cluster to part_bc (2,
+// batch, t_len, clusters, n).  At the end each thread's ga over the
+// sequence goes to part_a (batch, di, n) and, given gh0, dA_1 g_1 to gh0;
+// selective_scan_bwd_sums adds the partials in cluster and in sequence
+// order.
+//
+// Eight blocks an SM at least: at most 128 registers a thread at Jamba's
+// 4 threads a channel (fewer threads a channel may take up to 255).
 template <typename T, int L, bool WIDE>
-__global__ void __launch_bounds__(CHANNELS * L)
+__global__ void __launch_bounds__(CHANNELS * L, 8)
     selective_scan_bwd_kernel(const T* __restrict__ dt, const T* __restrict__ x,
                               const T* __restrict__ bm, const T* __restrict__ cm,
                               const float* __restrict__ A, const float* __restrict__ saved,
@@ -469,10 +547,11 @@ __global__ void __launch_bounds__(CHANNELS * L)
                               int di, int n) {
   using Sm = BwdSmem<T, L>;
   constexpr int THREADS = CHANNELS * L, NSP = Sm::NSP, RS = Sm::RS;
-  constexpr int SUMS = 2 * STEPS * NSP / THREADS;   // channel sums a thread a tile
-  static_assert(2 * STEPS * NSP % THREADS == 0, "the channel sums' map");
+  constexpr int VALS = 2 * STEPS * NSP;             // a tile's channel sums
+  static_assert(STEPS == 2 * HALF, "the halves");
   __shared__ Sm sm;
-  const int b = blockIdx.y, blk = blockIdx.x, nblk = gridDim.x, batch = gridDim.y;
+  const int b = blockIdx.y, blk = blockIdx.x, batch = gridDim.y;
+  const int rank = blk % CLUSTER, cl = blk / CLUSTER, ncl = gridDim.x / CLUSTER;
   const int d0 = blk * CHANNELS;
   const int ch = threadIdx.x / L, j0 = threadIdx.x % L * SPT;
   const int d = d0 + ch;
@@ -492,12 +571,83 @@ __global__ void __launch_bounds__(CHANNELS * L)
   const T* cb = cm + row0 * n;
   auto steps_of = [&](int i) { return min(STEPS, t_len - i * STEPS); };
   auto stage_tile = [&](int i) {
-    const int slot = i % 2, steps = steps_of(i);
-    stage<WIDE>(sm, slot, dtb, xb, bb, cb, i * STEPS, steps, d0, di, n, steps < STEPS);
-    stage_rows<WIDE, THREADS>(sm.raw_gy[slot], gyb, i * STEPS, steps, d0, di);
+    const int steps = steps_of(i);
+    stage<WIDE>(sm, 0, dtb, xb, bb, cb, i * STEPS, steps, d0, di, n, steps < STEPS);
+    stage_rows<WIDE, THREADS>(sm.raw_gy[0], gyb, i * STEPS, steps, d0, di);
   };
+  // The staged tile widened once: a (channel, step) pair's dt, x, gy and
+  // dtx, a (step, state) pair's B and C (states >= n zero).  Steps past a
+  // short last tile's have dt = x = gy = B = C = 0: dA = 1 and no input,
+  // so the states and the carry pass unchanged.
+  // Thread t widens channel t % CHANNELS at steps t / CHANNELS + L j, and
+  // B and C at state t % NSP of steps t / NSP + 4 j (straight-line code).
+  auto widen = [&]() {
+    const int c = threadIdx.x % CHANNELS, s0 = threadIdx.x / CHANNELS;
+#pragma unroll
+    for (int j = 0; j < STEPS / L; ++j) {
+      const int s = s0 + L * j;
+      const float dv = to_f32(sm.raw_dt[0][s][c]), xv = to_f32(sm.raw_x[0][s][c]);
+      sm.wide[0][c][s] = dv;
+      sm.wide[1][c][s] = xv;
+      sm.wide[2][c][s] = to_f32(sm.raw_gy[0][s][c]);
+      sm.wide[3][c][s] = __fmul_rn(dv, xv);
+    }
+    const int q = threadIdx.x % NSP, t0 = threadIdx.x / NSP;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {   // THREADS / NSP = 4 steps a pass
+      const int s = t0 + 4 * j;
+      sm.wb[s][q] = q < n ? to_f32(sm.raw_b[0][s * n + q]) : 0.f;
+      sm.wc[s][q] = q < n ? to_f32(sm.raw_c[0][s * n + q]) : 0.f;
+    }
+  };
+  // Where a partial of gbm or gc goes: (which, step, state) of tile i.
+  auto put = [&](int i, int which, int s, int q, float v) {
+    if (s < steps_of(i) && q < n)
+      part_bc[((((long long)which * batch + b) * t_len + i * STEPS + s) * ncl + cl) * n + q] = v;
+  };
+  // A cluster's channel sums: each thread sends its 4 block sums
+  // of tile i, values k .. k + 3, to their owner, rank k / SHARE, which
+  // holds them at recv[i % 2][sender][k % SHARE ..] and counts their bytes
+  // on full[i % 2]; the owner's thread t then adds values rank * SHARE +
+  // t, t + THREADS, ... below SHARE over the senders in rank order (one
+  // value a thread at most at CLUSTER = 8).  A block sends tile i only
+  // after a barrier that follows its own take of tile i + 1, and a sender
+  // sends tile i - 2, which reuses recv[i % 2], only after taking tile i -
+  // 1, which every block sends after taking tile i: so no value lands in a
+  // buffer, nor is counted on a barrier, that its owner still reads.
+  constexpr int SHARE = VALS / CLUSTER;
+  static_assert(SHARE % 4 == 0 && SHARE * CLUSTER == VALS, "whole 16-byte sends a rank");
+  uint32_t phase = 0;   // the parity of each full barrier's next phase
+  auto take = [&](int i) {
+    const int p = i % 2;
+    if (threadIdx.x == 0) hop::mbar_expect_tx(&sm.full[p], CLUSTER * SHARE * 4);
+    if ((int)threadIdx.x < SHARE) {
+      hop::mbar_wait(&sm.full[p], (phase >> p) & 1);
+#pragma unroll
+      for (int u = 0; u < (SHARE + THREADS - 1) / THREADS; ++u) {
+        const int v = threadIdx.x + u * THREADS;
+        if (v < SHARE) {
+          float tot = 0.f;
+#pragma unroll
+          for (int r = 0; r < CLUSTER; ++r) tot = __fadd_rn(tot, sm.recv[p][r][v]);
+          const int k = rank * SHARE + v;
+          put(i, k / (STEPS * NSP), k % (STEPS * NSP) / NSP, k % NSP, tot);
+        }
+      }
+    }
+    phase ^= 1u << p;
+  };
+  if (threadIdx.x == 0) {
+    hop::mbar_init(&sm.full[0], 1);
+    hop::mbar_init(&sm.full[1], 1);
+    hop::fence_barrier_init();
+  }
+  cluster_sync_all();   // every block's barriers ready before any st.async
   stage_tile(tiles - 1);
   cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  widen();
 
   float a[SPT], carry[SPT], ga[SPT], h_in[SPT];
   get_state(A + at, a, whole, on);
@@ -511,53 +661,65 @@ __global__ void __launch_bounds__(CHANNELS * L)
   for (int q = 0; q < SPT; ++q) ga[q] = 0.f;
   get_state(saved + sv + (long long)(tiles - 1) * di * n, h_in, whole, on);
 
+  // Two barriers a tile: the top one (tile i widened; tile i + 1's sums
+  // and stores done, so its block sums can be sent), and one after the walk
+  // (tile i's channel terms written, and tile i - 1, staged by cp.async
+  // while i was walked, landed).
 #pragma unroll 1
   for (int i = tiles - 1; i >= 0; --i) {
-    cp_async_wait<0>();
-    __syncthreads();   // tile i has landed; tile i + 1's sums and stores are done
+    __syncthreads();
     if (i > 0) stage_tile(i - 1);
     cp_async_commit();
-    const int slot = i % 2, steps = steps_of(i);
-    // The tile's states: hist[s] before step s, hist[s + 1] after it.
-    // Steps past `steps` (a short last tile) have dt = x = gy = B = C = 0:
-    // dA = 1 and no input, so the states and the carry pass unchanged.
-    float hist[STEPS + 1][SPT], da[STEPS][SPT];
+    float dv[STEPS], dtx[STEPS];
+    load8(sm.wide[0][ch], dv);
+    load8(sm.wide[3][ch], dtx);
+    // The tile's decays, and its states from step HALF on: hi[k] is the
+    // state after step HALF - 1 + k (hi[0] before step HALF).
+    float da[STEPS][SPT], hi[HALF + 1][SPT], lo[HALF][SPT];
 #pragma unroll
-    for (int q = 0; q < SPT; ++q) hist[0][q] = h_in[q];
+    for (int q = 0; q < SPT; ++q) hi[0][q] = lo[0][q] = h_in[q];
     if (i > 0) get_state(saved + sv + (long long)(i - 1) * di * n, h_in, whole, on);
 #pragma unroll
     for (int s = 0; s < STEPS; ++s) {
-      const float dv = to_f32(sm.raw_dt[slot][s][ch]);
-      const float dtx = __fmul_rn(dv, to_f32(sm.raw_x[slot][s][ch]));
       float bq[SPT];
-      load_states<WIDE>(&sm.raw_b[slot][s * n + j0], j0, n, bq);
+      load4(&sm.wb[s][j0], bq);
 #pragma unroll
-      for (int q = 0; q < SPT; ++q) {
-        const float bv = on[q] ? bq[q] : 0.f;
-        da[s][q] = expf(__fmul_rn(dv, a[q]));
-        hist[s + 1][q] = __fadd_rn(__fmul_rn(da[s][q], hist[s][q]), __fmul_rn(dtx, bv));
+      for (int q = 0; q < SPT; ++q) da[s][q] = expf(__fmul_rn(dv[s], a[q]));
+      if (s < HALF) {
+#pragma unroll
+        for (int q = 0; q < SPT; ++q)
+          hi[0][q] = __fadd_rn(__fmul_rn(da[s][q], hi[0][q]), __fmul_rn(dtx[s], bq[q]));
+      } else {
+#pragma unroll
+        for (int q = 0; q < SPT; ++q)
+          hi[s - HALF + 1][q] =
+              __fadd_rn(__fmul_rn(da[s][q], hi[s - HALF][q]), __fmul_rn(dtx[s], bq[q]));
       }
     }
-#pragma unroll
-    for (int s = STEPS - 1; s >= 0; --s) {
-      const float dv = to_f32(sm.raw_dt[slot][s][ch]);
-      const float xv = to_f32(sm.raw_x[slot][s][ch]);
-      const float gv = to_f32(sm.raw_gy[slot][s][ch]);
-      const float dtx = __fmul_rn(dv, xv);
+    // The reverse walk reads dt, x, gy and dtx again from shared memory, a
+    // half at a time, so only the decays and the states stay in registers
+    // through it (at 128 registers a thread the compiler would otherwise
+    // recompute decays, exponentials included).
+    asm volatile("" ::: "memory");
+    // One reverse step s from the states before (hp) and after (hn) it; w
+    // holds the half's dt, x, gy and dtx, step s at w[.][s % HALF].
+    auto back = [&](int s, const float (&hp)[SPT], const float (&hn)[SPT],
+                    const float (&w)[4][HALF]) {
+      const float dvs = w[0][s % HALF], xv = w[1][s % HALF], gv = w[2][s % HALF];
+      const float dtxs = w[3][s % HALF];
       float bq[SPT], cq[SPT], tb[SPT], tc[SPT];
-      load_states<WIDE>(&sm.raw_b[slot][s * n + j0], j0, n, bq);
-      load_states<WIDE>(&sm.raw_c[slot][s * n + j0], j0, n, cq);
+      load4(&sm.wb[s][j0], bq);
+      load4(&sm.wc[s][j0], cq);
       float gdtx = 0.f, sa = 0.f;
 #pragma unroll
       for (int q = 0; q < SPT; ++q) {
-        const float bv = on[q] ? bq[q] : 0.f, cv = on[q] ? cq[q] : 0.f;
-        const float g = __fadd_rn(__fmul_rn(gv, cv), carry[q]);
-        tb[q] = __fmul_rn(g, dtx);
-        tc[q] = __fmul_rn(gv, hist[s + 1][q]);
-        gdtx = __fmaf_rn(g, bv, gdtx);
-        const float v = __fmul_rn(__fmul_rn(g, hist[s][q]), da[s][q]);
+        const float g = __fadd_rn(__fmul_rn(gv, cq[q]), carry[q]);
+        tb[q] = __fmul_rn(g, dtxs);
+        tc[q] = __fmul_rn(gv, hn[q]);
+        gdtx = __fmaf_rn(g, bq[q], gdtx);
+        const float v = __fmul_rn(__fmul_rn(g, hp[q]), da[s][q]);
         sa = __fmaf_rn(v, a[q], sa);
-        ga[q] = __fmaf_rn(v, dv, ga[q]);
+        ga[q] = __fmaf_rn(v, dvs, ga[q]);
         carry[q] = __fmul_rn(da[s][q], g);
       }
       store4(&sm.red[0][s * RS + ch * NSP + j0], tb);
@@ -569,68 +731,113 @@ __global__ void __launch_bounds__(CHANNELS * L)
       }
       if (j0 == 0) {
         sm.outs[0][s][ch] = __fadd_rn(__fmul_rn(gdtx, xv), sa);
-        sm.outs[1][s][ch] = __fmul_rn(gdtx, dv);
+        sm.outs[1][s][ch] = __fmul_rn(gdtx, dvs);
       }
+    };
+    auto half_inputs = [&](int s0, float (&w)[4][HALF]) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) load4(&sm.wide[k][ch][s0], w[k]);
+    };
+    float w[4][HALF];
+    // The second half, steps STEPS - 1 .. HALF.
+    half_inputs(HALF, w);
+#pragma unroll
+    for (int s = STEPS - 1; s >= HALF; --s) back(s, hi[s - HALF], hi[s - HALF + 1], w);
+    // The first half: its states again from the tile's start, then steps
+    // HALF - 1 .. 0.
+    half_inputs(0, w);
+#pragma unroll
+    for (int s = 0; s + 1 < HALF; ++s) {
+      float bq[SPT];
+      load4(&sm.wb[s][j0], bq);
+#pragma unroll
+      for (int q = 0; q < SPT; ++q)
+        lo[s + 1][q] = __fadd_rn(__fmul_rn(da[s][q], lo[s][q]), __fmul_rn(w[3][s], bq[q]));
     }
+    back(HALF - 1, lo[HALF - 1], hi[0], w);
+#pragma unroll
+    for (int s = HALF - 2; s >= 0; --s) back(s, lo[s], lo[s + 1], w);
+    // Tile i + 1's sums, which every block sent before walking tile i:
+    // taken before the barrier, so no thread of this block sends tile i
+    // (below) before they are read.
+    if (i + 1 < tiles) take(i + 1);
+    cp_async_wait<0>();
     __syncthreads();
-    // gbm's and gc's terms summed over the block's channels in order.
+    // gbm's and gc's terms summed over the block's channels in order (each
+    // of 4 states by a 16-byte load a channel): thread t sums (which, step,
+    // states q0 .. q0 + 3) = (t / (STEPS QD), t / QD % STEPS, 4 (t % QD)),
+    // value k0 = which STEPS NSP + step NSP + q0; then sends them to their
+    // owner.
+    {
+      constexpr int QD = NSP / 4;
+      static_assert(2 * STEPS * QD == THREADS, "a thread four sums");
+      const int which = threadIdx.x / (STEPS * QD), s = threadIdx.x / QD % STEPS;
+      const int q0 = 4 * (threadIdx.x % QD);
+      const float* col = &sm.red[which][s * RS + q0];
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int r = 0; r < SUMS; ++r) {
-      const int k = threadIdx.x + r * THREADS, which = k / (STEPS * NSP);
-      const int s = k % (STEPS * NSP) / NSP, q = k % NSP;
-      if (s < steps && q < n) {
-        float acc = 0.f;
+      for (int c = 0; c < CHANNELS; ++c) {
+        float v[4];
+        load4(col + c * NSP, v);
 #pragma unroll
-        for (int c = 0; c < CHANNELS; ++c) acc = __fadd_rn(acc, sm.red[which][s * RS + c * NSP + q]);
-        part_bc[((((long long)which * batch + b) * t_len + i * STEPS + s) * nblk + blk) * n + q] =
-            acc;
+        for (int e = 0; e < 4; ++e) acc[e] = __fadd_rn(acc[e], v[e]);
+      }
+      const int k0 = which * STEPS * NSP + s * NSP + q0, owner = k0 / SHARE;
+      st_async4(cluster_addr(&sm.recv[i % 2][rank][k0 % SHARE], owner), acc,
+                cluster_addr(&sm.full[i % 2], owner));
+    }
+    // gdt and gx: thread t stores channel t % CHANNELS at steps t /
+    // CHANNELS + (L j) % STEPS, of gdt for L j < STEPS, else of gx.
+    {
+      const int steps = steps_of(i), c = threadIdx.x % CHANNELS, s0 = threadIdx.x / CHANNELS;
+      const long long at0 = (row0 + i * STEPS + s0) * di + d0 + c;
+#pragma unroll
+      for (int j = 0; j < 2 * STEPS / L; ++j) {
+        const int which = j * L / STEPS, s = s0 + j * L % STEPS;
+        if (s < steps && d0 + c < di)
+          store_f32((which ? gx : gdt) + at0 + (long long)(j * L % STEPS) * di,
+                    sm.outs[which][s][c]);
       }
     }
-    for (int k = threadIdx.x; k < 2 * STEPS * CHANNELS; k += THREADS) {
-      const int which = k / (STEPS * CHANNELS), s = k % (STEPS * CHANNELS) / CHANNELS;
-      const int c = k % CHANNELS;
-      if (s < steps && d0 + c < di)
-        store_f32((which ? gx : gdt) + (row0 + i * STEPS + s) * di + d0 + c, sm.outs[which][s][c]);
-    }
+    if (i > 0) widen();   // tile i - 1, for the next pass
   }
-  put_state(part_a + st, ga, whole, on);
+  take(0);   // every block waits for its share of tile 0, so none leaves
+             // while another's st.async to it is in flight
+  put_state(part_a + st, ga, whole, on);   // a block past di (a cluster's padding) stores nothing
   if (gh0 != nullptr) put_state(gh0 + st, carry, whole, on);
 }
 
-constexpr int SUM_CHUNKS = 16;   // runs of channel blocks summed apart, then in order
-
-// gbm and gc: block (n, SUM_CHUNKS) for one (which, b, t) row; thread (q,
-// k) sums the partials of channel blocks [k per, (k + 1) per) in order,
-// thread (q, 0) then the SUM_CHUNKS sums in order.  The order depends on
-// the number of channel blocks alone.
+// gbm and gc: a thread a (which, b, t, state), the clusters' partials in
+// order; ga: a thread a (d, state), the sequences' partials in order.  One
+// launch for both.  The order depends on (di, n) alone.
 template <typename T>
-__global__ void selective_scan_bwd_sum_bc(const float* __restrict__ part_bc, T* __restrict__ gbm,
-                                          T* __restrict__ gc, int rows, int nblk, int n) {
-  __shared__ float sums[SUM_CHUNKS][MAX_STATE];
-  const int row = blockIdx.x, q = threadIdx.x, k = threadIdx.y;   // row: (which, b, t)
-  const int per = (nblk + SUM_CHUNKS - 1) / SUM_CHUNKS;
-  const float* p = part_bc + (long long)row * nblk * n + q;
-  float acc = 0.f;
-  for (int j = k * per; j < min(nblk, (k + 1) * per); ++j) acc = __fadd_rn(acc, p[(long long)j * n]);
-  sums[k][q] = acc;
-  __syncthreads();
-  if (k == 0) {
-    float tot = 0.f;
-#pragma unroll
-    for (int j = 0; j < SUM_CHUNKS; ++j) tot = __fadd_rn(tot, sums[j][q]);
-    const int r = row % rows;
-    store_f32((row < rows ? gbm : gc) + (long long)r * n + q, tot);
+__global__ void selective_scan_bwd_sums(const float* __restrict__ part_bc,
+                                        const float* __restrict__ part_a, T* __restrict__ gbm,
+                                        T* __restrict__ gc, float* __restrict__ ga, int rows,
+                                        int ncl, int n, int batch, long long elems) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long bc = 2LL * rows * n;
+  if (e < bc) {
+    const long long row = e / n;   // (which, b, t)
+    const int q = (int)(e % n);
+    const float* p = part_bc + row * ncl * n + q;
+    float acc = 0.f;
+#pragma unroll 8
+    for (int j = 0; j < ncl; ++j) acc = __fadd_rn(acc, p[(long long)j * n]);
+    store_f32((row < rows ? gbm : gc) + (row % rows) * n + q, acc);
+  } else if (e - bc < elems) {
+    const long long f = e - bc;
+    float acc = 0.f;
+    for (int b = 0; b < batch; ++b) acc = __fadd_rn(acc, part_a[b * elems + f]);
+    ga[f] = acc;
   }
 }
 
-// ga: a thread a (d, n), the sequences' partials in order.
-__global__ void selective_scan_bwd_sum_a(const float* __restrict__ part_a, float* __restrict__ ga,
-                                         int batch, long long elems) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= elems) return;
-  float acc = 0.f;
-  for (int b = 0; b < batch; ++b) acc = __fadd_rn(acc, part_a[b * elems + e]);
-  ga[e] = acc;
+// Channel blocks of a backward launch: the di / CHANNELS blocks rounded up
+// to a whole number of clusters (a block past di only pads its cluster).
+int bwd_blocks(int di) {
+  const int nblk = (di + CHANNELS - 1) / CHANNELS;
+  return (nblk + CLUSTER - 1) / CLUSTER * CLUSTER;
 }
 
 template <typename T, int L>
@@ -638,24 +845,33 @@ int launch_bwd(const void* dt, const void* x, const void* bm, const void* c, con
                const void* saved, const void* gy, const void* ght, void* gdt, void* gx,
                void* gbm, void* gc, void* ga, void* gh0, float* part_bc, float* part_a,
                int batch, int t_len, int di, int n, bool wide, cudaStream_t s) {
-  const int nblk = (di + CHANNELS - 1) / CHANNELS;
-  const dim3 grid(nblk, batch);
+  const int blocks = bwd_blocks(di);
   auto kernel = wide ? selective_scan_bwd_kernel<T, L, true> : selective_scan_bwd_kernel<T, L, false>;
-  kernel<<<grid, CHANNELS * L, 0, s>>>(
-      static_cast<const T*>(dt), static_cast<const T*>(x), static_cast<const T*>(bm),
-      static_cast<const T*>(c), static_cast<const float*>(A), static_cast<const float*>(saved),
-      static_cast<const T*>(gy), static_cast<const float*>(ght), static_cast<T*>(gdt),
-      static_cast<T*>(gx), static_cast<float*>(gh0), part_bc, part_a, t_len, di, n);
-  int err = (int)cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks, batch);
+  cfg.blockDim = dim3(CHANNELS * L);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const T*>(dt), static_cast<const T*>(x),
+      static_cast<const T*>(bm), static_cast<const T*>(c), static_cast<const float*>(A),
+      static_cast<const float*>(saved), static_cast<const T*>(gy),
+      static_cast<const float*>(ght), static_cast<T*>(gdt), static_cast<T*>(gx),
+      static_cast<float*>(gh0), part_bc, part_a, t_len, di, n);
+  int err = e != cudaSuccess ? (int)e : (int)cudaGetLastError();
   if (err) return err;
   const int rows = batch * t_len;
-  selective_scan_bwd_sum_bc<T><<<2 * rows, dim3(n, SUM_CHUNKS), 0, s>>>(
-      part_bc, static_cast<T*>(gbm), static_cast<T*>(gc), rows, nblk, n);
-  err = (int)cudaGetLastError();
-  if (err) return err;
   const long long elems = (long long)di * n;
-  selective_scan_bwd_sum_a<<<(unsigned)((elems + 255) / 256), 256, 0, s>>>(
-      part_a, static_cast<float*>(ga), batch, elems);
+  const long long total = 2LL * rows * n + elems;
+  selective_scan_bwd_sums<T><<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
+      part_bc, part_a, static_cast<T*>(gbm), static_cast<T*>(gc), static_cast<float*>(ga), rows,
+      blocks / CLUSTER, n, batch, elems);
   return (int)cudaGetLastError();
 }
 
@@ -723,9 +939,10 @@ extern "C" int selective_scan_launch(const void* dt, const void* x, const void* 
 // The VJP: dt, x, bm, c, A and saved as the forward took and gave them; gy
 // (batch, t_len, di) in dtype; ght (batch, di, n) f32 or null (0) -> gdt,
 // gx (batch, t_len, di) and gbm, gc (batch, t_len, n) in dtype, ga (di, n)
-// f32, and gh0 (batch, di, n) f32 unless null.  scratch: scratch_floats
-// = 2 batch t_len blocks n + batch di n f32 (blocks = ceil(di /
-// CHANNELS)).  Three kernels, no atomics: two calls give the same bits.
+// f32, and gh0 (batch, di, n) f32 unless null.  The plan as the forward's.
+// scratch: scratch_floats = 2 batch t_len clusters n + batch di n f32
+// (clusters = ceil(ceil(di / CHANNELS) / CLUSTER)).  Two kernels, no
+// atomics: two calls give the same bits.
 extern "C" int selective_scan_bwd_launch(const void* dt, const void* x, const void* bm,
                                          const void* c, const void* A, const void* saved,
                                          const void* gy, const void* ght, void* gdt, void* gx,
@@ -734,8 +951,8 @@ extern "C" int selective_scan_bwd_launch(const void* dt, const void* x, const vo
                                          int n, int dtype, int lanes, int channels, int steps,
                                          int wide, void* stream) {
   if (int err = check_plan(batch, t_len, di, n, dtype, lanes, channels, steps, wide)) return err;
-  const long long nblk = (di + CHANNELS - 1) / CHANNELS;
-  const long long bc = 2LL * batch * t_len * nblk * n;
+  const long long ncl = bwd_blocks(di) / CLUSTER;
+  const long long bc = 2LL * batch * t_len * ncl * n;
   if (saved == nullptr || scratch == nullptr || scratch_floats < bc + (long long)batch * di * n)
     return (int)cudaErrorInvalidValue;
   if (wide && (misaligned(dt) || misaligned(x) || misaligned(bm) || misaligned(c) || misaligned(A) ||

@@ -34,7 +34,7 @@ every ``.ref`` count reads 0 on the main path.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -47,6 +47,7 @@ from repro_torch.kernels.flash_attention import (FlashAttention,
                                                  flash_attention)
 from repro_torch.kernels.gemm import gama_gemm
 from repro_torch.kernels.rmsnorm import LayerNorm, RMSNorm
+from repro_torch.kernels.rmsnorm import add_rmsnorm as add_rmsnorm_kernel
 from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_kernel
 from repro_torch.kernels.selective_scan import SelectiveScan
 from repro_torch.kernels.selective_scan import check_shapes as _scan_shapes
@@ -166,6 +167,28 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6,
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
         return RMSNorm.apply(x, scale, eps)
     return rmsnorm_kernel(x, scale, eps)
+
+
+def add_rmsnorm(x: torch.Tensor, r: torch.Tensor, scale: torch.Tensor, *,
+                eps: float = 1e-6, mode: str = "auto"
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A residual add and the RMSNorm after it: (s = x + r, rmsnorm(s)).
+    For CUDA tensors one launch of the rmsnorm kernel with the add fused
+    in (s has torch's bits, y the unfused kernel's); for CPU tensors and in
+    mode ``ref`` the plain ``x + r`` and ``ref.rmsnorm``.  When grad is
+    enabled and an input requires it (training), the eager add and
+    :func:`rmsnorm`: the fused kernel has no backward.  x and r must be of
+    one shape and dtype (no broadcast, no promotion) on every route."""
+    if r.shape != x.shape or r.dtype != x.dtype:
+        raise ValueError(f"add_rmsnorm needs x and r of one shape and dtype, "
+                         f"got {tuple(x.shape)} {x.dtype} and "
+                         f"{tuple(r.shape)} {r.dtype}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, r, scale)):
+        s = x + r
+        return s, rmsnorm(s, scale, eps=eps, mode=mode)
+    if not _use_kernel(mode, x, r, scale):
+        return ref.add_rmsnorm(x, r, scale, eps)
+    return add_rmsnorm_kernel(x, r, scale, eps)
 
 
 def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,

@@ -10,7 +10,7 @@ attention row (or a zero-length decode slot) is zeros, not NaN.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -60,6 +60,14 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     var = xf.double().square().mean(-1, keepdim=True).float()
     out = xf * torch.rsqrt(var + eps) * scale.float()
     return out.to(x.dtype)
+
+
+def add_rmsnorm(x: torch.Tensor, r: torch.Tensor, scale: torch.Tensor,
+                eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The residual add and the norm after it: (s = x + r, rmsnorm(s)),
+    the plain version of the fused ``rmsnorm`` kernel."""
+    s = x + r
+    return s, rmsnorm(s, scale, eps)
 
 
 def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

@@ -8,7 +8,11 @@ be the same whatever else its call holds, and torch's reductions pick
 their summation order from the shape of the call.  The kernel gives each
 row to one warp that sums its squares in an order fixed by the row
 length alone (see the source), and replaces torch's ~10 launches a norm
-with one.
+with one.  A lane loads its whole part of the row, with the compile-time
+count of vectors :func:`rms_plan` gives, before any arithmetic.
+:func:`add_rmsnorm` is the same kernel with the residual add fused in:
+``s = x + r`` (torch's bits) written out and normalised, one launch where
+the serve path would run two.
 
 :func:`layernorm` is the same for RWKV-6's LayerNorm and GroupNorm,
 whose rows must not depend on the batch either (``--verify`` holds a
@@ -18,9 +22,11 @@ the row's width and dtype alone, so its summation order is too); a row
 too wide for the registers is walked in chunks, in the same order.
 
 :func:`rmsnorm` runs the plain version (:data:`plain`, float64 sums),
-:func:`layernorm` its own (:data:`plain_layernorm`, f32 as the
-reference), for CPU tensors only; for CUDA tensors each launches its
-kernel or raises.  :data:`launches` and :data:`ln_launches` count them.
+:func:`add_rmsnorm` its own (:data:`plain_add`), :func:`layernorm` its own
+(:data:`plain_layernorm`, f32 as the reference), for CPU tensors only; for
+CUDA tensors each launches its kernel or raises.  :data:`launches` counts
+the rmsnorm kernel's launches, fused or not (:data:`fused_launches` those
+with the add), :data:`ln_launches` the layernorm kernel's.
 :class:`LayerNorm` is :func:`layernorm` with a gradient (RWKV-6 trains
 through its norms), :class:`RMSNorm` :func:`rmsnorm` with one (the
 attention decoders train through theirs): the kernel forward, the plain
@@ -30,24 +36,42 @@ expression's backward.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.ref import add_rmsnorm as plain_add
 from repro_torch.kernels.ref import layernorm as plain_layernorm
 from repro_torch.kernels.ref import rmsnorm as plain
 
 launches = 0
+fused_launches = 0
 ln_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
              + [ctypes.c_float, ctypes.c_void_p])
 _LN_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                 + [ctypes.c_float, ctypes.c_void_p])
 LN_MAX_PER = 8           # vectors a layernorm thread holds, at most
 LN_MAX_THREADS = 256     # threads of a layernorm row, at most
+RMS_ROWS = 2             # rows (one warp each) of an rmsnorm block
+RMS_MAX_PER = 8          # vectors an rmsnorm lane holds in registers as f32
+RMS_MAX_WIDE = 32        # ... a lane sums from shared memory (a wide row,
+#                          4096-8192 bf16, loaded by a block of 128 threads)
+
+
+class RmsPlan(NamedTuple):
+    vec: int        # elements a vector: vec_width(d, dtype)
+    per: int        # vectors a lane: lane l holds l, l + 32, ...
+    rows: int       # rows a block (RMS_ROWS)
+
+    @property
+    def chunked(self) -> bool:
+        """The row is walked in chunks of RMS_MAX_PER vectors a lane, twice,
+        instead of held in registers (more than RMS_MAX_WIDE a lane)."""
+        return self.per > RMS_MAX_WIDE
 
 
 class LnPlan(NamedTuple):
@@ -65,6 +89,22 @@ def vec_width(d: int, dtype: torch.dtype) -> int:
         raise ValueError(f"rmsnorm takes f32 or bf16, got {dtype}")
     wide = 16 // torch.tensor([], dtype=dtype).element_size()
     return wide if d % wide == 0 else 1
+
+
+def rms_plan(d: int, dtype: torch.dtype) -> RmsPlan:
+    """How the rmsnorm kernel walks a row of ``d`` values: one warp a row,
+    lane l its vectors l, l + 32, ..., ``per = ceil(d / vec / 32)`` of them
+    (960 bf16: 4, held in registers, :data:`RMS_ROWS` rows a block; 4096
+    bf16: 16, the row loaded by a block of 128 threads and the lane's
+    vectors read back from shared memory, up to :data:`RMS_MAX_WIDE`; past
+    that walked in chunks of :data:`RMS_MAX_PER`).  A function of (d,
+    dtype) alone, so a row's sums run in one order whatever the call
+    holds; the kernel refuses another plan."""
+    if d < 1:
+        raise ValueError(f"rmsnorm needs a row of at least one value, got "
+                         f"d={d}")
+    vec = vec_width(d, dtype)
+    return RmsPlan(vec, -(-(d // vec) // 32), RMS_ROWS)
 
 
 def ln_plan(w: int, dtype: torch.dtype) -> LnPlan:
@@ -102,38 +142,75 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _aligned16(*tensors: torch.Tensor):
+    """Each tensor, or a copy of it where it is off the 16-byte boundary
+    (the kernels' vector loads)."""
+    return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in tensors)
+
+
+def _rms_launch(x: torch.Tensor, r: Optional[torch.Tensor],
+                scale: torch.Tensor, eps: float, name: str):
+    """The checks and the launch of the rmsnorm kernel on CUDA tensors:
+    (s or None, y)."""
+    global launches, fused_launches
+    inputs = (x, scale) if r is None else (x, r, scale)
+    _build.refuse_autograd(name, *inputs)
+    d = x.shape[-1]
+    if not all(t.is_cuda and t.device == x.device for t in inputs):
+        raise ValueError(f"{name} needs every input on one CUDA device, got "
+                         f"{[str(t.device) for t in inputs]}")
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"{name} takes f32 or bf16 x, got {x.dtype}")
+    if r is not None and (r.shape != x.shape or r.dtype != x.dtype):
+        raise ValueError(f"{name} needs r of x's shape and dtype "
+                         f"{tuple(x.shape)} {x.dtype}, got "
+                         f"{tuple(r.shape)} {r.dtype}")
+    if scale.shape != (d,) or not scale.is_floating_point():
+        raise ValueError(f"{name} needs a float scale of shape ({d},), got "
+                         f"{scale.dtype} {tuple(scale.shape)}")
+    if x.numel() == 0:
+        return (None if r is None else torch.empty_like(x),
+                torch.empty_like(x))
+    p = rms_plan(d, x.dtype)
+    rows = x.reshape(-1, d).contiguous()
+    res = None if r is None else r.reshape(-1, d).contiguous()
+    scale = scale.float().contiguous()
+    if p.vec > 1:                    # 16-byte vector loads
+        rows, scale = _aligned16(rows, scale)
+        if res is not None:
+            (res,) = _aligned16(res)
+    out = torch.empty_like(rows)
+    total = None if r is None else torch.empty_like(rows)
+    lib = _lib()
+    err = lib.rmsnorm_launch(
+        rows.data_ptr(), None if res is None else res.data_ptr(),
+        scale.data_ptr(), None if total is None else total.data_ptr(),
+        out.data_ptr(), rows.shape[0], d, _DTYPES[x.dtype], p.vec, p.per,
+        p.rows, float(eps), torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, "rmsnorm", err)
+    launches += 1
+    if r is not None:
+        fused_launches += 1
+    return (None if total is None else total.reshape(x.shape),
+            out.reshape(x.shape))
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
     """x: (..., d) f32 or bf16; scale: (d,) -> x's shape and dtype."""
-    global launches
     if x.device.type == "cpu" and scale.device.type == "cpu":
         return plain(x, scale, eps)
-    _build.refuse_autograd("rmsnorm", x, scale)
-    d = x.shape[-1]
-    if not (x.is_cuda and scale.device == x.device):
-        raise ValueError(f"rmsnorm needs x and scale on one CUDA device, got "
-                         f"{x.device} and {scale.device}")
-    if x.dtype not in _DTYPES:
-        raise ValueError(f"rmsnorm takes f32 or bf16 x, got {x.dtype}")
-    if scale.shape != (d,) or not scale.is_floating_point():
-        raise ValueError(f"rmsnorm needs a float scale of shape ({d},), got "
-                         f"{scale.dtype} {tuple(scale.shape)}")
-    if x.numel() == 0:
-        return torch.empty_like(x)
-    rows = x.reshape(-1, d).contiguous()
-    out = torch.empty_like(rows)
-    vec = vec_width(d, x.dtype)
-    if vec > 1 and rows.data_ptr() % 16:
-        rows = rows.clone()          # 16-byte vector loads
-    scale = scale.float().contiguous()
-    lib = _lib()
-    err = lib.rmsnorm_launch(
-        rows.data_ptr(), scale.data_ptr(), out.data_ptr(), rows.shape[0], d,
-        _DTYPES[x.dtype], vec, float(eps),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, "rmsnorm", err)
-    launches += 1
-    return out.reshape(x.shape)
+    return _rms_launch(x, None, scale, eps, "rmsnorm")[1]
+
+
+def add_rmsnorm(x: torch.Tensor, r: torch.Tensor, scale: torch.Tensor,
+                eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The residual add and the norm that follows it, in one launch: x, r
+    (..., d) of one dtype, f32 or bf16; scale (d,) -> (s = x + r, torch's
+    bits, a new tensor; :func:`rmsnorm` of s)."""
+    if all(t.device.type == "cpu" for t in (x, r, scale)):
+        return plain_add(x, r, scale, eps)
+    return _rms_launch(x, r, scale, eps, "add_rmsnorm")
 
 
 def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -172,8 +249,7 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     p = ln_plan(w, x.dtype)
     scale, bias = scale.float().contiguous(), bias.float().contiguous()
     if p.vec > 1:                    # 16-byte vector loads of all three
-        rows, scale, bias = (t if t.data_ptr() % 16 == 0 else t.clone()
-                             for t in (rows, scale, bias))
+        rows, scale, bias = _aligned16(rows, scale, bias)
     lib = _lib()
     err = lib.layernorm_launch(
         rows.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),

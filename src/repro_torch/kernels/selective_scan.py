@@ -16,14 +16,17 @@ package differentiates its jnp scan; a launched CUDA kernel has no
 autograd): it walks each 8-step tile in reverse on the forward's thread
 layout, recomputing the tile's states from the state the forward saved at
 the tile's start (:func:`selective_scan_fwd` returns those, (B, ceil(T /
-8) + 1, di, N) f32), and adds the sums over channels and sequences as
-partials in a fixed order (no atomics).  :class:`SelectiveScan` ties the
-two into a ``torch.autograd.Function``.
+8) + 1, di, N) f32), sums gbm's and gc's terms over a block's channels and
+then over a thread-block cluster of :data:`CLUSTER` blocks through
+distributed shared memory, and adds one partial a cluster and
+ga's per-sequence partials in a fixed order in a second, small kernel (no
+atomics).  :class:`SelectiveScan` ties the two into a
+``torch.autograd.Function``.
 
 Each wrapper runs its plain version (:data:`plain`, :data:`plain_bwd`) for
 CPU tensors only; for CUDA tensors it launches its kernels or raises.
 :data:`launches` counts forward calls, :data:`bwd_launches` backward
-ones (one backward call launches three CUDA kernels).
+ones (one backward call launches two CUDA kernels).
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ _ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
              + [ctypes.c_void_p])
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_longlong]
                  + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+CLUSTER = 8         # channel blocks whose channel sums one cluster adds
 
 
 class ScanPlan(NamedTuple):
@@ -71,12 +75,25 @@ class ScanPlan(NamedTuple):
         """The grid: (channel blocks, sequences)."""
         return -(-di // self.channels), batch
 
+    def bwd_blocks(self, di: int, batch: int) -> Tuple[int, int]:
+        """The backward's grid: the channel blocks rounded up to whole
+        clusters of :data:`CLUSTER` (a block past di pads its cluster),
+        sequences."""
+        return _clusters(di) * CLUSTER, batch
+
     def owner(self, block: int, thread: int) -> Tuple[int, int]:
         """(channel, first state) of ``thread`` in channel block
         ``block``: it walks states first .. first + STATES - 1; a channel
         >= di or a state >= N is padding."""
         return (block * self.channels + thread // self.lanes,
                 thread % self.lanes * STATES)
+
+
+def _clusters(di: int) -> int:
+    """The backward's clusters of CLUSTER channel blocks over di (64 at
+    Jamba's 512 blocks)."""
+    blocks = -(-di // CHANNELS)
+    return -(-blocks // CLUSTER)
 
 
 def scan_plan(di: int, n: int, dtype: torch.dtype) -> ScanPlan:
@@ -109,9 +126,9 @@ def saved_states(t: int) -> int:
 
 def scratch_floats(b: int, t: int, di: int, n: int) -> int:
     """f32 scratch of one backward call: the sums over channels as one
-    partial a channel block (gbm and gc, B x T x blocks x N each) and the
-    sum over sequences as one a sequence (ga, B x di x N)."""
-    return 2 * b * t * -(-di // CHANNELS) * n + b * di * n
+    partial a cluster of channel blocks (gbm and gc, B x T x clusters x N
+    each) and the sum over sequences as one a sequence (ga, B x di x N)."""
+    return 2 * b * t * _clusters(di) * n + b * di * n
 
 
 def check_shapes(dt: torch.Tensor, x: torch.Tensor, bm: torch.Tensor,

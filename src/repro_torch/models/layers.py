@@ -129,6 +129,13 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return ops.rmsnorm(x, p["scale"], eps=eps)
 
 
+def add_rmsnorm(p: Params, x: torch.Tensor, r: torch.Tensor,
+                eps: float = 1e-6):
+    """The residual sum ``x + r`` and its RMSNorm, (s, rmsnorm(s)):
+    ``ops.add_rmsnorm``, one launch of the rmsnorm kernel on the card."""
+    return ops.add_rmsnorm(x, r, p["scale"], eps=eps)
+
+
 def layernorm_init(d: int, dtype=torch.float32, device="cpu") -> Params:
     return {"scale": torch.ones((d,), dtype=dtype, device=device),
             "bias": torch.zeros((d,), dtype=dtype, device=device)}

@@ -238,8 +238,9 @@ def _encode(params: Params, batch: Batch, cfg: ModelConfig,
     b, s = x.shape[:2]
     x, _, _ = T.apply_stack(params["encoder"]["blocks"], x, enc_cfg,
                             positions=_positions(b, s, 0, x.device),
-                            remat=remat)
-    return T.apply_norm(cfg, params["encoder"]["final_norm"], x)
+                            remat=remat,
+                            final_norm=params["encoder"]["final_norm"])
+    return x
 
 
 def forward(params: Params, batch: Batch, cfg: ModelConfig, *,
@@ -272,8 +273,8 @@ def forward(params: Params, batch: Batch, cfg: ModelConfig, *,
                                    block_tables=block_tables,
                                    enc_out=enc_out, decode=decode,
                                    remat=remat, remat_policy=remat_policy,
-                                   with_aux=with_aux)
-    x = T.apply_norm(cfg, params["final_norm"], x)
+                                   with_aux=with_aux,
+                                   final_norm=params["final_norm"])
     return L.logits(params["embed"], x, params.get("head")), caches, aux
 
 

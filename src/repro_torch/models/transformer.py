@@ -10,6 +10,15 @@ and runs them with ``lax.scan``; here a stack is a plain list with one
 entry per layer, run by a Python loop.  Caches are per-layer lists too,
 each layer's from its own block spec.  Training's rematerialisation wraps
 layers or sub-blocks in ``torch.utils.checkpoint``.
+
+Outside remat, every residual add goes with the norm that follows it
+(:func:`add_norm`): the mixer's add with ``ln2`` (or ``ln_cross``), the
+cross attention's with ``ln2``, the FFN's with the next layer's ``ln1`` or
+the final norm.  For an rmsnorm model that is one ``ops.add_rmsnorm``,
+which on the card is one launch of the rmsnorm kernel when no gradient
+runs through it (serving) and the eager add and the norm otherwise.  The
+reference's jitted step leaves that fusion to XLA; the sums and the norms
+keep the unfused route's bits.
 """
 
 from __future__ import annotations
@@ -82,6 +91,18 @@ def apply_norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     if cfg.norm == "layernorm":
         return L.layernorm(p, x, cfg.norm_eps)
     return L.rmsnorm(p, x, cfg.norm_eps)
+
+
+def add_norm(cfg: ModelConfig, p: Params, x: torch.Tensor,
+             r: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A residual add and the norm ``p`` after it: (s = x + r, norm(s)).
+    An rmsnorm model's is ``ops.add_rmsnorm`` (one kernel launch on the
+    card unless a gradient runs through it), a layernorm model's the
+    eager add and :func:`apply_norm`."""
+    if cfg.norm == "rmsnorm":
+        return L.add_rmsnorm(p, x, r, cfg.norm_eps)
+    s = x + r
+    return s, apply_norm(cfg, p, s)
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, spec: BlockSpec,
@@ -171,6 +192,24 @@ def _cross(p: Params, h: torch.Tensor, cfg: ModelConfig,
     return out
 
 
+def _layer(p: Params, x: torch.Tensor, h: torch.Tensor, cfg: ModelConfig,
+           spec: BlockSpec, *, positions, cache, cache_pos, block_tables,
+           enc_out, decode, with_aux
+           ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """One layer without remat from ``x`` and ``h = ln1(x)``: (the residual
+    stream before the FFN's add, the FFN's output, aux), each add inside
+    the layer taken with the norm after it (:func:`add_norm`)."""
+    mixed = _mixer(p, h, cfg, spec, positions=positions, cache=cache,
+                   cache_pos=cache_pos, block_tables=block_tables)
+    cross = "cross_attn" in p
+    x, h = add_norm(cfg, p["ln_cross" if cross else "ln2"], x, mixed)
+    if cross:
+        x, h = add_norm(cfg, p["ln2"], x,
+                        _cross(p, h, cfg, cache, enc_out, decode))
+    out, aux = _ffn(p, h, cfg, spec, cache, with_aux)
+    return x, out, aux
+
+
 def apply_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
                 spec: BlockSpec, *, positions: Optional[torch.Tensor],
                 cache: Optional[Cache] = None,
@@ -188,6 +227,13 @@ def apply_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
     (each with its norm) in a checkpoint of its own, so only their outputs
     are kept for the backward (the ``tp_outs`` policy)."""
     check_block(cfg, spec)
+    if not remat_sub_blocks:
+        x, out, aux = _layer(p, x, apply_norm(cfg, p["ln1"], x), cfg, spec,
+                             positions=positions, cache=cache,
+                             cache_pos=cache_pos, block_tables=block_tables,
+                             enc_out=enc_out, decode=decode,
+                             with_aux=with_aux)
+        return x + out, cache, aux
 
     def mixer(x):
         return _mixer(p, apply_norm(cfg, p["ln1"], x), cfg, spec,
@@ -202,16 +248,10 @@ def apply_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
         return _cross(p, apply_norm(cfg, p["ln_cross"], x), cfg, cache,
                       enc_out, decode)
 
-    if remat_sub_blocks:
-        x = x + checkpoint(mixer, x, use_reentrant=False)
-        if "cross_attn" in p:
-            x = x + checkpoint(cross, x, use_reentrant=False)
-        out, aux = checkpoint(ffn, x, use_reentrant=False)
-        return x + out, cache, aux
-    x = x + mixer(x)
+    x = x + checkpoint(mixer, x, use_reentrant=False)
     if "cross_attn" in p:
-        x = x + cross(x)
-    out, aux = ffn(x)
+        x = x + checkpoint(cross, x, use_reentrant=False)
+    out, aux = checkpoint(ffn, x, use_reentrant=False)
     return x + out, cache, aux
 
 
@@ -274,20 +314,23 @@ def apply_stack(stack: List[Params], x: torch.Tensor, cfg: ModelConfig, *,
                 block_tables: Optional[torch.Tensor] = None,
                 enc_out: Optional[torch.Tensor] = None, decode: bool = False,
                 remat: bool = False, remat_policy: str = "full",
-                with_aux: bool = False
+                with_aux: bool = False, final_norm: Optional[Params] = None
                 ) -> Tuple[torch.Tensor, Optional[List[Cache]],
                            Optional[torch.Tensor]]:
     """Run every layer in order.  Returns (x, caches updated in place,
     aux): with ``with_aux`` the MoE layers' aux losses summed in layer
     order (an f32 zero without MoE layers), else None.  ``enc_out`` and
-    ``decode`` are an enc-dec decoder's (:func:`apply_block`).
+    ``decode`` are an enc-dec decoder's (:func:`apply_block`).  Given
+    ``final_norm``, x is the last layer's output through that norm.
 
     ``remat`` (training) recomputes activations in the backward instead of
     keeping them: policy ``"full"`` checkpoints each layer (only its input
     is kept), ``"dots"`` each layer keeping every matrix product's output
     (the reference's ``checkpoint_dots``), ``"tp_outs"`` each sub-block
     (the mixer's and FFN's outputs are kept, as the reference's
-    ``save_only_these_names("tp_out")``)."""
+    ``save_only_these_names("tp_out")``).  Without remat each layer's
+    last add goes with the next layer's ``ln1`` or the final norm
+    (:func:`add_norm`)."""
     if remat and remat_policy not in REMAT_POLICIES:
         raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, "
                          f"got {remat_policy!r}")
@@ -295,19 +338,33 @@ def apply_stack(stack: List[Params], x: torch.Tensor, cfg: ModelConfig, *,
         raise ValueError("remat is for training: it takes no caches")
     aux = (torch.zeros((), dtype=torch.float32, device=x.device)
            if with_aux else None)
+    if not remat and stack:
+        h = apply_norm(cfg, stack[0]["ln1"], x)
     for i, (p, spec) in enumerate(zip(stack, layer_specs(cfg))):
         kw = dict(positions=positions,
                   cache=None if caches is None else caches[i],
                   cache_pos=cache_pos, block_tables=block_tables,
                   enc_out=enc_out, decode=decode, with_aux=with_aux)
-        if remat and remat_policy in ("full", "dots"):
+        if not remat:
+            check_block(cfg, spec)
+            x, out, a = _layer(p, x, h, cfg, spec, **kw)
+            nxt = stack[i + 1]["ln1"] if i + 1 < len(stack) else final_norm
+            if nxt is None:
+                x = x + out
+            else:
+                x, h = add_norm(cfg, nxt, x, out)
+        elif remat_policy in ("full", "dots"):
             x, a = checkpoint(lambda x, p=p, spec=spec, kw=kw: apply_block(
                 p, x, cfg, spec, **kw)[::2], x, use_reentrant=False,
                 context_fn=(_dots_contexts if remat_policy == "dots"
                             else noop_context_fn))
         else:
-            x, _, a = apply_block(p, x, cfg, spec, remat_sub_blocks=remat,
+            x, _, a = apply_block(p, x, cfg, spec, remat_sub_blocks=True,
                                   **kw)
         if a is not None:
             aux = aux + a
-    return x, caches, aux
+    if final_norm is None:
+        return x, caches, aux
+    if remat or not stack:
+        h = apply_norm(cfg, final_norm, x)
+    return h, caches, aux

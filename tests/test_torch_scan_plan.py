@@ -21,8 +21,9 @@ import torch
 
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import selective_scan as tscan
-from repro_torch.kernels.selective_scan import (MAX_STATE, SMEM_LIMIT,
-                                                STATES, scan_plan)
+from repro_torch.kernels.selective_scan import (CLUSTER, MAX_STATE,
+                                                SMEM_LIMIT, STATES, scan_plan,
+                                                scratch_floats)
 
 # (di, N): Jamba-v0.1 52B FULL, its SMOKE config, and ragged widths.
 PLAN_CASES = ([(8192, 16), (128, 8)]
@@ -74,6 +75,33 @@ def test_scan_plan_depends_on_the_shape_alone(dtype):
     assert jamba.wide and scan_plan(128, 8, dtype).wide
     assert not scan_plan(100, 16, torch.bfloat16).wide
     assert not scan_plan(128, 12, torch.bfloat16).wide
+
+
+@pytest.mark.parametrize("di,n", PLAN_CASES + [(16, 16), (17, 4), (48, 8),
+                                               (113, 8), (129, 16), (200, 4)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_scan_plan_bwd_clusters_cover_the_channel_blocks(di, n, dtype):
+    """The backward's grid is whole clusters of CLUSTER channel blocks,
+    its padding blocks past di and fewer than a cluster; the scratch holds one partial a cluster for gbm and gc and one a
+    sequence for ga."""
+    p = scan_plan(di, n, dtype)
+    blocks = p.blocks(di, 2)[0]
+    grid, batch = p.bwd_blocks(di, 2)
+    assert batch == 2 and grid % CLUSTER == 0
+    assert blocks <= grid < blocks + CLUSTER
+    assert scratch_floats(3, 11, di, n) == 2 * 3 * 11 * (grid // CLUSTER) * n \
+        + 3 * di * n
+
+
+def test_scan_plan_bwd_at_jamba():
+    """Jamba-v0.1 52B (di = 8192, N = 16): clusters of 8 of the 512
+    channel blocks, so the channel partials of an 8 x 64 step shrink 8x,
+    to 4.2 MB (4,194,304 bytes) from 33.5 MB."""
+    p = scan_plan(8192, 16, torch.bfloat16)
+    assert CLUSTER == 8 and p.bwd_blocks(8192, 8) == (512, 8)
+    part_bc = scratch_floats(8, 64, 8192, 16) - 8 * 8192 * 16
+    assert 4 * part_bc == 4_194_304
+    assert 4 * part_bc * CLUSTER == 2 * 8 * 64 * 512 * 16 * 4
 
 
 @pytest.mark.parametrize("n", [0, MAX_STATE + 1, 64])
@@ -175,3 +203,37 @@ def test_cuda_scan_ragged_plans(di, n):
             assert (err_y <= 2.0 ** -7 * want_y.double().abs()
                     + 2.0 ** -16).all()
         assert ((h - want_h).abs() <= 1e-5 * (1 + want_h.abs())).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("di,n", [(16, 8), (24, 4), (100, 12), (128, 8),
+                                  (200, 4), (8192, 16)])
+def test_cuda_scan_bwd_clusters(di, n):
+    """The backward on one cluster padded from 1, 2 and 7 channel blocks,
+    one of 8 blocks, two padded from 13, and Jamba's 64, against the plain
+    backward, f32 and bf16: each output within 1e-4 (f32) or 1e-2 (bf16)
+    of its largest value; two calls, and each sequence alone, bit for
+    bit."""
+    _require_cuda()
+    for dtype in DTYPES:
+        args = _inputs(3, 19, di, n, seed=di + n, dtype=dtype, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(di)
+        gy = torch.randn((3, 19, di), generator=gen, device="cuda").to(dtype)
+        ght = torch.randn((3, di, n), generator=gen, device="cuda")
+        _, _, states = tscan.selective_scan_fwd(*args)
+        got = tscan.selective_scan_bwd(*args, gy, states, ght)
+        again = tscan.selective_scan_bwd(*args, gy, states, ght)
+        want = tref.selective_scan_bwd(*args, gy, ght)
+        for g, g2, w in zip(got, again, want):
+            assert torch.equal(g, g2)
+            tol = 1e-2 if g.dtype == torch.bfloat16 else 1e-4
+            assert ((g.double() - w.double()).abs().max().item()
+                    <= tol * max(1.0, w.double().abs().max().item()))
+        for i in range(3):
+            one = [v[i:i + 1] for v in args[:4]]
+            _, _, st = tscan.selective_scan_fwd(*one, args[4],
+                                                args[5][i:i + 1])
+            alone = tscan.selective_scan_bwd(*one, args[4], args[5][i:i + 1],
+                                             gy[i:i + 1], st, ght[i:i + 1])
+            for g, w in zip(alone[:4], got[:4]):
+                assert torch.equal(g, w[i:i + 1])

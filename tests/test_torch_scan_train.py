@@ -170,7 +170,8 @@ def test_bwd_wrapper_on_cpu_is_the_plain_backward():
     with pytest.raises(ValueError, match="gy"):
         tscan.selective_scan_bwd(*args[:6], args[6][:, :4])
     assert tscan.saved_states(9) == 3 and tscan.saved_states(8) == 2
-    assert tscan.scratch_floats(2, 9, 24, 8) == 2 * 2 * 9 * 2 * 8 + 2 * 24 * 8
+    # di = 24: 2 channel blocks in one cluster, one partial of gbm and gc.
+    assert tscan.scratch_floats(2, 9, 24, 8) == 2 * 2 * 9 * 1 * 8 + 2 * 24 * 8
 
 
 # ---------------------------------------------------------------------------
